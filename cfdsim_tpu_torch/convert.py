@@ -1,0 +1,38 @@
+"""Carry a simulation state between numpy and the port.
+
+A CFD case has no weights: its state (u, v, p, t, step) is what moves
+between the JAX package and this one. Pass the JAX arrays through
+``np.asarray`` on the way in and build a JAX state from the numpy dict on
+the way out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cfdsim_tpu_torch.models.incompressible import IncompressibleState
+
+
+def state_from_numpy(u, v, p, t, step, device) -> IncompressibleState:
+    """An :class:`IncompressibleState` on ``device`` from numpy arrays
+    (fields cast to float32, ``t`` to a 0-dim float32, ``step`` to int32)."""
+
+    def field(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    return IncompressibleState(
+        u=field(u),
+        v=field(v),
+        p=field(p),
+        t=torch.tensor(np.float32(t), device=device),
+        step=torch.tensor(np.int32(step), device=device),
+    )
+
+
+def state_to_numpy(state: IncompressibleState) -> dict:
+    """``{"u", "v", "p": float32 arrays, "t": np.float32, "step": np.int32}``."""
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in ("u", "v", "p")}
+    out["t"] = np.float32(state.t.item())
+    out["step"] = np.int32(state.step.item())
+    return out
