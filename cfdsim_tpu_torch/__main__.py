@@ -3,11 +3,16 @@
     python -m cfdsim_tpu_torch list
     python -m cfdsim_tpu_torch run cavity --n 1024 --Re 1000 \\
         --fused-predictor true --t-final 0.5 --device cuda
-    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile]
+    python -m cfdsim_tpu_torch run cylinder --device cuda --ref-parity true \\
+        --scheme supg --max-steps 200
+    python -m cfdsim_tpu_torch run cavity --n 1024 --Re 1000 --poisson mg:2
+    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder]
 
 Unknown ``--key value`` pairs on ``run`` are forwarded to the case builder
-(ints/floats/bools auto-parsed). ``--device`` defaults to ``cuda`` and is
-never swapped for another device: without a card, pass ``--device cpu``.
+(ints/floats/bools auto-parsed; ``--poisson`` takes
+"method[:iters[:omega]]", e.g. "mg:2" or "rbsor:100:1.7"). ``--device``
+defaults to ``cuda`` and is never swapped for another device: without a
+card, pass ``--device cpu``.
 Snapshots, ``--resume``, ``--render`` and ``--io`` are not ported yet and
 are refused.
 """
@@ -110,6 +115,10 @@ def cmd_bench(args, _extra):
         rows = bench.run_sweep(device=device)
     elif args.profile:
         rows = bench.run_profile(n=args.n, device=device)
+    elif args.all:
+        rows = bench.run_all(n=args.n, device=device)
+    elif args.cylinder:
+        rows = bench.run_cylinder(device=device)
     else:
         rows = [bench.run_bench(n=args.n, device=device)]
     for row in rows:
@@ -140,7 +149,12 @@ def main(argv=None):
     mode.add_argument("--sweep", action="store_true",
                       help="per-size device times and eager cells/s, 256² to 4096²")
     mode.add_argument("--profile", action="store_true",
-                      help="device events, busy time and idle share per step at --n")
+                      help="device events, busy time and idle share per step: the --n "
+                           "cavity (DCT, MG) and the ref-parity cylinder")
+    mode.add_argument("--all", action="store_true",
+                      help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s at --n")
+    mode.add_argument("--cylinder", action="store_true",
+                      help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
 
     args, unknown = p.parse_known_args(argv)
     extra = _extra_kwargs(unknown)

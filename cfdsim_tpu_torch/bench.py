@@ -13,12 +13,19 @@ in ``torch.cuda.synchronize()``.
 and plain torch), of one DCT solve (rfft and rfft2) and of one step (fused
 and unfused), next to the eager cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
-busy time against the wall time. Every function here refuses to run without
-a CUDA device: a CPU number is not a device metric.
+busy time against the wall time. ``--all`` is the twin of the JAX bench's
+``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
+sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
+solves/s at 1024². ``--cylinder`` times the reference-parity cylinder at
+600×180 with its pressure solve through kernel A and through streaming
+rbsor. Every function here refuses to run without a CUDA device: a CPU
+number is not a device metric.
 
     python -m cfdsim_tpu_torch bench [--n 1024]
     python -m cfdsim_tpu_torch bench --sweep
     python -m cfdsim_tpu_torch bench --profile [--n 1024]
+    python -m cfdsim_tpu_torch bench --all [--n 1024]
+    python -m cfdsim_tpu_torch bench --cylinder
 """
 
 from __future__ import annotations
@@ -30,17 +37,23 @@ import time
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.cases import lid_cavity
+from cfdsim_tpu_torch.cases import cylinder, lid_cavity
+from cfdsim_tpu_torch.grid import Grid
+from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.models.incompressible import make_chunk
+from cfdsim_tpu_torch.ops.kernels import poisson_rb
 from cfdsim_tpu_torch.ops.kernels.predictor import (
     fused_predictor_central,
     fused_predictor_central_ref,
 )
-from cfdsim_tpu_torch.solvers.poisson import NeumannDCT, PoissonConfig
+from cfdsim_tpu_torch.solvers.poisson import NeumannDCT, PoissonConfig, PoissonSolver
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit, device_ms, eager_ms
 
 # the JAX package's autotuner is not ported: the bench names its variant
 POISSON = PoissonConfig(method="dct", dct_variant="rfft2")
+# the reference-parity cylinder's pressure budget through kernel A
+CYLINDER_KERNEL_POISSON = PoissonConfig(method="rbsor_pallas", iters=1500, tol=1e-8,
+                                        check_every=50, omega=1.7)
 
 
 def _require_cuda(device) -> torch.device:
@@ -189,40 +202,184 @@ def run_sweep(device="cuda"):
         yield row
 
 
-def run_profile(n=1024, steps=50, device="cuda"):
-    """Per step of the main path (compute_metrics off), fused and unfused:
-    device events and device busy time under ``torch.profiler``, against
-    the wall time of the same chunk run without the profiler; plus the ten
-    ops with the most device time."""
+def _profile(case, steps, device, card, **labels):
+    """Device events and busy time per step of ``steps`` steps of ``case``
+    under ``torch.profiler``, against the wall time of the same chunk run
+    without the profiler; plus the ten ops with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    chunk = make_chunk(case.cfg, case.step, steps)
+    cfl = torch.ones((), dtype=torch.float32, device=device)
+    state, _ = chunk(case.state, cfl)  # warm-up: cuFFT plans, kernel build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the wall time without the profiler's cost
+    chunk(state, cfl)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk(state, cfl)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    top = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), reverse=True)[:10]
+    return {
+        **labels,
+        "steps": steps,
+        "device_events_per_step": len(events) / steps,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "top_self_device_us": [[us, key, count] for us, key, count in top],
+        "card": card,
+    }
+
+
+def run_profile(n=1024, steps=50, device="cuda"):
+    """Per step, with compute_metrics off: the main path fused and unfused,
+    then the reference-parity cylinder through kernel A (600×180) and the
+    n² cavity with ``poisson="mg:2"`` (kernels A and B)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for fused in (True, False):
-        case = _cavity(n, fused, device)
-        chunk = make_chunk(case.cfg, case.step, steps)
-        cfl = torch.ones((), dtype=torch.float32, device=device)
-        state, _ = chunk(case.state, cfl)  # warm-up: cuFFT plans, kernel build
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()  # the wall time without the profiler's cost
-        chunk(state, cfl)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            chunk(state, cfl)
+        yield _profile(_cavity(n, fused, device), steps, device, card, path=f"cavity{n}_dct",
+                       n=n, fused_predictor=fused)
+    yield _profile(cylinder(ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
+                            compute_metrics=False, device=device),
+                   20, device, card, path="cylinder600x180_rbsor_pallas")
+    yield _profile(lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False,
+                              device=device),
+                   steps, device, card, path=f"cavity{n}_mg2", n=n)
+
+
+def _marginal(body, x, r1=20, r2=200):
+    """Seconds per call of ``x = body(x)``, marginal between ``r1`` and
+    ``r2`` calls from the same ``x`` (best of three each), each run ending in
+    a synchronize: the per-run constant cancels, the host dispatch of every
+    call stays in."""
+
+    def run(reps):
+        best = float("inf")
+        for _ in range(3):
+            y = x
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        busy_us = sum(e.time_range.elapsed_us() for e in events)
-        top = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                      if e.self_device_time_total > 0), reverse=True)[:10]
-        yield {
-            "n": n,
-            "fused_predictor": fused,
-            "steps": steps,
-            "device_events_per_step": len(events) / steps,
-            "device_busy_ms_per_step": busy_us / steps / 1e3,
-            "wall_ms_per_step": wall_us / steps / 1e3,
-            "device_idle_share": 1.0 - busy_us / wall_us,
-            "top_self_device_us": [[us, key, count] for us, key, count in top],
-            "card": card,
-        }
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                y = body(y)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    run(r1)  # warm-up: kernel build, cuFFT plans
+    return (run(r2) - run(r1)) / (r2 - r1)
+
+
+def run_all(n=1024, device="cuda"):
+    """The secondary metrics at n² (the twin of ``bench.py::run_secondary``),
+    one row each: marginal streaming rbsor sweeps/s, RB-SOR kernel sweeps/s
+    (``rbsor_pallas``: the blocked kernel above 512²), multigrid V-cycles/s
+    with kernel and with plain smoothing, and DCT solves/s."""
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(0)
+    rhs = _field(rng, n, device)
+    rows = [
+        ("poisson_rbsor_sweeps_per_sec", "sweeps/s", PoissonConfig(method="rbsor", iters=1)),
+        ("poisson_rbsor_kernel_sweeps_per_sec", "sweeps/s",
+         PoissonConfig(method="rbsor_pallas", iters=1)),
+        ("poisson_mg_vcycles_per_sec", "vcycles/s", PoissonConfig(method="mg", iters=1)),
+        ("poisson_mg_plain_smoothing_vcycles_per_sec", "vcycles/s",
+         PoissonConfig(method="mg", iters=1, mg_pallas_smooth=False)),
+        ("poisson_dct_solves_per_sec", "solves/s", PoissonConfig(method="dct")),
+    ]
+    for metric, unit, cfg in rows:
+        solver = PoissonSolver((n, n), h, h, cfg, device=device)
+        seconds = _marginal(lambda p, s=solver: s(p, rhs), torch.zeros_like(rhs))
+        phi0 = torch.zeros_like(rhs)
+        yield {"metric": f"{metric}_{n}", "value": 1.0 / seconds, "unit": unit,
+               "seconds_per_call": seconds, "eager": True,
+               # the same call replayed from a CUDA graph: no host dispatch
+               "device_ms_per_call": device_ms(lambda s=solver: s(phi0, rhs), 10),
+               "device": torch.cuda.get_device_name(device), "card": card}
+
+
+def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):
+    """Eager steps/s of the reference-parity cylinder (``ref_parity=True,
+    scheme="supg"``) at nx×ny, marginal between a short and a long chunk
+    from the initial state, with the pressure solve through kernel A
+    (``rbsor_pallas``) and through streaming ``rbsor`` (the case's default),
+    in turns kernel, streaming, streaming, kernel. Each row also gives the
+    early-exit chunks run per step of the kernel path (counted on the
+    device)."""
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    turns = (("rbsor_pallas", CYLINDER_KERNEL_POISSON), ("rbsor", None),
+             ("rbsor", None), ("rbsor_pallas", CYLINDER_KERNEL_POISSON))
+    for method, pois in turns:
+        case = cylinder(nx=nx, ny=ny, ref_parity=True, scheme="supg", poisson=pois,
+                        compute_metrics=False, device=device)
+        # the streaming solve reads its residual on the host per 50 sweeps:
+        # ~100× slower, so it gets shorter chunks
+        n1, n2 = (short, long) if method == "rbsor_pallas" else (2, 6)
+        t_short, _ = _timed_chunk(case, case.state, n1)
+        chunks = case.step.poisson.chunks_run
+        chunks.zero_()
+        t_long, state = _timed_chunk(case, case.state, n2)
+        if not bool(torch.isfinite(state.u).all()):
+            raise RuntimeError("non-finite state after the long chunk")
+        row = {"metric": f"cylinder_ref_parity_steps_per_sec_{nx}x{ny}", "poisson": method,
+               "value": (n2 - n1) / (t_long - t_short), "unit": "steps/s",
+               "t_short_s": t_short, "t_long_s": t_long, "steps": [n1, n2], "eager": True,
+               "device": torch.cuda.get_device_name(device), "card": card}
+        if method == "rbsor_pallas":  # the long chunk ran 4 times (warm-up + best of 3)
+            row["kernel_chunks_per_step"] = int(chunks) / (4 * n2)
+            # one step replayed from a CUDA graph (the streaming solve reads
+            # its residual on the host, so it cannot be captured)
+            cfl = torch.ones((), dtype=torch.float32, device=device)
+            row["step_device_ms"] = device_ms(lambda c=case, s=state: c.step(s, cfl), 5)
+        yield row
+
+
+def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, device="cuda") -> dict:
+    """Device ms of one kernel-A call of ``sweeps`` sweeps with the
+    cylinder's solid mask (the cylinder's 50-sweep chunk by default),
+    against its plain version, in turns plain, kernel, kernel, plain. The
+    inputs stay the same between calls: in the cylinder's solve φ and rhs
+    (0.86 MB) are in L2 as well."""
+    device = _require_cuda(device)
+    ny, nx = shape
+    rng = np.random.default_rng(0)
+    rhs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+    phi = torch.zeros_like(rhs)
+    grid = Grid(nx=nx, ny=ny, x_max=20.0, y_max=4.0)  # the cylinder case's domain
+    solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
+    mask = torch.as_tensor(solid, dtype=torch.float32, device=device)
+    args = (phi, rhs, grid.dx, grid.dy, sweeps, 1.7, "neumann", mask)
+    fns = {"kernel": lambda: poisson_rb.rbsor(*args), "plain": lambda: poisson_rb.rbsor_ref(*args)}
+    out = {"shape": list(shape), "sweeps": sweeps, "masked": True,
+           "fluid_cells": int(ny * nx - int(solid.sum()))}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        n = reps if which == "kernel" else max(1, reps // 10)
+        out.setdefault(f"{which}_device_ms", []).append(device_ms(fns[which], n))
+    return out
+
+
+def rbsor_blocked_ms(n=1024, sweeps=2, reps=50, device="cuda") -> dict:
+    """Device ms of one kernel-B call of ``sweeps`` Neumann sweeps at n² (2
+    is the multigrid fine level's smoothing call), against its plain
+    version, in turns plain, kernel, kernel, plain; φ and rhs rotate through
+    a ring of buffers twice the L2 (:func:`_ring_len`)."""
+    device = _require_cuda(device)
+    rng = np.random.default_rng(0)
+    h = 1.0 / (n - 1)
+    ring = _ring_len(device, 3 * 4 * n * n)  # φ, rhs in; φ out
+    args = [(_field(rng, n, device), _field(rng, n, device), h, h, sweeps, 1.0)
+            for _ in range(ring)]
+    fns = {"kernel": _ring(poisson_rb.rbsor_blocked, args),
+           "plain": _ring(poisson_rb.rbsor_blocked_ref, args)}
+    out = {"n": n, "sweeps": sweeps, "ring": ring}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        n_reps = reps if which == "kernel" else max(1, reps // 10)
+        out.setdefault(f"{which}_device_ms", []).append(device_ms(fns[which], n_reps))
+    return out

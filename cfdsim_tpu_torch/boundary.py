@@ -14,6 +14,9 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
+import torch
+
 SIDES = ("x_lo", "x_hi", "y_lo", "y_hi")
 
 
@@ -68,6 +71,48 @@ def lid_cavity_bcs(lid_velocity: float = 1.0) -> Callable:
             f[0, :] = 0.0
         u[-1, :] = lid_velocity
         v[-1, :] = 0.0
+        return u, v
+
+    return apply
+
+
+def channel_bcs(u_in: float = 1.0, profile=None) -> Callable:
+    """Channel / Poiseuille: inflow at x_lo (uniform ``u_in`` or the 1D
+    ``profile`` tensor), zero-gradient outflow at x_hi, no-slip walls at
+    y_lo / y_hi."""
+
+    def apply(u, v, step=None, t=None):
+        u[:, 0] = u_in if profile is None else profile
+        v[:, 0] = 0.0
+        u[:, -1] = u[:, -2]
+        v[:, -1] = v[:, -2]
+        for f in (u, v):
+            f[0, :] = 0.0
+            f[-1, :] = 0.0
+        return u, v
+
+    return apply
+
+
+def cylinder_inflow_bcs(v_inf: float, y_coords, y_max: float, perturb_amp: float = 0.01,
+                        perturb_ramp_steps: int = 1000, *, device) -> Callable:
+    """External-flow BCs for the cylinder case: inflow
+    u = V∞(1 + ε·sin(2πy/y_max + 0.02·step)) with ε ramped from 0 to
+    ``perturb_amp`` over ``perturb_ramp_steps`` (the vortex-shedding
+    trigger), Neumann outflow, no-slip top and bottom walls. ``step`` is
+    the state's 0-dim int32 device tensor, so no value leaves the device."""
+    y = torch.as_tensor(np.asarray(y_coords), dtype=torch.float32, device=device)
+
+    def apply(u, v, step, t=None):
+        scale = (step / perturb_ramp_steps).clamp(max=1.0) * perturb_amp
+        pert = scale * torch.sin(2.0 * np.pi * y / y_max + 0.02 * step)
+        u[:, 0] = v_inf * (1.0 + pert)
+        v[:, 0] = 0.0
+        u[:, -1] = u[:, -2]
+        v[:, -1] = v[:, -2]
+        for f in (u, v):
+            f[0, :] = 0.0
+            f[-1, :] = 0.0
         return u, v
 
     return apply

@@ -1,17 +1,19 @@
 """Incompressible Navier–Stokes: Chorin fractional-step projection
-(``cfdsim_tpu.models.incompressible``, the collocated main path).
+(``cfdsim_tpu.models.incompressible``, the collocated tier).
 
 One call of :class:`IncompressibleStep` advances the state one step:
-adaptive dt → predictor → BCs → exact DCT pressure projection → corrector
-→ BCs → clipping, plus on-device diagnostics. dt stays a 0-dim float32
-tensor on the device and the step never reads a value back to the host, so
-steps queue on the card without a synchronisation.
+adaptive (or fixed, or warm-up) dt → convection (central, upwind, SUPG) →
+explicit predictor → BCs → IBM penalization → pressure projection (any
+ported Poisson method, warm-started from the last pressure, masked inside
+solids when ``masked_poisson``) → corrector → divergence cleanup → BCs →
+IBM → clipping, plus on-device diagnostics and the body forces. dt stays a
+0-dim float32 tensor on the device and the step reads nothing back to the
+host, except the streaming ``jacobi``/``rbsor`` early exit, which checks its
+residual on the host once per ``check_every`` sweeps.
 
-Ported so far: ``scheme="central"``, explicit diffusion, no LES, IBM,
-forcing or divergence cleanup, ``storage="fp32"``, the DCT Poisson solve,
-``compute_metrics`` on and off, and ``fused_predictor`` on (the CUDA kernel
-of ``ops/kernels/predictor.py``) and off. Other values raise
-``NotImplementedError`` at build time.
+Not ported: ``scheme="tvd"``, LES, implicit diffusion, body forcing and
+``storage="bf16"``; they raise ``NotImplementedError`` at build time.
+``fused_predictor`` runs the CUDA kernel of ``ops/kernels/predictor.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,13 @@ import torch
 from torch import nn
 
 from cfdsim_tpu_torch.grid import Grid
-from cfdsim_tpu_torch.ops.convection import convection_central
+from cfdsim_tpu_torch.ibm import apply_ibm, ibm_ramp
+from cfdsim_tpu_torch.ops.convection import (
+    convection_central,
+    convection_supg,
+    convection_upwind,
+    supg_tau,
+)
 from cfdsim_tpu_torch.ops.kernels.predictor import fused_predictor_central
 from cfdsim_tpu_torch.ops.stencil import (
     curl,
@@ -34,11 +42,13 @@ from cfdsim_tpu_torch.ops.stencil import (
     laplacian_coeff,
 )
 from cfdsim_tpu_torch.solvers.poisson import (
-    NeumannDCT,
     PoissonConfig,
-    check_ported,
+    PoissonSolver,
+    _neighbor_sum_dirichlet,
     poisson_residual,
 )
+
+SCHEMES = ("central", "upwind", "supg", "supg_refparity")
 
 
 class IncompressibleState(NamedTuple):
@@ -53,8 +63,9 @@ class IncompressibleState(NamedTuple):
 
 class StepMetrics(NamedTuple):
     """Per-step diagnostics as 0-dim device tensors (stacked by the runner
-    and read on the host once per chunk). ``fx``/``fy``/``fz`` are the
-    immersed-body forces of the JAX package, 0 here (no IBM is ported)."""
+    and read on the host once per chunk). ``fx``/``fy`` are the forces on
+    the immersed body (the momentum the penalization removes, per unit
+    density; 0 without a body); ``fz`` is the 3D bodies' and 0 here."""
 
     dt: torch.Tensor
     div_pre: torch.Tensor  # max |div u*| before projection
@@ -70,25 +81,33 @@ class StepMetrics(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class IncompressibleConfig:
-    """Static solver configuration: the JAX package's fields that the ported
-    path reads, with the same defaults. ``scheme``, ``diffusion``,
-    ``use_les``, ``cleanup_iters`` and ``storage`` accept only their ported
-    value (the step refuses others); the JAX package's other fields
-    (fixed dt and fixed-dt warmup, implicit solver, LES constant, IBM ramp,
-    masked Poisson) belong to paths that are not ported and are absent."""
+    """Static solver configuration: the JAX package's fields, with the same
+    defaults, less the implicit-diffusion solver's knobs. ``scheme="tvd"``,
+    ``diffusion="implicit"``, ``use_les=True`` and ``storage="bf16"`` are
+    accepted here and refused by the step (``smagorinsky_constant`` is
+    carried for the LES path that is not ported)."""
 
     grid: Grid
     nu: float
-    scheme: str = "central"
+    scheme: str = "central"  # central | upwind | supg | supg_refparity (tvd: not ported)
     diffusion: str = "explicit"
     use_les: bool = False
+    smagorinsky_constant: float = 0.17
     artificial_viscosity: float = 0.0
-    poisson: PoissonConfig = PoissonConfig()
+    poisson: PoissonConfig = PoissonConfig(method="rbsor", iters=100, omega=1.7)
+    # adaptive time stepping; else dt = dt_base. The first warmup_steps
+    # steps take warmup_dt.
+    adaptive_dt: bool = True
     cfl_target: float = 0.5
+    dt_base: float = 1e-3
     dt_min: float = 1e-7
     dt_max: float = 1.0
-    max_velocity: float = 1e3
-    cleanup_iters: int = 0
+    warmup_steps: int = 0
+    warmup_dt: float = 0.0
+    max_velocity: float = 1e3  # clip bound
+    cleanup_iters: int = 0  # extra divergence-cleanup sweeps after the corrector
+    ibm_ramp_steps: int = 0  # IBM force ramp over the first steps
+    masked_poisson: bool = False  # φ frozen inside solids
     compute_metrics: bool = True
     # fuse the explicit central predictor (conv + lap + axpy for u AND v)
     # into one pass: the hand-written CUDA kernel on the card. Requires
@@ -116,11 +135,15 @@ def init_state(cfg: IncompressibleConfig, u0=None, v0=None, p0=None, *, device):
 
 
 def _check_ported(cfg: IncompressibleConfig) -> None:
+    if cfg.scheme not in SCHEMES:
+        if cfg.scheme == "tvd":
+            raise NotImplementedError(
+                "scheme='tvd' is not ported yet (it needs ops/limiters.py); see "
+                "ROADMAP.md queue 1")
+        raise ValueError(f"unknown scheme {cfg.scheme!r}")
     unported = {
-        "scheme": (cfg.scheme, "central"),
         "diffusion": (cfg.diffusion, "explicit"),
         "use_les": (cfg.use_les, False),
-        "cleanup_iters": (cfg.cleanup_iters, 0),
         "storage": (cfg.storage, "fp32"),
     }
     for name, (got, ported) in unported.items():
@@ -129,20 +152,36 @@ def _check_ported(cfg: IncompressibleConfig) -> None:
                 f"{name}={got!r} is not ported yet (only {ported!r}); see "
                 "ROADMAP.md queue 1 for the order in which the rest follows"
             )
-    check_ported(cfg.poisson)
+
+
+def _cleanup_divergence(u, v, dx, dy, iters: int):
+    """Extra projection sweeps after the corrector: φ (zero on the frame)
+    persists across sweeps; each sweep does one Jacobi update of the
+    interior, then subtracts ∇φ."""
+    ax, ay = 1.0 / (dx * dx), 1.0 / (dy * dy)
+    denom_inv = 1.0 / (2.0 * (ax + ay))
+    phi = torch.zeros_like(u)
+    for _ in range(iters):
+        # the neighbour sum and the divergence are zero on the frame
+        phi = (_neighbor_sum_dirichlet(phi, ax, ay) - divergence(u, v, dx, dy)) * denom_inv
+        gx, gy = gradient(phi, dx, dy)
+        u = u - gx
+        v = v - gy
+    return u, v
 
 
 class IncompressibleStep(nn.Module):
     """``step(state, cfl_scale) -> (state, StepMetrics)`` for one case.
 
     Constant tables live in registered buffers on the device the step was
-    built for: the Poisson solver's 1/λ table and twiddles, the width-2
-    interior mask of the post-projection divergence metric, and a zero.
-    ``cfl_scale`` is a 0-dim float32 tensor (or a Python float) — the
-    host-controlled CFL back-off factor.
+    built for: the Poisson solver's (masks, 1/λ, level tables), the IBM
+    mask, the width-2 interior mask of the post-projection divergence
+    metric, and the fixed and warm-up dt. ``cfl_scale`` is a 0-dim float32
+    tensor (or a Python float): the host-controlled CFL back-off factor.
     """
 
-    def __init__(self, cfg: IncompressibleConfig, bc_fn: Callable, *, device):
+    def __init__(self, cfg: IncompressibleConfig, bc_fn: Callable, solid_mask=None,
+                 ibm_mask=None, *, device):
         super().__init__()
         if cfg.fused_predictor and (
             cfg.scheme != "central" or cfg.diffusion != "explicit" or cfg.use_les
@@ -155,24 +194,56 @@ class IncompressibleStep(nn.Module):
         g = cfg.grid
         self.cfg = cfg
         self.bc_fn = bc_fn
-        self.poisson = NeumannDCT(
-            (g.ny, g.nx), g.dx, g.dy, cfg.poisson.dct_variant, device=device)
+        pois_mask = solid_mask if (cfg.masked_poisson and solid_mask is not None) else None
+        self.poisson = PoissonSolver((g.ny, g.nx), g.dx, g.dy, cfg.poisson, pois_mask,
+                                     device=device)
+        # the residual metric excludes the frozen cells even where the
+        # solver (dct, fft) ignores the mask
+        self.register_buffer("pois_mask", None if pois_mask is None else torch.as_tensor(
+            pois_mask, dtype=torch.bool, device=device))
+        self.register_buffer("ibm_mask", None if ibm_mask is None else torch.as_tensor(
+            ibm_mask, dtype=torch.float32, device=device))
         self.register_buffer("imask", interior_mask(g.shape, width=2, device=device))
         self.register_buffer("zero", torch.zeros((), dtype=torch.float32, device=device))
-        # ν_total + mean(ν_t) with ν_t = 0 (no LES): the viscous dt bound is
-        # a constant, evaluated once in float32 as the JAX package's trace
-        # evaluates it every step
+        self.register_buffer("dt_base", torch.tensor(
+            cfg.dt_base, dtype=torch.float32, device=device))
+        self.register_buffer("warmup_dt", torch.tensor(
+            cfg.warmup_dt, dtype=torch.float32, device=device))
+        # ν_eff = (ν + ν_t) + ν_art with ν_t = 0 (no LES), summed in float32
+        # as the JAX package sums its float32 arrays; the viscous dt bound is
+        # then a constant, evaluated once as its trace evaluates it per step
         nu_total = np.float32(cfg.nu) + np.float32(0.0) + np.float32(cfg.artificial_viscosity)
+        self.nu_eff = float(nu_total)
         h = min(g.dx, g.dy)
         self.dt_visc = float(np.float32(0.2 * h * h) / nu_total)
+        # the Neumann problem's solvability: the direct solvers discard the
+        # k=0 mode in-spectrum, the others take a mean-free rhs
+        self.subtract_mean = cfg.poisson.bc == "neumann" and cfg.poisson.method not in (
+            "dct", "fft")
 
-    def _adaptive_dt(self, u, v, cfl_scale):
-        """CFL + viscous dt with clipping (0-dim tensor)."""
+    def _dt(self, u, v, step, cfl_scale):
+        """CFL + viscous dt with clipping and the fixed-dt warm-up (0-dim)."""
         cfg = self.cfg
+        if not cfg.adaptive_dt:
+            return self.dt_base
         h = min(cfg.grid.dx, cfg.grid.dy)
         vel_max = torch.maximum(u.abs().amax(), v.abs().amax()).clamp(min=1e-10)
         dt_cfl = cfl_scale * cfg.cfl_target * h / vel_max
-        return dt_cfl.clamp(max=self.dt_visc).clamp(cfg.dt_min, cfg.dt_max)
+        dt = dt_cfl.clamp(max=self.dt_visc).clamp(cfg.dt_min, cfg.dt_max)
+        if cfg.warmup_steps > 0:
+            dt = torch.where(step < cfg.warmup_steps, self.warmup_dt, dt)
+        return dt
+
+    def _convection(self, u, v, dt):
+        cfg = self.cfg
+        dx, dy = cfg.grid.dx, cfg.grid.dy
+        if cfg.scheme in ("supg", "supg_refparity"):
+            tau = supg_tau(u, v, dx, dy, dt, self.nu_eff)
+            parity = cfg.scheme == "supg_refparity"
+            return (convection_supg(u, v, u, dx, dy, tau, ref_parity=parity),
+                    convection_supg(u, v, v, dx, dy, tau, ref_parity=parity))
+        conv = convection_upwind if cfg.scheme == "upwind" else convection_central
+        return conv(u, v, u, dx, dy), conv(u, v, v, dx, dy)
 
     def forward(self, state: IncompressibleState, cfl_scale):
         cfg = self.cfg
@@ -181,28 +252,48 @@ class IncompressibleStep(nn.Module):
         if not torch.is_tensor(cfl_scale):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
         u, v, p = state.u, state.v, state.p
-        dt = self._adaptive_dt(u, v, cfl_scale)
+        dt = self._dt(u, v, state.step, cfl_scale)
 
-        # --- predictor: ν_eff = ν + ν_t + ν_art with ν_t = 0, one scalar
-        nu_eff = cfg.nu + cfg.artificial_viscosity
+        # --- predictor
         if cfg.fused_predictor:
-            u_star, v_star = fused_predictor_central(u, v, dt, nu_eff, dx, dy)
+            u_star, v_star = fused_predictor_central(
+                u, v, dt, cfg.nu + cfg.artificial_viscosity, dx, dy)
         else:
-            conv_u = convection_central(u, v, u, dx, dy)
-            conv_v = convection_central(u, v, v, dx, dy)
-            u_star = u + dt * (laplacian_coeff(u, dx, dy, nu_eff) - conv_u)
-            v_star = v + dt * (laplacian_coeff(v, dx, dy, nu_eff) - conv_v)
+            conv_u, conv_v = self._convection(u, v, dt)
+            u_star = u + dt * (laplacian_coeff(u, dx, dy, self.nu_eff) - conv_u)
+            v_star = v + dt * (laplacian_coeff(v, dx, dy, self.nu_eff) - conv_v)
         u_star, v_star = self.bc_fn(u_star, v_star, state.step, state.t)
 
-        # --- pressure projection; the direct solve discards the k=0 mode
-        # in-spectrum, so rhs needs no mean subtraction
+        # --- IBM on the predictor; the damped momentum is the force on the
+        # body, summed over both IBM applications
+        ibm = self.ibm_mask is not None
+        forces = []
+        if ibm:
+            strength = ibm_ramp(state.step, cfg.ibm_ramp_steps)
+            u_pre, v_pre = u_star, v_star
+            u_star, v_star = apply_ibm(u_star, v_star, self.ibm_mask, strength)
+            if cfg.compute_metrics:
+                forces.append(((u_pre - u_star).sum(), (v_pre - v_star).sum()))
+
+        # --- pressure projection, warm-started from the last pressure
         div_star = divergence(u_star, v_star, dx, dy)
         rhs = div_star / dt
-        phi = self.poisson(rhs)
+        if self.subtract_mean:
+            rhs = rhs - rhs.mean()
+        phi = self.poisson(p, rhs)
         gx, gy = gradient(phi, dx, dy)
         u_new = u_star - dt * gx
         v_new = v_star - dt * gy
+
+        # --- divergence cleanup, BCs, IBM, clipping
+        if cfg.cleanup_iters > 0:
+            u_new, v_new = _cleanup_divergence(u_new, v_new, dx, dy, cfg.cleanup_iters)
         u_new, v_new = self.bc_fn(u_new, v_new, state.step, state.t)
+        if ibm:
+            u_pre2, v_pre2 = u_new, v_new
+            u_new, v_new = apply_ibm(u_new, v_new, self.ibm_mask, strength)
+            if cfg.compute_metrics:
+                forces.append(((u_pre2 - u_new).sum(), (v_pre2 - v_new).sum()))
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
 
@@ -210,30 +301,38 @@ class IncompressibleStep(nn.Module):
             u=u_new, v=v_new, p=phi, t=state.t + dt, step=state.step + 1)
 
         zero = self.zero
-        if cfg.compute_metrics:
-            div_post = divergence(u_new, v_new, dx, dy)
-            vort = curl(u_new, v_new, dx, dy)
-            metrics = StepMetrics(
-                dt=dt,
-                div_pre=div_star.abs().amax(),
-                div_post=(div_post.abs() * self.imask).amax(),
-                max_vel=torch.maximum(u_new.abs().amax(), v_new.abs().amax()),
-                energy=(0.5 * (u_new * u_new + v_new * v_new)).mean(),
-                vort_max=vort.abs().amax(),
-                poisson_res=poisson_residual(phi, rhs, dx, dy, None, cfg.poisson.bc),
-                fx=zero,
-                fy=zero,
-                fz=zero,
-            )
-        else:
-            metrics = StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero, zero)
+        if not cfg.compute_metrics:
+            return new_state, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero,
+                                          zero, zero)
+        fx = fy = zero
+        if forces:
+            (fxa, fya), (fxb, fyb) = forces
+            fx = (fxa + fxb) * (dx * dy) / dt
+            fy = (fya + fyb) * (dx * dy) / dt
+        div_post = divergence(u_new, v_new, dx, dy)
+        vort = curl(u_new, v_new, dx, dy)
+        metrics = StepMetrics(
+            dt=dt,
+            div_pre=div_star.abs().amax(),
+            div_post=(div_post.abs() * self.imask).amax(),
+            max_vel=torch.maximum(u_new.abs().amax(), v_new.abs().amax()),
+            energy=(0.5 * (u_new * u_new + v_new * v_new)).mean(),
+            vort_max=vort.abs().amax(),
+            poisson_res=poisson_residual(phi, rhs, dx, dy, self.pois_mask, cfg.poisson.bc),
+            fx=fx,
+            fy=fy,
+            fz=zero,
+        )
         return new_state, metrics
 
 
-def make_step(cfg: IncompressibleConfig, bc_fn: Callable, *, device):
-    """Build the step module for a case on ``device`` (body forcing, IBM and
-    solid masks of the JAX ``make_step`` are not ported)."""
-    return IncompressibleStep(cfg, bc_fn, device=device)
+def make_step(cfg: IncompressibleConfig, bc_fn: Callable, solid_mask=None, ibm_mask=None,
+              *, device):
+    """Build the step module for a case on ``device``: ``solid_mask``
+    (bool) freezes φ in the pressure solve when ``cfg.masked_poisson``;
+    ``ibm_mask`` (float) enables penalization forcing. Body forcing is not
+    ported."""
+    return IncompressibleStep(cfg, bc_fn, solid_mask, ibm_mask, device=device)
 
 
 def make_chunk(cfg: IncompressibleConfig, step_fn: Callable, n_steps: int) -> Callable:

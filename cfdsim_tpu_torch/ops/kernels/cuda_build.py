@@ -18,7 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -53,7 +55,7 @@ def build_library(source: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -103,3 +105,21 @@ class CudaKernel:
             msg = self._lib.cfd_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {rc} ({msg})")
         self.launches += 1
+
+
+def build_all(kernels) -> dict:
+    """Compile the sources of ``kernels`` in parallel (one nvcc per source,
+    all started together), then load every kernel; return the seconds each
+    source took to build."""
+    sources = sorted({k.source for k in kernels})
+
+    def timed(source):
+        t0 = time.perf_counter()
+        build_library(source)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        seconds = dict(zip(sources, pool.map(timed, sources)))
+    for k in kernels:
+        k.build()
+    return seconds

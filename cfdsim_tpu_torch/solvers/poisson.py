@@ -1,5 +1,7 @@
-"""Pressure-Poisson solve: the exact Neumann DCT path of
-``cfdsim_tpu.solvers.poisson``.
+"""Pressure-Poisson solvers (``cfdsim_tpu.solvers.poisson``): Jacobi,
+red-black SOR (streaming, or the RB-SOR kernels), geometric multigrid,
+the periodic FFT solve, the exact Neumann DCT solve, and the DCT + masked
+SOR hybrid.
 
 All solvers share one convention:
 
@@ -12,12 +14,19 @@ exactly diagonal in the 2D DCT-II basis, which the ``"dct"`` method uses:
 forward DCT, multiply by 1/λ, inverse DCT, with the constant nullspace mode
 projected out. The FFTs run on ``torch.fft`` (cuFFT on the card); the
 Makhoul permutes, twiddles and the 1/λ multiply are plain torch around
-them.
+them. ``"dirichlet"`` keeps the one-node frame at φ0's values and updates
+only the interior (iterative methods only). An optional solid mask
+freezes φ inside embedded bodies.
 
-Ported so far: ``method="dct"`` with ``dct_variant`` "rfft" (one real FFT
-per axis; odd lengths use the even-extension transform) and "rfft2" (one 2D
-real FFT, even×even; other shapes take the per-axis path). The iterative
-methods, the other DCT variants and non-Neumann DCT raise
+``method="rbsor_pallas"`` and multigrid smoothing with
+``mg_pallas_smooth`` run the hand-written RB-SOR kernels of
+``ops/kernels/poisson_rb.py`` on CUDA tensors (their plain versions on the
+CPU). The streaming ``"jacobi"``/``"rbsor"`` early exit (``tol > 0``)
+reads the residual on the host once per ``check_every`` sweeps; the
+kernel path keeps it on the device.
+
+Not ported: the DCT variants ``auto``, ``packed``, ``matmul`` and
+``rfft_split*``, and ``"dct"`` with a non-Neumann ``bc``; they raise
 ``NotImplementedError``.
 """
 
@@ -31,46 +40,69 @@ from torch import nn
 
 from cfdsim_tpu_torch.ops.stencil import laplacian
 
-PORTED_METHODS = ("dct",)
+METHODS = ("jacobi", "rbsor", "rbsor_pallas", "mg", "fft", "dct", "hybrid")
 PORTED_DCT_VARIANTS = ("rfft", "rfft2")
 
 
 @dataclasses.dataclass(frozen=True)
 class PoissonConfig:
-    """Static configuration for the pressure solve: the JAX package's
-    fields and defaults, less the sweep, relaxation, early-exit and
-    multigrid knobs of the methods not ported yet (only "dct" with the
-    "rfft"/"rfft2" variants and the "neumann" BC is; :func:`check_ported`
-    refuses the rest).
+    """Static configuration for the pressure solve (the JAX package's
+    fields and defaults).
 
-    method: "jacobi" | "rbsor" | "rbsor_pallas" | "mg" | "fft" | "dct" | "hybrid"
-    bc: "neumann" | "dirichlet" | "periodic"
+    method: "jacobi" | "rbsor" | "rbsor_pallas" | "mg" | "fft" | "dct"
+            | "hybrid" (exact DCT + masked rbsor repair around solids)
+    iters: sweep budget (jacobi/rbsor/rbsor_pallas/hybrid) or number of
+        V-cycles (mg)
+    tol: if > 0, stop early once the max residual is ≤ tol, checked every
+        ``check_every`` sweeps, after at most ``max(1, iters //
+        check_every)`` checks
+    omega: SOR relaxation factor (1.0 = Gauss-Seidel)
+    bc: "neumann" | "dirichlet" for the iterative methods; "dct" solves
+        the neumann problem; "periodic" is solved only by "fft"
+    mg_pre/mg_post: smoothing sweeps per level; mg_coarse: coarsest sweeps
+    mg_pallas_smooth: multigrid smoothing through the RB-SOR kernels;
+        "auto" = for CUDA tensors (plain sweeps on the CPU), True/False force
     dct_variant: exact-DCT backend, "rfft" (per-axis real FFTs) or "rfft2"
         (one 2D real FFT, even×even; other shapes take the per-axis path)
     """
 
     method: str = "rbsor"
+    iters: int = 100
+    tol: float = 0.0
+    check_every: int = 8
+    omega: float = 1.7
     bc: str = "neumann"
+    mg_pre: int = 2
+    mg_post: int = 2
+    mg_coarse: int = 40
+    mg_min_size: int = 4
+    mg_pallas_smooth: bool | str = "auto"
     dct_variant: str = "rfft"
 
 
 def check_ported(cfg: PoissonConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port lacks."""
-    if cfg.method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"poisson method {cfg.method!r} is not ported yet (ported: "
-            f"{PORTED_METHODS}); the iterative methods and the RB-SOR kernels "
-            "are ROADMAP.md queue 1 slice 2 and queue 2"
-        )
-    if cfg.dct_variant not in PORTED_DCT_VARIANTS:
-        raise NotImplementedError(
-            f"dct_variant {cfg.dct_variant!r} is not ported yet (ported: "
-            f"{PORTED_DCT_VARIANTS}); the autotuner and the packed, matmul and "
-            "rfft_split variants are ROADMAP.md queue 1"
-        )
-    if cfg.bc != "neumann":
-        raise NotImplementedError(
-            f"the dct method solves the neumann problem only, got bc={cfg.bc!r}"
+    """Raise ``NotImplementedError`` for a configuration the port lacks and
+    ``ValueError`` for one the JAX package refuses too."""
+    if cfg.method not in METHODS:
+        raise ValueError(f"unknown poisson method {cfg.method!r}")
+    if cfg.method == "dct":
+        if cfg.dct_variant not in PORTED_DCT_VARIANTS:
+            raise NotImplementedError(
+                f"dct_variant {cfg.dct_variant!r} is not ported yet (ported: "
+                f"{PORTED_DCT_VARIANTS}); the autotuner and the packed, matmul and "
+                "rfft_split variants are ROADMAP.md queue 1"
+            )
+        if cfg.bc != "neumann":
+            raise NotImplementedError(
+                f"the dct method solves the neumann problem only, got bc={cfg.bc!r}"
+            )
+    elif cfg.method == "mg" and cfg.bc != "neumann":
+        raise ValueError("multigrid supports the neumann convention")
+    elif cfg.method in ("jacobi", "rbsor", "rbsor_pallas") and cfg.bc not in (
+            "neumann", "dirichlet"):
+        raise ValueError(
+            f"bc={cfg.bc!r} is solved only by method='fft'; the iterative "
+            "sweeps implement the neumann/dirichlet conventions"
         )
 
 
@@ -113,6 +145,104 @@ def poisson_residual(phi, rhs, dx: float, dy: float, solid_mask=None, bc="neuman
     if solid_mask is not None:
         r = torch.where(solid_mask.to(torch.bool), 0.0, r)
     return r.amax()
+
+
+def _color_masks(shape, bc: str, solid_mask, device):
+    """(red, black) boolean masks of updatable nodes (built once)."""
+    ny, nx = shape
+    ij = np.add.outer(np.arange(ny), np.arange(nx))
+    if bc == "neumann":
+        updatable = np.ones(shape, dtype=bool)
+    else:  # dirichlet: frame is fixed
+        updatable = np.zeros(shape, dtype=bool)
+        updatable[1:-1, 1:-1] = True
+    red = torch.from_numpy(((ij % 2) == 0) & updatable).to(device)
+    black = torch.from_numpy(((ij % 2) == 1) & updatable).to(device)
+    if solid_mask is not None:
+        fluid = ~torch.as_tensor(solid_mask, dtype=torch.bool, device=device)
+        red, black = red & fluid, black & fluid
+    return red, black
+
+
+# ---------------------------------------------------------------------------
+# smoothers
+# ---------------------------------------------------------------------------
+
+def _sweep(phi, rhs, dx: float, dy: float, colors, omega: float, bc: str):
+    """One smoothing sweep. ``colors`` is a tuple of update masks: one
+    entry → Jacobi; (red, black) → red-black Gauss–Seidel/SOR where the
+    black half reads the freshly updated red values."""
+    ax = 1.0 / (dx * dx)
+    ay = 1.0 / (dy * dy)
+    denom_inv = 1.0 / (2.0 * (ax + ay))
+    nb = _neighbor_sum_neumann if bc == "neumann" else _neighbor_sum_dirichlet
+    for color in colors:
+        phi_star = (nb(phi, ax, ay) - rhs) * denom_inv
+        upd = (1.0 - omega) * phi + omega * phi_star
+        phi = torch.where(color, upd, phi)
+    return phi
+
+
+def _iterate(sweep_fn, phi, rhs, cfg: PoissonConfig, dx, dy, solid_mask):
+    """Run sweeps for a fixed budget, or until tol with periodic checks.
+    The check reads the residual on the host (one synchronisation per
+    ``check_every`` sweeps); the number of chunks run equals the JAX
+    package's while_loop."""
+    if cfg.tol <= 0.0:
+        for _ in range(cfg.iters):
+            phi = sweep_fn(phi)
+        return phi
+    check = max(1, cfg.check_every)
+    for _ in range(max(1, cfg.iters // check)):
+        for _ in range(check):
+            phi = sweep_fn(phi)
+        if not bool(poisson_residual(phi, rhs, dx, dy, solid_mask, cfg.bc) > cfg.tol):
+            break
+    return phi
+
+
+# ---------------------------------------------------------------------------
+# geometric multigrid (Neumann, cell-centered convention)
+# ---------------------------------------------------------------------------
+
+def _restrict(r):
+    """Full-weighting restriction: 2x2 block average (halves both dims)."""
+    ny, nx = r.shape
+    return r.reshape(ny // 2, 2, nx // 2, 2).mean(dim=(1, 3))
+
+
+def _prolong_axis(e, axis: int):
+    """Bilinear cell-centered prolongation along one axis: fine value at 2i
+    gets weights (3/4, 1/4) from coarse cells (i, i−1), at 2i+1 from
+    (i, i+1), with clamped ends (consistent with the Neumann operator)."""
+    n = e.shape[axis]
+    lo = torch.cat([e.narrow(axis, 0, 1), e.narrow(axis, 0, n - 1)], axis)
+    hi = torch.cat([e.narrow(axis, 1, n - 1), e.narrow(axis, n - 1, 1)], axis)
+    a = 0.75 * e + 0.25 * lo
+    b = 0.75 * e + 0.25 * hi
+    shape = list(e.shape)
+    shape[axis] *= 2
+    return torch.stack([a, b], axis + 1).reshape(shape)
+
+
+def _prolong(e):
+    """Bilinear prolongation (doubles both dims)."""
+    return _prolong_axis(_prolong_axis(e, 0), 1)
+
+
+def _mg_level_shapes(shape, min_size: int):
+    shapes = [tuple(shape)]
+    ny, nx = shape
+    while ny % 2 == 0 and nx % 2 == 0 and min(ny, nx) // 2 >= min_size:
+        ny, nx = ny // 2, nx // 2
+        shapes.append((ny, nx))
+    return shapes
+
+
+def _mg_masks(shape, cfg: PoissonConfig, device):
+    """Red/black masks for every multigrid level (built once)."""
+    return [_color_masks(s, "neumann", None, device)
+            for s in _mg_level_shapes(shape, cfg.mg_min_size)]
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +422,178 @@ def solve_poisson_neumann_dct(rhs, dx: float, dy: float, variant: str = "rfft"):
     return NeumannDCT(tuple(rhs.shape), dx, dy, variant, device=rhs.device)(rhs)
 
 
+# ---------------------------------------------------------------------------
+# periodic FFT solve
+# ---------------------------------------------------------------------------
+
+def _periodic_eigenvalues(ny: int, nx: int, dx: float, dy: float, device):
+    """The discrete 5-point symbol (2cos(2πk/n)−2)/h², float32 as the JAX
+    package computes it, with λ[0, 0] = 1."""
+    kx = torch.fft.rfftfreq(nx, device=device)
+    ky = torch.fft.fftfreq(ny, device=device)
+    lam = (2.0 * torch.cos(2.0 * torch.pi * kx)[None, :] - 2.0) / (dx * dx) + (
+        2.0 * torch.cos(2.0 * torch.pi * ky)[:, None] - 2.0
+    ) / (dy * dy)
+    lam[0, 0] = 1.0
+    return lam
+
+
+def _solve_periodic(rhs, lam):
+    ny, nx = rhs.shape
+    phi_hat = torch.fft.rfft2(rhs) / lam
+    phi_hat[0, 0] = 0.0
+    return torch.fft.irfft2(phi_hat, s=(ny, nx)).to(rhs.dtype)
+
+
+def solve_poisson_periodic_fft(rhs, dx: float, dy: float):
+    """Exact solve of the 5-point FD Poisson problem on a fully periodic
+    grid with the discrete symbol λ(k) = (2cos(2πk/n)−2)/h², so the result
+    is consistent with the central-difference operators."""
+    ny, nx = rhs.shape
+    return _solve_periodic(rhs, _periodic_eigenvalues(ny, nx, dx, dy, rhs.device))
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+class PoissonSolver(nn.Module):
+    """``forward(phi0, rhs) -> φ`` for one (ny, nx) grid, configuration and
+    solid mask. Its tables (colour masks, multigrid level masks, the DCT
+    1/λ table and twiddles, the periodic symbol, the float solid mask the
+    kernels read) are buffers built once on ``device``. ``chunks_run``
+    counts, on the device, the early-exit chunks that
+    ``method="rbsor_pallas"`` with ``tol > 0`` ran."""
+
+    def __init__(self, shape, dx: float, dy: float, cfg: PoissonConfig = PoissonConfig(),
+                 solid_mask=None, *, device):
+        super().__init__()
+        check_ported(cfg)
+        self.shape = tuple(shape)
+        self.dx, self.dy, self.cfg = dx, dy, cfg
+        method = cfg.method
+        solid = None
+        if solid_mask is not None:
+            solid = torch.as_tensor(solid_mask, dtype=torch.bool, device=device)
+            if tuple(solid.shape) != self.shape:
+                raise ValueError(f"solid mask {tuple(solid.shape)} for grid {self.shape}")
+        if method == "mg" and solid is not None:
+            raise ValueError("multigrid is unmasked; use rbsor for masks")
+        if method in ("dct", "fft"):
+            solid = None  # the direct solves ignore the mask, as in the JAX package
+        self.register_buffer("solid", solid)
+        self.register_buffer("solid_f", None if solid is None else solid.to(torch.float32))
+        self.register_buffer("chunks_run", torch.zeros((), dtype=torch.int32, device=device))
+        self.dct = None
+        self.n_levels = 0
+        if method == "dct":
+            self.dct = NeumannDCT(self.shape, dx, dy, cfg.dct_variant, device=device)
+        elif method == "hybrid":
+            self.dct = NeumannDCT(self.shape, dx, dy, "rfft", device=device)
+            if solid is not None:
+                self._colours("", _color_masks(self.shape, "neumann", solid, device))
+        elif method == "fft":
+            self.register_buffer("lam", _periodic_eigenvalues(*self.shape, dx, dy, device))
+        elif method == "mg":
+            masks = _mg_masks(self.shape, cfg, device)
+            self.n_levels = len(masks)
+            for level, colours in enumerate(masks):
+                self._colours(str(level), colours)
+        elif method in ("jacobi", "rbsor"):
+            red, black = _color_masks(self.shape, cfg.bc, solid, device)
+            self._colours("", (red | black,) if method == "jacobi" else (red, black))
+
+    def _colours(self, tag: str, colours):
+        for name, mask in zip(("red", "black"), colours):
+            self.register_buffer(f"{name}{tag}", mask)
+
+    def _level_colours(self, tag: str):
+        return tuple(getattr(self, f"{n}{tag}") for n in ("red", "black")
+                     if getattr(self, f"{n}{tag}", None) is not None)
+
+    def _use_kernels(self, rhs) -> bool:
+        flag = self.cfg.mg_pallas_smooth
+        return flag is True or (flag == "auto" and rhs.device.type == "cuda")
+
+    def _vcycle(self, phi, rhs, dx, dy, level: int, use_kernels: bool):
+        cfg = self.cfg
+        colours = self._level_colours(str(level))
+        # plain red-black Gauss-Seidel (omega=1) is the multigrid smoother;
+        # over-relaxation hurts the smoothing factor
+
+        def smooth(p, n_sweeps):
+            if n_sweeps == 0:
+                return p
+            if use_kernels:
+                # unmasked Neumann: the blocked kernel above MAX_ELEMS, else
+                # kernel A
+                from cfdsim_tpu_torch.ops.kernels import poisson_rb
+
+                return poisson_rb.rbsor_routed(p, rhs, dx, dy, iters=n_sweeps, omega=1.0)
+            for _ in range(n_sweeps):
+                p = _sweep(p, rhs, dx, dy, colours, 1.0, "neumann")
+            return p
+
+        phi = smooth(phi, cfg.mg_pre)
+        if level == self.n_levels - 1:
+            return smooth(phi, cfg.mg_coarse)
+        # every node is fluid (multigrid is unmasked), so the JAX package's
+        # residual and correction masks select everything
+        r = rhs - lap_neumann(phi, dx, dy)
+        e_c = torch.zeros_like(r[::2, ::2])
+        e_c = self._vcycle(e_c, _restrict(r), 2 * dx, 2 * dy, level + 1, use_kernels)
+        phi = phi + _prolong(e_c)
+        return smooth(phi, cfg.mg_post)
+
+    def forward(self, phi0, rhs):
+        cfg = self.cfg
+        dx, dy = self.dx, self.dy
+        if tuple(rhs.shape) != self.shape:
+            raise ValueError(f"solver built for {self.shape}, got {tuple(rhs.shape)}")
+        if cfg.method == "fft":
+            return _solve_periodic(rhs, self.lam)
+        if cfg.method == "dct":
+            return self.dct(rhs)
+        if cfg.method == "hybrid":
+            # exact unmasked DCT solve, then masked red-black SOR sweeps that
+            # repair the solution around embedded solids
+            phi = self.dct(rhs)
+            if self.solid is not None:
+                phi = torch.where(self.solid, 0.0, phi)
+                colours = self._level_colours("")
+                for _ in range(cfg.iters):
+                    phi = _sweep(phi, rhs, dx, dy, colours, cfg.omega, "neumann")
+            return phi
+        if cfg.method == "mg":
+            use_kernels = self._use_kernels(rhs)
+            phi = phi0
+            for _ in range(cfg.iters):
+                phi = self._vcycle(phi, rhs, dx, dy, 0, use_kernels)
+            return phi
+        if cfg.method == "rbsor_pallas":
+            from cfdsim_tpu_torch.ops.kernels import poisson_rb
+
+            if cfg.tol <= 0.0:
+                return poisson_rb.rbsor_routed(phi0, rhs, dx, dy, iters=cfg.iters,
+                                               omega=cfg.omega, bc=cfg.bc,
+                                               solid_mask=self.solid_f)
+            # every chunk on kernel A, which reduces the residual and keeps
+            # the early-exit flag on the device
+            return poisson_rb.rbsor(phi0, rhs, dx, dy, iters=cfg.iters, omega=cfg.omega,
+                                    bc=cfg.bc, solid_mask=self.solid_f, tol=cfg.tol,
+                                    check_every=cfg.check_every, chunks_run=self.chunks_run)
+        omega = 1.0 if cfg.method == "jacobi" else cfg.omega
+        colours = self._level_colours("")
+
+        def sweep(p):
+            return _sweep(p, rhs, dx, dy, colours, omega, cfg.bc)
+
+        return _iterate(sweep, phi0, rhs, cfg, dx, dy, self.solid)
+
+
 def solve_poisson(phi0, rhs, dx: float, dy: float, cfg: PoissonConfig = PoissonConfig(),
                   solid_mask=None):
-    """Solve ∇²φ = rhs with the configured backend (``"dct"`` only so far;
-    ``phi0`` is the warm start of the iterative backends, unused by it)."""
-    check_ported(cfg)
-    if solid_mask is not None:
-        raise NotImplementedError("masked Poisson solves are not ported yet")
-    return solve_poisson_neumann_dct(rhs, dx, dy, variant=cfg.dct_variant)
-
+    """Solve ∇²φ = rhs with the configured backend. ``phi0`` warm-starts
+    the iterative backends. Builds a :class:`PoissonSolver` on every call:
+    a step that solves repeatedly keeps one."""
+    return PoissonSolver(tuple(rhs.shape), dx, dy, cfg, solid_mask, device=rhs.device)(phi0, rhs)

@@ -6,23 +6,60 @@ Phases, one line each; any failure raises, so the exit code is non-zero
 and the final ``{"ok": true, ...}`` line is not printed:
 
 1. card: name and power limit (nvidia-smi); CUDA must be available
-2. build: compile the hand-written kernels with nvcc (sm_90a)
+2. build: compile the hand-written kernels with nvcc (sm_90a), one nvcc
+   per source, all started together
 3. kernel vs plain: the fused predictor against its plain torch version
    at (48, 64), (1024, 1024), (1000, 1030), (37, 129); max |Δ| ≤ 1e-6 and
-   the boundary frame bit-equal to the input
+   the boundary frame bit-equal to the input. Then the RB-SOR kernels:
+   kernel A (Neumann, Dirichlet, masked; 30 sweeps) at (32, 48), the
+   problem of tests/test_pallas.py:12-28, and at (37, 129), (180, 600)
+   with the cylinder's solid mask and (512, 512); kernel B against kernel
+   A and against its plain version at (64, 48) K=3, (72, 32) K=8, and
+   (1024, 1024), (1000, 1030) with a tail pass; the early exit (same
+   chunk count as the plain version). Band 1e-6 for A and 5e-6 for B (the
+   bands of tests/test_pallas.py) at every size: both kernels spell out
+   every rounding, so they are expected to give the plain versions' bits,
+   and each line says whether they do
 4. golden: the 48² Re=100 cavity, 300 steps + one metrics step, fused
    predictor off and on, against tests/goldens.json (RTOL 2e-5)
 5. main path: the 1024² Re=1000 cavity through runner.Simulation, 600
    steps in chunks of 100, health check on; finite, max |u| ≤ 1.5, kernel
    launches = steps; then 5 fused vs 5 unfused steps (atol 1e-5)
-6. timings, each beside the card's name and power limit: marginal
+6. cylinder path: the reference-parity cylinder at its published 600×180,
+   Re=600, SUPG, masked pressure solve through kernel A (1500 sweeps,
+   ω=1.7, early exit at 1e-8 checked every 50 sweeps), 200 steps through
+   runner.Simulation, health check on; finite, max |u| ≤ 5, fx finite,
+   kernel-A launches = steps × 30 (one launch per early-exit chunk, run
+   or skipped on the device); then 5 steps against the streaming rbsor
+   solve from the same state (u, v atol 1e-5; p less its mean within
+   1e-3 of its max)
+7. multigrid path: the 1024² Re=1000 cavity with ``poisson="mg:2"``, 200
+   steps through runner.Simulation; finite, max |u| ≤ 1.5, kernel-B
+   launches = steps × 4 (fine level, pre and post smoothing, 2 V-cycles)
+   and kernel-A launches = steps × 32 (8 coarser levels × 2 calls × 2
+   V-cycles); then 5 steps against plain smoothing from the same state,
+   at the cylinder's bands
+8. timings, each beside the card's name and power limit: marginal
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
-   plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2
+   plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2; kernel
+   A per 50-sweep masked chunk at 180×600 and kernel B per 2-sweep and
+   8-sweep call at 1024², each against its plain version; ``bench --all``
+   (marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s at 1024²) and
+   ``bench --cylinder`` (steps/s through kernel A and streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``). "Device" times replay the calls from a
    CUDA graph, so they exclude the host's dispatch; "eager" times include
-   it. The predictor's and the solve's inputs rotate through buffers twice
-   the card's L2, so those calls stream from device memory as in a step
+   it. The predictor's, the DCT solve's and kernel B's inputs rotate
+   through buffers twice the card's L2, so those calls stream from device
+   memory as in a step; kernel A's 0.86-MB problem stays in L2, as it does
+   in the cylinder's solve
+
+Before the last line it prints the card and a ``{"kernels": [...]}`` line:
+per kernel its launches on the paths above, the worst kernel-vs-plain
+|Δ|, its device ms and its plain version's, and its bound: the larger of
+the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM
+data sheet).
 
 It imports nothing of JAX: the machine with the card need not have it.
 """
@@ -38,8 +75,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.bench import dct_solve_ms, predictor_ms, run_bench, step_device_ms
+from cfdsim_tpu_torch.bench import (
+    CYLINDER_KERNEL_POISSON,
+    dct_solve_ms,
+    predictor_ms,
+    rbsor_blocked_ms,
+    rbsor_ms,
+    run_all,
+    run_bench,
+    run_cylinder,
+    step_device_ms,
+)
 from cfdsim_tpu_torch.cases import build, lid_cavity
+from cfdsim_tpu_torch.grid import Grid
+from cfdsim_tpu_torch.ibm import cylinder_masks
+from cfdsim_tpu_torch.ops.kernels import cuda_build
+from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
 from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
 from cfdsim_tpu_torch.solvers.poisson import PoissonConfig
@@ -50,6 +101,23 @@ KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
 STEP_ATOL = 1e-5  # tests/test_pallas.py:144-145
 GOLDEN_RTOL = 2e-5  # tests/test_goldens.py:28
 PREDICTOR_SHAPES = [(48, 64), (1024, 1024), (1000, 1030), (37, 129)]
+RBSOR_A_ATOL = 1e-6  # tests/test_pallas.py:28
+RBSOR_B_ATOL = 5e-6  # tests/test_pallas.py:69-70
+# (ny, nx, tile edge or None for the default, K, sweeps): tests/test_pallas.py:61,
+# then the multigrid fine level's size with a tail pass, and a ragged grid
+BLOCKED_CASES = [(64, 48, 16, 3, 10), (72, 32, 32, 8, 9), (1024, 1024, None, 8, 20),
+                 (1000, 1030, None, 8, 19)]
+# kernel A vs the streaming solve, 5 cylinder steps from the same state,
+# and multigrid with kernel vs plain smoothing, 5 cavity steps: the same
+# sweeps with each neighbour set summed in another order, from solves that
+# are not converged. u, v are held to the cavity's step band (STEP_ATOL);
+# p, less its mean (see _steps_apart), to 1e-3 of its max
+CYL_UV_ATOL = MG_UV_ATOL = STEP_ATOL
+CYL_P_RTOL = MG_P_RTOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12
+PREDICTOR_FLOPS_PER_CELL = 40  # two fields × (9 Laplacian + 7 convection + 4 update)
+RBSOR_FLOPS_PER_UPDATE = 11  # the update expression of csrc/rbsor.cu::relax
 
 
 def say(phase: str, **fields):
@@ -77,6 +145,196 @@ def phase_kernel_vs_plain():
             raise AssertionError(f"fused predictor disagrees at {(ny, nx)}: {err}, frame {frame_equal}")
         worst = max(worst, err)
     return worst
+
+
+def _bound_ms(bytes_moved: float, flops: float):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the float32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cuda(a):
+    return torch.tensor(np.asarray(a), device="cuda")
+
+
+def _rbsor_problem(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    rhs = rng.standard_normal(shape).astype(np.float32)
+    rhs -= rhs.mean()
+    solid = np.zeros(shape, dtype=bool)
+    ny, nx = shape
+    solid[ny * 10 // 32:ny * 14 // 32, nx * 20 // 48:nx * 24 // 48] = True
+    return np.zeros_like(rhs), rhs, solid
+
+
+def _check(label, got, want, atol, **fields):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bit_equal = bool(torch.equal(got, want))
+    say(label, max_abs_err=err, atol=atol, bit_equal=bit_equal, **fields)
+    if not err <= atol:
+        raise AssertionError(f"{label} {fields}: max |Δ| {err} > {atol}")
+    return err
+
+
+def phase_rbsor_vs_plain():
+    worst_a = worst_b = 0.0
+    # kernel A: the test_pallas problem (h = 1/32), then larger grids; the
+    # 180×600 case uses the cylinder's own solid mask
+    grid = Grid(nx=600, ny=180, x_max=20.0, y_max=4.0)
+    cyl_solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
+    for shape in [(32, 48), (37, 129), (180, 600), (512, 512)]:
+        phi0, rhs, solid = _rbsor_problem(shape)
+        if shape == (180, 600):
+            solid = cyl_solid
+        for bc, mask in [("neumann", None), ("dirichlet", None), ("neumann", solid)]:
+            m = None if mask is None else _cuda(mask)
+            args = (_cuda(phi0), _cuda(rhs), 1.0 / 32, 1.0 / 32, 30, 1.7, bc, m)
+            worst_a = max(worst_a, _check("rbsor_a_vs_plain", rb.rbsor(*args), rb.rbsor_ref(*args),
+                                          RBSOR_A_ATOL, shape=list(shape), bc=bc,
+                                          masked=mask is not None, sweeps=30))
+    # kernel B against A and against its plain version
+    rs = np.random.RandomState(7)
+    for ny, nx, tile, k, iters in BLOCKED_CASES:
+        rhs = _cuda(rs.randn(ny, nx).astype(np.float32))
+        phi0 = _cuda(rs.randn(ny, nx).astype(np.float32))
+        got = rb.rbsor_blocked(phi0, rhs, 0.02, 0.03, iters, 1.7, tile, k)
+        fields = dict(shape=[ny, nx], tile=tile or rb.TILE, sweeps_per_pass=k, sweeps=iters)
+        worst_b = max(worst_b,
+                      _check("rbsor_b_vs_a", got, rb.rbsor(phi0, rhs, 0.02, 0.03, iters, 1.7),
+                             RBSOR_B_ATOL, **fields),
+                      _check("rbsor_b_vs_plain", got,
+                             rb.rbsor_blocked_ref(phi0, rhs, 0.02, 0.03, iters, 1.7, tile, k),
+                             RBSOR_B_ATOL, **fields))
+    # the early exit: a tol the problem reaches, the same chunks as the plain version
+    n = 48
+    rhs = np.random.RandomState(1).randn(n, n).astype(np.float32)
+    rhs -= rhs.mean()
+    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+    outs = [fn(torch.zeros(n, n, device="cuda"), _cuda(rhs), 1.0 / n, 1.0 / n, 4000, 1.7,
+               tol=1e-3, check_every=50, chunks_run=c)
+            for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
+    chunks = [int(c) for c in counts]
+    worst_a = max(worst_a, _check("rbsor_a_early_exit", outs[0], outs[1],
+                                  RBSOR_A_ATOL * float(outs[1].abs().max()),
+                                  shape=[n, n], tol=1e-3, chunks_kernel=chunks[0],
+                                  chunks_plain=chunks[1]))
+    if chunks[0] != chunks[1] or not chunks[0] < 4000 // 50:
+        raise AssertionError(f"early exit ran {chunks} chunks (kernel, plain)")
+    return worst_a, worst_b
+
+
+def _reset_counts():
+    for k in (pred.KERNEL, rb.KERNEL_A, rb.KERNEL_B):
+        k.launches = 0
+
+
+def _counts():
+    return {"predictor": pred.KERNEL.launches, "rbsor_a": rb.KERNEL_A.launches,
+            "rbsor_b": rb.KERNEL_B.launches}
+
+
+def _run(case, steps, chunk):
+    cfg = RunnerConfig(t_final=1e9, max_steps=steps, chunk_steps=chunk, health_check=True,
+                       div_threshold=50.0, max_velocity=case.cfg.max_velocity,
+                       log_every_chunks=0)
+    sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
+    t0 = time.perf_counter()
+    state, report = sim.run()
+    torch.cuda.synchronize()
+    return sim, state, report, time.perf_counter() - t0
+
+
+def _healthy(label, state, report, steps, max_u):
+    finite = all(bool(torch.isfinite(getattr(state, k)).all()) for k in ("u", "v", "p"))
+    got_u = float(state.u.abs().max())
+    if report["stopped_reason"] or int(state.step) != steps:
+        raise AssertionError(f"{label} stopped early: {report['stopped_reason']!r} at "
+                             f"{int(state.step)}")
+    if not finite or not got_u <= max_u:
+        raise AssertionError(f"{label} unhealthy: finite={finite} max|u|={got_u}")
+    return finite, got_u
+
+
+def phase_cylinder():
+    steps = 200
+    case = build("cylinder", ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
+                 device="cuda")
+    chunks_run = case.step.poisson.chunks_run
+    _reset_counts()
+    chunks_run.zero_()
+    sim, state, report, wall = _run(case, steps, 50)
+    launches = _counts()
+    chunks = int(chunks_run)
+    _, max_u = _healthy("cylinder", state, report, steps, case.cfg.max_velocity)
+    n_chunks = CYLINDER_KERNEL_POISSON.iters // CYLINDER_KERNEL_POISSON.check_every
+    cfl = torch.ones((), dtype=torch.float32, device="cuda")
+    _, m = case.step(state, cfl)  # one more step for the body force (not counted)
+    fx, fy = float(m.fx), float(m.fy)
+    say("cylinder_path", nx=600, ny=180, Re=600.0, steps=int(state.step), launches=launches,
+        kernel_chunks_run=chunks, kernel_chunks_per_step=chunks / steps, max_abs_u=max_u,
+        fx=fx, fy=fy, t=report["final_time"], last_chunk=sim.metrics_history[-1],
+        wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
+    if not (math.isfinite(fx) and math.isfinite(fy)):
+        raise AssertionError(f"cylinder force not finite: {fx}, {fy}")
+    if launches["rbsor_a"] != steps * n_chunks or launches["rbsor_b"] or launches["predictor"]:
+        raise AssertionError(f"cylinder path launches {launches}, expected {steps * n_chunks} "
+                             "of kernel A only")
+
+    # kernel A vs the streaming solve from the same state (not counted)
+    other = build("cylinder", ref_parity=True, scheme="supg", device="cuda")
+    diff = _steps_apart(case, other, state, 5)
+    say("cylinder_kernel_vs_streaming", steps=5, **diff, uv_atol=CYL_UV_ATOL,
+        p_rtol=CYL_P_RTOL)
+    if not (diff["du"] <= CYL_UV_ATOL and diff["dv"] <= CYL_UV_ATOL
+            and diff["dp"] <= CYL_P_RTOL * diff["p_max"]):
+        raise AssertionError(f"cylinder kernel vs streaming: {diff}")
+    return launches["rbsor_a"], chunks / steps
+
+
+def _steps_apart(a, b, state, steps):
+    cfl = torch.ones((), dtype=torch.float32, device="cuda")
+    sa = sb = state
+    for _ in range(steps):
+        sa, _ = a.step(sa, cfl)
+        sb, _ = b.step(sb, cfl)
+    out = {f"d{k}": float((getattr(sa, k) - getattr(sb, k)).abs().max()) for k in ("u", "v")}
+    # the Neumann problem fixes p up to a constant, which the velocity never
+    # sees and which warm-started solves drift along by their rounding:
+    # compare p less its mean
+    pa, pb = sa.p - sa.p.mean(), sb.p - sb.p.mean()
+    out["dp"] = float((pa - pb).abs().max())
+    out["dp_with_mean"] = float((sa.p - sb.p).abs().max())
+    out["p_max"] = float(pb.abs().max())
+    return out
+
+
+def phase_mg_cavity():
+    steps = 200
+    case = lid_cavity(n=1024, Re=1000.0, poisson="mg:2", device="cuda")
+    _reset_counts()
+    sim, state, report, wall = _run(case, steps, 50)
+    launches = _counts()
+    _, max_u = _healthy("mg_cavity", state, report, steps, 1.5)
+    say("mg_path", n=1024, Re=1000.0, steps=int(state.step), launches=launches,
+        max_abs_u=max_u, t=report["final_time"], last_chunk=sim.metrics_history[-1],
+        wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
+    # per V-cycle: the 1024² level's pre and post smoothing through kernel B,
+    # 2 calls on each of the 8 coarser levels (512² … 4²) through kernel A
+    want = {"predictor": 0, "rbsor_a": steps * 2 * 16, "rbsor_b": steps * 2 * 2}
+    if launches != want:
+        raise AssertionError(f"multigrid path launches {launches}, expected {want}")
+
+    plain = lid_cavity(n=1024, Re=1000.0, device="cuda",
+                       poisson=PoissonConfig(method="mg", iters=2, mg_pallas_smooth=False))
+    diff = _steps_apart(case, plain, state, 5)
+    say("mg_kernel_vs_plain_smoothing", steps=5, **diff, uv_atol=MG_UV_ATOL, p_rtol=MG_P_RTOL)
+    if not (diff["du"] <= MG_UV_ATOL and diff["dv"] <= MG_UV_ATOL
+            and diff["dp"] <= MG_P_RTOL * diff["p_max"]):
+        raise AssertionError(f"multigrid kernel vs plain smoothing: {diff}")
+    return launches
 
 
 def golden_signature(case, steps: int) -> dict:
@@ -122,13 +380,15 @@ def phase_main_path():
     cfg = RunnerConfig(t_final=1e9, max_steps=600, chunk_steps=100, health_check=True,
                        div_threshold=50.0, max_velocity=case.cfg.max_velocity,
                        log_every_chunks=0)
-    pred.KERNEL.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
     state, report = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pred.KERNEL.launches
+    if rb.KERNEL_A.launches or rb.KERNEL_B.launches:
+        raise AssertionError(f"the DCT main path launched RB-SOR kernels: {_counts()}")
     steps = int(state.step)
     finite = bool(torch.isfinite(state.u).all() and torch.isfinite(state.v).all()
                   and torch.isfinite(state.p).all())
@@ -176,7 +436,35 @@ def phase_timings(card):
     say("time_predictor", shape=[1024, 1024], **pred_t, card=card)
     # one DCT solve at 1024²: rfft, rfft2, rfft2, rfft
     say("time_dct_solve", shape=[1024, 1024], **dct_solve_ms(1024, reps=50), card=card)
-    return min(pred_t["kernel_device_ms"]), min(pred_t["plain_device_ms"])
+    # kernel A: one 50-sweep chunk of the cylinder's masked solve
+    a_t = rbsor_ms((180, 600), sweeps=50, reps=20)
+    say("time_rbsor_a", **a_t, card=card)
+    # kernel B: the multigrid fine level's 2-sweep call, and 8 sweeps (one
+    # full pass), at 1024², inputs streamed from device memory
+    b_t = {k: rbsor_blocked_ms(1024, sweeps=k, reps=50) for k in (2, 8)}
+    for t in b_t.values():
+        say("time_rbsor_b", **t, card=card)
+    # the JAX bench's secondary metrics, and the cylinder through kernel A
+    # and through streaming rbsor
+    for row in run_all(1024):
+        say("time_secondary", **row)
+    for row in run_cylinder():
+        say("time_cylinder", **row)
+
+    n = 1024 * 1024
+    kernels = {
+        "fused_predictor_central": (min(pred_t["kernel_device_ms"]),
+                                    min(pred_t["plain_device_ms"]),
+                                    _bound_ms(4 * 4 * n, PREDICTOR_FLOPS_PER_CELL * n)),
+        "rbsor": (min(a_t["kernel_device_ms"]), min(a_t["plain_device_ms"]),
+                  # φ, rhs, mask in; φ out; every fluid cell updated per sweep
+                  _bound_ms(4 * 4 * 180 * 600,
+                            RBSOR_FLOPS_PER_UPDATE * a_t["fluid_cells"] * a_t["sweeps"])),
+        "rbsor_blocked": (min(b_t[2]["kernel_device_ms"]), min(b_t[2]["plain_device_ms"]),
+                          # φ, rhs in; φ out; every cell updated per sweep
+                          _bound_ms(3 * 4 * n, RBSOR_FLOPS_PER_UPDATE * n * 2)),
+    }
+    return kernels
 
 
 def main() -> int:
@@ -187,25 +475,49 @@ def main() -> int:
     say("card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], count=torch.cuda.device_count())
 
-    say("build", kernel=pred.KERNEL.symbol, seconds=pred.KERNEL.build())
-    max_err = phase_kernel_vs_plain()
+    kernels = (pred.KERNEL, rb.KERNEL_A, rb.KERNEL_B)
+    say("build", seconds_per_source=cuda_build.build_all(kernels),
+        kernels=[k.symbol for k in kernels])
+    err = {"fused_predictor_central": phase_kernel_vs_plain()}
+    err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
     phase_golden()
-    launches = phase_main_path()
-    kernel_ms, plain_ms = phase_timings(card)
+    pred_launches = phase_main_path()
+    cyl_a, cyl_chunks_per_step = phase_cylinder()
+    mg = phase_mg_cavity()
+    times = phase_timings(card)
 
-    for x in (max_err, kernel_ms, plain_ms):
-        if not math.isfinite(x):
-            raise AssertionError("non-finite measurement")
-    print(json.dumps({"kernels": [{
-        "name": "fused_predictor_central",
-        "route": "cuda",
-        "source": "cfdsim_tpu_torch/csrc/predictor.cu",
-        "replaces": "cfdsim_tpu/ops/pallas/predictor.py:77",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    launches = {
+        "fused_predictor_central": {"cavity_1024_dct": pred_launches},
+        "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"]},
+        "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"]},
+    }
+    info = {
+        "fused_predictor_central": ("cfdsim_tpu_torch/csrc/predictor.cu",
+                                    "cfdsim_tpu/ops/pallas/predictor.py:77",
+                                    "1024² cavity, inputs from device memory"),
+        "rbsor": ("cfdsim_tpu_torch/csrc/rbsor.cu", "cfdsim_tpu/ops/pallas/poisson_rb.py:237",
+                  "one 50-sweep masked chunk at 180×600"),
+        "rbsor_blocked": ("cfdsim_tpu_torch/csrc/rbsor.cu",
+                          "cfdsim_tpu/ops/pallas/poisson_rb.py:155",
+                          "one 2-sweep call at 1024², inputs from device memory"),
+    }
+    rows = []
+    for name, (source, replaces, timed) in info.items():
+        ms, plain_ms, (bound_ms, bound_by) = times[name]
+        for x in (err[name], ms, plain_ms, bound_ms):
+            if not math.isfinite(x):
+                raise AssertionError(f"non-finite measurement for {name}")
+        if not sum(launches[name].values()):
+            raise AssertionError(f"{name} was not launched on its path")
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "timed": timed,
+        })
+    rows[1]["kernel_chunks_per_cylinder_step"] = cyl_chunks_per_step
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

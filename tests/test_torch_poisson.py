@@ -57,9 +57,6 @@ def test_solve_poisson_dispatches_dct():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(method="rbsor"),
-    dict(method="mg"),
-    dict(method="rbsor_pallas"),
     dict(method="dct", dct_variant="auto"),
     dict(method="dct", dct_variant="packed"),
     dict(method="dct", dct_variant="matmul"),

@@ -1,0 +1,211 @@
+"""The RB-SOR kernels of the port (``ops/kernels/poisson_rb.py``): their
+plain versions against the JAX package's Pallas kernels (interpret mode),
+the early exit, the routing, and on a card the kernels against the plain
+versions.
+
+Tolerances:
+- kernel A's plain version vs ``rbsor_pallas``: atol 1e-6, the band of
+  tests/test_pallas.py:28. Both run the same float32 operations in the same
+  order; XLA may contract a pair into one FMA (observed ≤ 6e-9).
+- kernel B's plain version vs ``rbsor_pallas_blocked``: atol 5e-6, the band
+  of tests/test_pallas.py:69-70 (the plain version runs the global sweeps
+  the blocked passes are defined to equal; observed ≤ 1.4e-6).
+- the early exit at 48²: the same number of chunks, and φ within
+  EARLY_EXIT_RTOL·max|φ|. Under jit, XLA's CPU backend contracts a·b + c
+  into one FMA (about a quarter of float32 a·b + c results differ from the
+  twice-rounded form), while the port rounds every operation; over the 500
+  sweeps of this solve those last-bit differences grow to ~1e-5 relative
+  (observed 1.0e-5), where 30 sweeps stay at ~4e-7.
+- on the card: kernels and plain versions spell out every rounding, so they
+  are held to atol 1e-6 and reported bit for bit by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cfdsim_tpu.ops.pallas.poisson_rb import rbsor_pallas, rbsor_pallas_blocked
+from cfdsim_tpu.solvers.poisson import PoissonConfig as JConfig
+from cfdsim_tpu.solvers.poisson import poisson_residual as j_residual
+from cfdsim_tpu.solvers.poisson import solve_poisson as j_solve
+from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
+from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, solve_poisson
+
+ATOL_A = 1e-6
+ATOL_B = 5e-6
+EARLY_EXIT_RTOL = 2e-5
+BLOCKED_CASES = [(64, 48, 16, 3, 10), (72, 32, 32, 8, 9)]  # tests/test_pallas.py:61
+
+
+def _problem(shape=(32, 48), seed=0):
+    """The problem of tests/test_pallas.py:12-17, plus a solid block."""
+    rhs = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    rhs -= rhs.mean()
+    solid = np.zeros(shape, dtype=bool)
+    solid[10:14, 20:24] = True
+    return np.zeros_like(rhs), rhs, 1.0 / 32, solid
+
+
+@pytest.mark.parametrize("bc, masked", [("neumann", False), ("dirichlet", False),
+                                        ("neumann", True), ("dirichlet", True)])
+def test_plain_rbsor_matches_pallas(bc, masked):
+    phi0, rhs, h, solid = _problem()
+    mask = solid if masked else None
+    want = rbsor_pallas(jnp.asarray(phi0), jnp.asarray(rhs), h, h, iters=30, omega=1.7, bc=bc,
+                        solid_mask=None if mask is None else jnp.asarray(mask), interpret=True)
+    got = rb.rbsor_ref(torch.from_numpy(phi0), torch.from_numpy(rhs), h, h, iters=30,
+                       omega=1.7, bc=bc, solid_mask=None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL_A)
+    if masked:
+        assert np.all(got.numpy()[solid] == 0.0)
+
+
+@pytest.mark.parametrize("ny, nx, rows, k, iters", BLOCKED_CASES)
+def test_plain_blocked_matches_pallas(ny, nx, rows, k, iters):
+    rng = np.random.RandomState(7)
+    rhs = rng.randn(ny, nx).astype(np.float32)
+    phi0 = rng.randn(ny, nx).astype(np.float32)
+    want = rbsor_pallas_blocked(jnp.asarray(phi0), jnp.asarray(rhs), 0.02, 0.03, iters=iters,
+                                omega=1.7, rows_per_block=rows, sweeps_per_pass=k,
+                                interpret=True)
+    got = rb.rbsor_blocked_ref(torch.from_numpy(phi0), torch.from_numpy(rhs), 0.02, 0.03,
+                               iters=iters, omega=1.7, rows_per_block=rows, sweeps_per_pass=k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL_B)
+
+
+def _jax_chunks(rhs, h, cfg):
+    """The JAX package's early exit, chunk by chunk: (φ, chunks run)."""
+    p = jnp.zeros(rhs.shape, jnp.float32)
+    for n in range(1, max(1, cfg.iters // cfg.check_every) + 1):
+        p = rbsor_pallas(p, jnp.asarray(rhs), h, h, iters=cfg.check_every, omega=cfg.omega,
+                         interpret=True)
+        if not float(j_residual(p, jnp.asarray(rhs), h, h)) > cfg.tol:
+            break
+    return p, n
+
+
+def test_rbsor_pallas_early_exit_matches_jax():
+    n = 48
+    rhs = np.random.RandomState(1).randn(n, n).astype(np.float32)
+    rhs -= rhs.mean()
+    kw = dict(method="rbsor_pallas", iters=4000, tol=1e-3, check_every=50, omega=1.7)
+    want = np.asarray(j_solve(jnp.zeros((n, n), jnp.float32), jnp.asarray(rhs), 1.0 / n,
+                              1.0 / n, JConfig(**kw)))
+    _, jax_chunks = _jax_chunks(rhs, 1.0 / n, JConfig(**kw))
+    chunks = torch.zeros((), dtype=torch.int32)
+    got = rb.rbsor(torch.zeros(n, n), torch.from_numpy(rhs), 1.0 / n, 1.0 / n, iters=4000,
+                   omega=1.7, tol=1e-3, check_every=50, chunks_run=chunks)
+    assert np.abs(got.numpy() - want).max() <= EARLY_EXIT_RTOL * np.abs(want).max()
+    assert int(chunks) == jax_chunks < 4000 // 50
+    # and through the solver, which counts its chunks in a buffer
+    got2 = solve_poisson(torch.zeros(n, n), torch.from_numpy(rhs), 1.0 / n, 1.0 / n,
+                         PoissonConfig(**kw))
+    assert torch.equal(got2, got)
+
+
+def test_early_exit_without_convergence_runs_every_chunk():
+    phi0, rhs, h, _ = _problem()
+    chunks = torch.zeros((), dtype=torch.int32)
+    got = rb.rbsor(torch.from_numpy(phi0), torch.from_numpy(rhs), h, h, iters=30, omega=1.7,
+                   tol=1e-30, check_every=8, chunks_run=chunks)
+    assert int(chunks) == 30 // 8
+    want = rb.rbsor_ref(torch.from_numpy(phi0), torch.from_numpy(rhs), h, h, iters=24)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bc, masked, blocked", [
+    ("neumann", False, True), ("neumann", True, False), ("dirichlet", False, False),
+], ids=["neumann-unmasked", "neumann-masked", "dirichlet"])
+def test_routing_above_max_elems(monkeypatch, bc, masked, blocked):
+    calls = []
+    monkeypatch.setattr(rb, "MAX_ELEMS", 16)
+    monkeypatch.setattr(rb, "rbsor_blocked", lambda *a, **k: calls.append("B") or a[0])
+    monkeypatch.setattr(rb, "rbsor", lambda *a, **k: calls.append("A") or a[0])
+    phi = torch.zeros(5, 5)  # 25 cells > MAX_ELEMS
+    rb.rbsor_routed(phi, phi, 0.1, 0.1, iters=2, bc=bc,
+                    solid_mask=torch.zeros(5, 5, dtype=torch.bool) if masked else None)
+    rb.rbsor_routed(torch.zeros(4, 4), torch.zeros(4, 4), 0.1, 0.1, iters=2, bc=bc)
+    assert calls == ["B" if blocked else "A", "A"]
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    phi0, rhs, h, solid = _problem()
+    tp, tr, ts = (torch.from_numpy(a) for a in (phi0, rhs, solid))
+    rb.KERNEL_A.launches = rb.KERNEL_B.launches = 0
+    assert torch.equal(rb.rbsor(tp, tr, h, h, 10, 1.7, "neumann", ts),
+                       rb.rbsor_ref(tp, tr, h, h, 10, 1.7, "neumann", ts))
+    assert torch.equal(rb.rbsor_blocked(tp, tr, h, h, 10, 1.7, 16, 3),
+                       rb.rbsor_blocked_ref(tp, tr, h, h, 10, 1.7, 16, 3))
+    assert rb.KERNEL_A.launches == rb.KERNEL_B.launches == 0
+
+
+def test_non_cpu_non_cuda_tensors_raise():
+    t = torch.empty((8, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rb.rbsor(t, t, 0.1, 0.1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rb.rbsor_blocked(t, t, 0.1, 0.1)
+
+
+def test_plain_versions_equal_the_streaming_solver():
+    """Kernel A's sweep order differs from the streaming solver's neighbour
+    sum only in association, so both converge to the same answer."""
+    phi0, rhs, h, _ = _problem()
+    stream = solve_poisson(torch.from_numpy(phi0), torch.from_numpy(rhs), h, h,
+                           PoissonConfig(method="rbsor", iters=30))
+    kernel = solve_poisson(torch.from_numpy(phi0), torch.from_numpy(rhs), h, h,
+                           PoissonConfig(method="rbsor_pallas", iters=30))
+    np.testing.assert_allclose(kernel.numpy(), stream.numpy(), rtol=0, atol=ATOL_A)
+
+
+def _cuda(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 48), (37, 129)])
+@pytest.mark.parametrize("bc, masked", [("neumann", False), ("dirichlet", False),
+                                        ("neumann", True)])
+def test_kernel_a_matches_plain_on_card(shape, bc, masked):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    phi0, rhs, h, solid = _problem(shape)
+    mask = _cuda(solid) if masked else None
+    before = rb.KERNEL_A.launches
+    got = rb.rbsor(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, bc, mask)
+    want = rb.rbsor_ref(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, bc, mask)
+    torch.cuda.synchronize()
+    assert rb.KERNEL_A.launches == before + 1
+    assert float((got - want).abs().max()) <= ATOL_A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny, nx, rows, k, iters", BLOCKED_CASES)
+def test_kernel_b_matches_a_and_plain_on_card(ny, nx, rows, k, iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.RandomState(7)
+    rhs, phi0 = _cuda(rng.randn(ny, nx).astype(np.float32)), _cuda(rng.randn(ny, nx).astype(np.float32))
+    got = rb.rbsor_blocked(phi0, rhs, 0.02, 0.03, iters, 1.7, rows, k)
+    a = rb.rbsor(phi0, rhs, 0.02, 0.03, iters, 1.7)
+    plain = rb.rbsor_blocked_ref(phi0, rhs, 0.02, 0.03, iters, 1.7, rows, k)
+    torch.cuda.synchronize()
+    assert float((got - a).abs().max()) <= ATOL_B
+    assert float((got - plain).abs().max()) <= ATOL_B
+
+
+@pytest.mark.cuda
+def test_kernel_early_exit_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n = 48
+    rhs = np.random.RandomState(1).randn(n, n).astype(np.float32)
+    rhs -= rhs.mean()
+    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+    outs = [fn(torch.zeros(n, n, device="cuda"), _cuda(rhs), 1.0 / n, 1.0 / n, 4000, 1.7,
+               tol=1e-3, check_every=50, chunks_run=c)
+            for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
+    torch.cuda.synchronize()
+    assert int(counts[0]) == int(counts[1]) < 80
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-6 * float(outs[1].abs().max())
