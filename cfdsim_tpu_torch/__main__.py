@@ -6,7 +6,7 @@
     python -m cfdsim_tpu_torch run cylinder --device cuda --ref-parity true \\
         --scheme supg --max-steps 200
     python -m cfdsim_tpu_torch run cavity --n 1024 --Re 1000 --poisson mg:2
-    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder]
+    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder | --routes]
 
 Unknown ``--key value`` pairs on ``run`` are forwarded to the case builder
 (ints/floats/bools auto-parsed; ``--poisson`` takes
@@ -119,6 +119,8 @@ def cmd_bench(args, _extra):
         rows = bench.run_all(n=args.n, device=device)
     elif args.cylinder:
         rows = bench.run_cylinder(device=device)
+    elif args.routes:
+        rows = bench.run_routes(device=device)
     else:
         rows = [bench.run_bench(n=args.n, device=device)]
     for row in rows:
@@ -155,6 +157,8 @@ def main(argv=None):
                       help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s at --n")
     mode.add_argument("--cylinder", action="store_true",
                       help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
+    mode.add_argument("--routes", action="store_true",
+                      help="kernel A's cluster and cooperative routes per shape and sweeps")
 
     args, unknown = p.parse_known_args(argv)
     extra = _extra_kwargs(unknown)

@@ -18,14 +18,17 @@ busy time against the wall time. ``--all`` is the twin of the JAX bench's
 sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
 solves/s at 1024². ``--cylinder`` times the reference-parity cylinder at
 600×180 with its pressure solve through kernel A and through streaming
-rbsor. Every function here refuses to run without a CUDA device: a CPU
-number is not a device metric.
+rbsor. ``--routes`` times kernel A's cluster and cooperative routes side
+by side per grid and sweep count, the measurement behind
+``poisson_rb.plan_rbsor``. Every function here refuses to run without a
+CUDA device: a CPU number is not a device metric.
 
     python -m cfdsim_tpu_torch bench [--n 1024]
     python -m cfdsim_tpu_torch bench --sweep
     python -m cfdsim_tpu_torch bench --profile [--n 1024]
     python -m cfdsim_tpu_torch bench --all [--n 1024]
     python -m cfdsim_tpu_torch bench --cylinder
+    python -m cfdsim_tpu_torch bench --routes
 """
 
 from __future__ import annotations
@@ -341,23 +344,41 @@ def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):
         yield row
 
 
-def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, device="cuda") -> dict:
-    """Device ms of one kernel-A call of ``sweeps`` sweeps with the
-    cylinder's solid mask (the cylinder's 50-sweep chunk by default),
-    against its plain version, in turns plain, kernel, kernel, plain. The
-    inputs stay the same between calls: in the cylinder's solve φ and rhs
-    (0.86 MB) are in L2 as well."""
+def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, masked=True, plan=None,
+             device="cuda") -> dict:
+    """Device ms of one kernel-A call of ``sweeps`` sweeps at ``shape``
+    (the cylinder's 50-sweep masked chunk by default), against its plain
+    version, in turns plain, kernel, kernel, plain, with the route
+    :func:`poisson_rb.plan_rbsor` takes for the call, or ``plan`` where one
+    is given (to
+    set two routes side by side at one size). ``masked`` uses the cylinder
+    case's solid mask on its domain at this resolution. The inputs stay the
+    same between calls: in the cylinder's solve φ and rhs (0.86 MB) are in
+    L2 as well."""
     device = _require_cuda(device)
     ny, nx = shape
     rng = np.random.default_rng(0)
     rhs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
     phi = torch.zeros_like(rhs)
     grid = Grid(nx=nx, ny=ny, x_max=20.0, y_max=4.0)  # the cylinder case's domain
-    solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
-    mask = torch.as_tensor(solid, dtype=torch.float32, device=device)
+    solid = np.zeros(shape, dtype=bool)
+    if masked:
+        solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
+    mask = torch.as_tensor(solid, dtype=torch.float32, device=device) if masked else None
     args = (phi, rhs, grid.dx, grid.dy, sweeps, 1.7, "neumann", mask)
     fns = {"kernel": lambda: poisson_rb.rbsor(*args), "plain": lambda: poisson_rb.rbsor_ref(*args)}
-    out = {"shape": list(shape), "sweeps": sweeps, "masked": True,
+    if plan is None:
+        plan = poisson_rb.plan_rbsor(shape, poisson_rb.max_cluster(device), sweeps=sweeps)
+    else:
+        work = torch.empty_like(phi)
+
+        def forced():
+            work.copy_(phi)
+            poisson_rb.solve_a(work, rhs, mask, plan, grid.dx, grid.dy, sweeps, 1.7)
+
+        fns["kernel"] = forced
+    out = {"shape": list(shape), "sweeps": sweeps, "masked": masked,
+           "route": plan.route, "cluster": plan.cluster,
            "fluid_cells": int(ny * nx - int(solid.sum()))}
     for which in ("plain", "kernel", "kernel", "plain"):
         n = reps if which == "kernel" else max(1, reps // 10)
@@ -365,20 +386,85 @@ def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, device="cuda") -> dict:
     return out
 
 
-def rbsor_blocked_ms(n=1024, sweeps=2, reps=50, device="cuda") -> dict:
-    """Device ms of one kernel-B call of ``sweeps`` Neumann sweeps at n² (2
-    is the multigrid fine level's smoothing call), against its plain
-    version, in turns plain, kernel, kernel, plain; φ and rhs rotate through
-    a ring of buffers twice the L2 (:func:`_ring_len`)."""
+ROUTE_SHAPES = ((64, 64), (128, 128), (256, 256), (512, 512), (180, 600))
+ROUTE_SWEEPS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def run_routes(shapes=ROUTE_SHAPES, sweeps=ROUTE_SWEEPS, reps=10, device="cuda"):
+    """Kernel A's two routes side by side, one row per shape and sweep
+    count: the device ms of one call of ``sweeps`` Neumann sweeps on the
+    cluster the size plan gives the shape and on the cooperative kernel, in
+    turns cluster, cooperative, cooperative, cluster (the 180×600 grid with
+    the cylinder's solid mask). Each call first copies φ0 into a work
+    buffer, as :func:`poisson_rb.rbsor` clones it. These rows set
+    :data:`poisson_rb.CLUSTER_MIN_SWEEPS`."""
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    most = poisson_rb.max_cluster(device)
+    for shape in shapes:
+        ny, nx = shape
+        grid = Grid(nx=nx, ny=ny, x_max=20.0, y_max=4.0)
+        mask = None
+        if shape == (180, 600):
+            solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
+            mask = torch.as_tensor(solid, dtype=torch.float32, device=device)
+        rhs = torch.tensor(np.random.default_rng(0).standard_normal(shape), dtype=torch.float32,
+                           device=device)
+        phi0, work = torch.zeros_like(rhs), torch.empty_like(rhs)
+        plans = {"cluster": poisson_rb.plan_rbsor(shape, most),  # by size alone
+                 "cooperative": poisson_rb.RbsorPlan("cooperative")}
+        for n in sweeps:
+            def call(plan, n=n):
+                work.copy_(phi0)
+                poisson_rb.solve_a(work, rhs, mask, plan, grid.dx, grid.dy, n, 1.7)
+
+            row = {"shape": list(shape), "masked": mask is not None, "sweeps": n,
+                   "cluster": plans["cluster"].cluster, "card": card}
+            for route in ("cluster", "cooperative", "cooperative", "cluster"):
+                row.setdefault(f"{route}_device_ms", []).append(
+                    device_ms(lambda p=plans[route]: call(p), reps))
+            yield row
+
+
+def rbsor_sync_us(cluster: int, reps=10, device="cuda") -> float:
+    """Device µs that kernel A's cluster route spends per half-sweep on its
+    synchronisation (one CTA barrier, and across CTAs the halo exchange
+    through distributed shared memory): the marginal time per half-sweep
+    between 50 and 250 sweeps of a (4·cluster, 64) grid on ``cluster`` CTAs,
+    one row per thread, where the sweeps themselves are a few instructions."""
+    device = _require_cuda(device)
+    shape = (4 * cluster, 64)
+    plan = poisson_rb.RbsorPlan(
+        "cluster", cluster, *poisson_rb.band_plan(shape, cluster, poisson_rb.SMEM_LIMIT))
+    phi = torch.zeros(shape, device=device)
+    rhs = torch.randn(shape, device=device)
+    t = {n: device_ms(lambda n=n: poisson_rb.solve_a(phi, rhs, None, plan, 0.1, 0.1, n, 1.0),
+                      reps)
+         for n in (50, 250)}
+    return (t[250] - t[50]) / (2 * 200) * 1e3
+
+
+def rbsor_blocked_ms(shape=(1024, 1024), sweeps=2, reps=50, device="cuda") -> dict:
+    """Device ms of one kernel-B call of ``sweeps`` Neumann sweeps at
+    ``shape`` (2 is the multigrid fine level's smoothing call), against its
+    plain version, in turns plain, kernel, kernel, plain, with the load
+    route :func:`poisson_rb.plan_blocked` takes; φ and rhs rotate through a
+    ring of buffers twice the L2 (:func:`_ring_len`)."""
     device = _require_cuda(device)
     rng = np.random.default_rng(0)
-    h = 1.0 / (n - 1)
-    ring = _ring_len(device, 3 * 4 * n * n)  # φ, rhs in; φ out
-    args = [(_field(rng, n, device), _field(rng, n, device), h, h, sweeps, 1.0)
-            for _ in range(ring)]
+    ny, nx = shape
+    h = 1.0 / (nx - 1)
+    ring = _ring_len(device, 3 * 4 * ny * nx)  # φ, rhs in; φ out
+
+    def field():
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+
+    args = [(field(), field(), h, h, sweeps, 1.0) for _ in range(ring)]
     fns = {"kernel": _ring(poisson_rb.rbsor_blocked, args),
            "plain": _ring(poisson_rb.rbsor_blocked_ref, args)}
-    out = {"n": n, "sweeps": sweeps, "ring": ring}
+    plan = poisson_rb.plan_blocked(shape, sweeps)
+    out = {"shape": list(shape), "sweeps": sweeps, "ring": ring, "route": plan.route,
+           "tile": [plan.tile_rows, plan.tile_cols]}
     for which in ("plain", "kernel", "kernel", "plain"):
         n_reps = reps if which == "kernel" else max(1, reps // 10)
         out.setdefault(f"{which}_device_ms", []).append(device_ms(fns[which], n_reps))

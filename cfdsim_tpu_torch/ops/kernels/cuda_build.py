@@ -97,13 +97,23 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return time.perf_counter() - t0
 
+    def library(self) -> ctypes.CDLL:
+        """The loaded library (built if needed), for its entry points that
+        launch nothing, such as a device query."""
+        if self._fn is None:
+            self.build()
+        return self._lib
+
+    def error_string(self, code: int) -> str:
+        return self.library().cfd_cuda_error_string(code).decode()
+
     def __call__(self, *args) -> None:
         if self._fn is None:
             self.build()
         rc = self._fn(*args)
         if rc != 0:
-            msg = self._lib.cfd_cuda_error_string(rc).decode()
-            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {rc} ({msg})")
+            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {rc} "
+                               f"({self.error_string(rc)})")
         self.launches += 1
 
 

@@ -1,22 +1,26 @@
-"""Red-black SOR sweeps: the two CUDA kernels and their plain versions.
+"""Red-black SOR sweeps: the CUDA kernels and their plain versions.
 
 The port of ``cfdsim_tpu/ops/pallas/poisson_rb.py``:
 
-- :func:`rbsor` (kernel A, ``csrc/rbsor.cu::rbsor_kernel``) is the
-  counterpart of ``rbsor_pallas``'s single-block kernel: ``iters`` full
-  red-black SOR sweeps of ∇²φ = rhs with relaxation ω, Neumann (clamped
-  edge) or Dirichlet (fixed frame), with an optional solid mask (≥ 0.5)
-  that freezes φ. With ``tol > 0`` it runs the early exit of
-  ``solve_poisson(method="rbsor_pallas")``: up to ``max(1, iters //
-  check_every)`` chunks of ``check_every`` sweeps, each run only while the
-  max residual after the previous chunk is above ``tol``. On the card each
-  chunk is one launch that reads and writes a device flag, so the host
-  never waits for the residual.
+- :func:`rbsor` (kernel A) is the counterpart of ``rbsor_pallas``'s
+  single-block kernel: ``iters`` full red-black SOR sweeps of ∇²φ = rhs
+  with relaxation ω, Neumann (clamped edge) or Dirichlet (fixed frame),
+  with an optional solid mask (≥ 0.5) that freezes φ. With ``tol > 0`` it
+  runs the early exit of ``solve_poisson(method="rbsor_pallas")``: up to
+  ``max(1, iters // check_every)`` chunks of ``check_every`` sweeps, each
+  run only while the max residual after the previous chunk is above
+  ``tol``. :func:`plan_rbsor` picks its route by size and sweeps before
+  the launch: a grid that fits the registers and shared memory of one
+  thread-block cluster runs the whole solve, early exit included, in one
+  launch of ``csrc/rbsor.cu::rbsor_cluster_kernel``; a larger one, or a
+  short solve on large bands, runs ``rbsor_kernel``, one cooperative launch
+  per chunk with a device flag.
+  Either way the host never waits for the residual.
 - :func:`rbsor_blocked` (kernel B, ``rbsor_blocked_kernel``) is the
   counterpart of ``rbsor_pallas_blocked``: Neumann, unmasked, temporally
-  blocked, K = ``sweeps_per_pass`` sweeps per pass on tiles of edge
-  ``rows_per_block`` with a 2K halo, then an ``iters % K`` tail pass;
-  exactly ``iters`` global sweeps.
+  blocked, K = ``sweeps_per_pass`` sweeps per pass on tiles of
+  ``rows_per_block`` × 128 cells with a 2K halo (:func:`plan_blocked`),
+  then an ``iters % K`` tail pass; exactly ``iters`` global sweeps.
 - :func:`rbsor_routed` keeps the JAX wrapper's routing rule: Neumann,
   unmasked and larger than :data:`MAX_ELEMS` goes to :func:`rbsor_blocked`,
   everything else to :func:`rbsor` (which has no size limit on the card,
@@ -33,6 +37,7 @@ rounding, so they give the plain versions' bits.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,13 +47,42 @@ from cfdsim_tpu_torch.solvers.poisson import poisson_residual
 # routing threshold of the JAX wrapper (its single-VMEM-block limit), kept
 # for parity; where kernel A and B cross over on the H100 is not measured
 MAX_ELEMS = 512 * 512
-TILE = 32  # kernel B's default tile edge (rows_per_block=None)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+MAX_CLUSTER = 16  # the largest cluster sm_90 allows (non-portable above 8)
+CLUSTER_THREADS = 1024
+# the cluster route gives a problem one CTA per this many cells (and at
+# least as many as it needs to fit), up to the largest cluster the card
+# schedules, so that a CTA's share of a half-sweep stays short
+CELLS_PER_CTA = 4096
+# The cluster route stages its bands once and then sweeps on at most 16
+# SMs; the cooperative kernel sweeps on every SM with a grid sync per
+# half-sweep. Bands of more than LARGE_BAND cells cost the cluster more than
+# the syncs it saves unless the solve runs CLUSTER_MIN_SWEEPS sweeps or more
+# (`bench --routes` on the H100: at 512², 16,384 cells per CTA, the cluster
+# route takes 2.0× the cooperative kernel's time at 2 sweeps, 1.07× at 16,
+# 0.98× at 32; at 180×600 masked, 7,200 cells per CTA, 0.98× at 2 and 0.76×
+# at 4; at 256², 4,096 cells per CTA, 0.90× at 2)
+LARGE_BAND = 8192
+CLUSTER_MIN_SWEEPS = 32
+# kernel B's default tile rows (rows_per_block=None): 32 for passes of up
+# to 2 sweeps, 64 above, where the 2K halo rows weigh more (PERF.md)
+TILE_ROWS = (32, 64)
+TILE_COLS = 128  # kernel B's tile columns
+TMA_BOX_MAX = 256  # cells per dimension of one TMA box
+B_ROUTES = {"tma": 0, "cp_async": 1}
 
 _p = ctypes.c_void_p
 _f = ctypes.c_float
 _i = ctypes.c_int
 KERNEL_A = CudaKernel(
+    "rbsor.cu",
+    "cfd_rbsor_cluster",
+    # φ, rhs, mask, ny, nx, cluster, rows per CTA, threads, rows per thread,
+    # shared bytes, sweeps per chunk, chunks, ax, ay, denom_inv, ω, 1−ω,
+    # dirichlet, count, tol, 2(ax+ay), stream
+    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _i, _p, _f, _f, _p],
+)
+KERNEL_A_COOP = CudaKernel(
     "rbsor.cu",
     "cfd_rbsor",
     # φ, rhs, mask, ny, nx, iters, ax, ay, denom_inv, ω, 1−ω, dirichlet,
@@ -58,9 +92,131 @@ KERNEL_A = CudaKernel(
 KERNEL_B = CudaKernel(
     "rbsor.cu",
     "cfd_rbsor_blocked",
-    # φ in, rhs, φ out, ny, nx, sweeps, tile, ax, ay, denom_inv, ω, 1−ω, stream
-    [_p, _p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _p],
+    # φ in, rhs, φ out, ny, nx, sweeps, tile rows, tile cols, route, ax, ay,
+    # denom_inv, ω, 1−ω, stream
+    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _p],
 )
+KERNELS = (KERNEL_A, KERNEL_A_COOP, KERNEL_B)
+
+
+class RbsorPlan(NamedTuple):
+    """How kernel A runs one problem: ``route`` "cluster" (the grid in one
+    cluster of ``cluster`` CTAs of ``threads`` threads, each CTA a band of
+    ``rows_per_cta`` rows or one fewer, each thread a column pair over
+    ``rows_per_thread`` rows, with ``smem_bytes`` of shared memory) or
+    "cooperative" (the other fields 0)."""
+
+    route: str
+    cluster: int = 0
+    rows_per_cta: int = 0
+    threads: int = 0
+    rows_per_thread: int = 0
+    smem_bytes: int = 0
+
+
+ROWS_PER_THREAD = (1, 2, 4, 8)  # the instantiations of rbsor_cluster_kernel
+
+
+def band_plan(shape, cluster: int, smem_limit: int):
+    """(rows per CTA, threads, rows per thread, shared bytes) of a cluster
+    of ``cluster`` CTAs, or None where a band does not fit one CTA: a
+    thread holds one column pair (threads per row: the pairs rounded up to
+    a warp) over at most 8 rows, a CTA at most 1024 threads; the shared
+    memory holds φ with a halo row per side, two sets of residual slots,
+    scratch and two halo mbarriers."""
+    ny, nx = shape
+    rows = -(-ny // cluster)
+    hw = (nx + 1) // 2
+    tx = -(-hw // 32) * 32
+    if tx > CLUSTER_THREADS:
+        return None
+    need = -(-rows // (CLUSTER_THREADS // tx))
+    rt = next((r for r in ROWS_PER_THREAD if r >= need), None)
+    smem = 4 * ((rows + 2) * 2 * hw + 2 * MAX_CLUSTER + 32) + 16
+    if rt is None or smem > smem_limit:
+        return None
+    return rows, tx * -(-rows // rt), rt, smem
+
+
+def plan_rbsor(shape, max_cluster: int, smem_limit: int = SMEM_LIMIT,
+               sweeps: int | None = None) -> RbsorPlan:
+    """Kernel A's route for a grid of ``shape`` and a solve of at most
+    ``sweeps`` sweeps (None: any number), chosen before the launch: the
+    cluster route when the grid fits one cluster of at most ``max_cluster``
+    CTAs (:func:`band_plan`), with one CTA per :data:`CELLS_PER_CTA` cells
+    and at least as many as it needs, unless its bands hold more than
+    :data:`LARGE_BAND` cells and the solve runs fewer than
+    :data:`CLUSTER_MIN_SWEEPS` sweeps; else the cooperative route."""
+    ny, nx = shape
+    most = min(max_cluster, MAX_CLUSTER, ny)
+    fits = [c for c in range(1, most + 1) if band_plan(shape, c, smem_limit)]
+    if not fits:
+        return RbsorPlan("cooperative")
+    cluster = max(fits[0], min(most, -(-ny * nx // CELLS_PER_CTA)))
+    plan = RbsorPlan("cluster", cluster, *band_plan(shape, cluster, smem_limit))
+    if sweeps is not None and plan.rows_per_cta * nx > LARGE_BAND and sweeps < CLUSTER_MIN_SWEEPS:
+        return RbsorPlan("cooperative")
+    return plan
+
+
+class BlockedPlan(NamedTuple):
+    """How kernel B runs one pass: one block per centre tile of
+    ``tile_rows`` × ``tile_cols`` with a 2K halo, loaded by ``route``
+    ("tma" where the row pitch is a multiple of 16 bytes, else
+    "cp_async"), in ``smem_bytes``."""
+
+    tile_rows: int
+    tile_cols: int
+    route: str
+    smem_bytes: int
+
+
+def plan_blocked(shape, sweeps: int, rows_per_block=None,
+                 smem_limit: int = SMEM_LIMIT) -> BlockedPlan:
+    """Kernel B's tiles and load route for one pass of ``sweeps`` sweeps.
+    Raises for a tile that fits neither a TMA box nor the shared memory."""
+    ny, nx = shape
+    if rows_per_block is None:
+        rows = TILE_ROWS[0] if sweeps <= 2 else TILE_ROWS[1]
+    else:
+        rows = int(rows_per_block)
+    if rows < 1 or sweeps < 1:
+        raise ValueError(f"tile rows {rows} and sweeps per pass {sweeps} must be ≥ 1")
+    # halo: 2K rows and 2K columns per side, the columns rounded up to 4 so
+    # that a staged row starts on a 16-byte boundary (a TMA box must)
+    sh, sw = rows + 4 * sweeps, TILE_COLS + 2 * (-(-2 * sweeps // 4) * 4)
+    if max(sh, sw) > TMA_BOX_MAX:
+        raise ValueError(f"a {rows}×{TILE_COLS} tile with {sweeps} sweeps per pass stages "
+                         f"{sh}×{sw} cells, above {TMA_BOX_MAX} per dimension")
+    arr = -(-sh * sw // 32) * 32  # csrc/rbsor.cu: each array rounded up to 128 bytes
+    smem = 2 * arr * 4 + 8  # φ, rhs and the TMA route's mbarrier
+    if smem > smem_limit:
+        raise ValueError(f"a {rows}×{TILE_COLS} tile with {sweeps} sweeps per pass needs "
+                         f"{smem} bytes of shared memory, above {smem_limit}")
+    return BlockedPlan(rows, TILE_COLS, "tma" if nx % 4 == 0 else "cp_async", smem)
+
+
+_max_cluster: dict = {}
+
+
+def max_cluster(device) -> int:
+    """The largest cluster of kernel A's cluster route that ``device`` can
+    schedule at full size (1024 threads and all shared memory per CTA),
+    asked once per device."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _max_cluster:
+        fn = KERNEL_A.library().cfd_rbsor_max_cluster
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(SMEM_LIMIT, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cannot size kernel A's cluster: CUDA error {rc} "
+                               f"({KERNEL_A.error_string(rc)})")
+        _max_cluster[index] = out.value
+    return _max_cluster[index]
 
 
 def _coeffs(dx: float, dy: float):
@@ -168,7 +324,8 @@ def rbsor(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
 
     ``solid_mask`` is bool or float (≥ 0.5 = solid). ``chunks_run``, if
     given, is a 0-dim int32 tensor on the fields' device that each chunk
-    run increments (on the device, in the kernel)."""
+    run increments (on the device, in the kernel). The route is
+    :func:`plan_rbsor`'s for the most sweeps the solve runs."""
     if bc not in ("neumann", "dirichlet"):
         raise ValueError(f"rbsor solves bc 'neumann' or 'dirichlet', got {bc!r}")
     if _on_cpu(phi0, rhs, solid_mask):
@@ -181,70 +338,87 @@ def rbsor(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
     mask = None
     if solid_mask is not None:
         mask = _field("solid_mask", solid_mask.to(torch.float32), device, shape)
-    ax, ay, denom_inv = _coeffs(dx, dy)
-    ny, nx = shape
-    stream = torch.cuda.current_stream(device).cuda_stream
-    args = (ny, nx)
-    coeffs = (ax, ay, denom_inv, omega, 1.0 - omega, int(bc == "dirichlet"))
-    mask_ptr = None if mask is None else mask.data_ptr()
+    if tol > 0.0 and chunks_run is not None and (chunks_run.device != device
+                                                 or chunks_run.dtype != torch.int32
+                                                 or chunks_run.numel() != 1):
+        raise ValueError("chunks_run must be one int32 value on the fields' device")
+    # the most sweeps the solve runs: every chunk of the early exit
+    check = max(1, check_every)
+    sweeps = max(1, iters // check) * check if tol > 0.0 else iters
+    plan = plan_rbsor(shape, max_cluster(device), sweeps=sweeps)
     with torch.cuda.device(device):
-        if tol <= 0.0:
-            KERNEL_A(out.data_ptr(), rhs.data_ptr(), mask_ptr, *args, iters, *coeffs,
-                     None, None, 0.0, 2.0 * (ax + ay), stream)
-            return out
-        if chunks_run is not None and (chunks_run.device != device
-                                       or chunks_run.dtype != torch.int32
-                                       or chunks_run.numel() != 1):
-            raise ValueError("chunks_run must be one int32 value on the fields' device")
-        # ctl[0] = active; ctl[1] holds the residual's bits, which each
-        # chunk zeroes before it reduces (a device fill: no host copy, so
-        # the solve can be captured in a CUDA graph)
-        ctl = torch.ones(2, dtype=torch.int32, device=device)
-        check = max(1, check_every)
-        count_ptr = None if chunks_run is None else chunks_run.data_ptr()
-        for _ in range(max(1, iters // check)):
-            KERNEL_A(out.data_ptr(), rhs.data_ptr(), mask_ptr, *args, check, *coeffs,
-                     ctl.data_ptr(), count_ptr, float(tol), 2.0 * (ax + ay), stream)
+        solve_a(out, rhs, mask, plan, dx, dy, iters, omega, bc, tol, check_every, chunks_run)
     return out
 
 
-def _tile_and_sweeps(iters: int, rows_per_block, sweeps_per_pass: int):
-    tile = TILE if rows_per_block is None else int(rows_per_block)
-    k = min(int(sweeps_per_pass), iters)
-    if tile < 1 or k < 1:
-        raise ValueError(f"tile edge {tile} and sweeps per pass {k} must be ≥ 1")
-    edge = tile + 4 * k
-    if 2 * edge * edge * 4 > SMEM_LIMIT:
-        raise ValueError(
-            f"a {tile}-cell tile with {k} sweeps per pass needs {2 * edge * edge * 4} "
-            f"bytes of shared memory, above {SMEM_LIMIT}")
-    return tile, k
+def solve_a(phi, rhs, mask, plan: RbsorPlan, dx: float, dy: float, iters: int, omega: float,
+            bc: str = "neumann", tol: float = 0.0, check_every: int = 8, chunks_run=None):
+    """Kernel A on checked CUDA fields by ``plan``: φ is updated in place.
+    :func:`rbsor` is the wrapper; this is its launch, for a caller that
+    measures one route."""
+    ax, ay, denom_inv = _coeffs(dx, dy)
+    ny, nx = phi.shape
+    stream = torch.cuda.current_stream(phi.device).cuda_stream
+    coeffs = (ax, ay, denom_inv, omega, 1.0 - omega, int(bc == "dirichlet"))
+    mask_ptr = None if mask is None else mask.data_ptr()
+    check = max(1, check_every)
+    count_ptr = None if chunks_run is None or tol <= 0.0 else chunks_run.data_ptr()
+    if plan.route == "cluster":
+        # the whole early exit in one launch: up to max(1, iters // check)
+        # chunks of `check` sweeps; without tol one chunk of `iters`
+        sweeps, chunks = (check, max(1, iters // check)) if tol > 0.0 else (iters, 1)
+        KERNEL_A(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, plan.cluster,
+                 plan.rows_per_cta, plan.threads, plan.rows_per_thread, plan.smem_bytes,
+                 sweeps, chunks, *coeffs, count_ptr, float(tol), 2.0 * (ax + ay), stream)
+        return
+    if tol <= 0.0:
+        KERNEL_A_COOP(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, iters, *coeffs,
+                      None, None, 0.0, 2.0 * (ax + ay), stream)
+        return
+    # one launch per chunk; ctl[0] = active, ctl[1] holds the residual's
+    # bits, which each chunk zeroes before it reduces (a device fill: no
+    # host copy, so the solve can be captured in a CUDA graph)
+    ctl = torch.ones(2, dtype=torch.int32, device=phi.device)
+    for _ in range(max(1, iters // check)):
+        KERNEL_A_COOP(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, check, *coeffs,
+                      ctl.data_ptr(), count_ptr, float(tol), 2.0 * (ax + ay), stream)
+
+
+def _aligned(t):
+    """``t``, or a fresh copy where its data is not 16-byte aligned (TMA and
+    cp.async read whole aligned vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def rbsor_blocked(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
                   rows_per_block=None, sweeps_per_pass: int = 8):
     """Temporally blocked Neumann red-black SOR through kernel B: ``iters //
     K`` passes of K = min(``sweeps_per_pass``, ``iters``) sweeps, then one
-    pass of ``iters % K``; tiles of edge ``rows_per_block`` (default 32)."""
+    pass of ``iters % K``; tiles of ``rows_per_block`` (default
+    :data:`TILE_ROWS`) × 128 cells, by :func:`plan_blocked`."""
     if _on_cpu(phi0, rhs):
         return rbsor_blocked_ref(phi0, rhs, dx, dy, iters, omega, rows_per_block,
                                  sweeps_per_pass)
     _check_grid(phi0)
     device, shape = phi0.device, tuple(phi0.shape)
-    rhs = _field("rhs", rhs, device, shape)
-    src = _field("phi0", phi0, device, shape)
+    rhs = _aligned(_field("rhs", rhs, device, shape))
+    src = _aligned(_field("phi0", phi0, device, shape))
     if iters <= 0:
         return src.clone()
-    tile, k = _tile_and_sweeps(iters, rows_per_block, sweeps_per_pass)
+    k = min(int(sweeps_per_pass), iters)
+    if k < 1:
+        raise ValueError(f"sweeps per pass {k} must be ≥ 1")
+    passes = [k] * (iters // k) + ([iters % k] if iters % k else [])
+    plans = {n: plan_blocked(shape, n, rows_per_block) for n in set(passes)}  # raise before any launch
     ax, ay, denom_inv = _coeffs(dx, dy)
     ny, nx = shape
     stream = torch.cuda.current_stream(device).cuda_stream
-    passes = [k] * (iters // k) + ([iters % k] if iters % k else [])
     bufs = (torch.empty_like(src), torch.empty_like(src) if len(passes) > 1 else None)
     with torch.cuda.device(device):
         for n, sweeps in enumerate(passes):
-            dst = bufs[n % 2]
-            KERNEL_B(src.data_ptr(), rhs.data_ptr(), dst.data_ptr(), ny, nx, sweeps, tile,
+            dst, plan = bufs[n % 2], plans[sweeps]
+            KERNEL_B(src.data_ptr(), rhs.data_ptr(), dst.data_ptr(), ny, nx, sweeps,
+                     plan.tile_rows, plan.tile_cols, B_ROUTES[plan.route],
                      ax, ay, denom_inv, omega, 1.0 - omega, stream)
             src = dst
     return src

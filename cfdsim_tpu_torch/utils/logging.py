@@ -20,19 +20,28 @@ def setup_logging(
     file_level: int = logging.INFO,
     console_level: int = logging.WARNING,
 ) -> logging.Logger:
+    """The logger ``name`` with one file handler on ``log_dir/filename`` and
+    one console handler. A later call in the same process points the file
+    handler at its own ``log_dir`` (closing the old file), so each run logs
+    into its own directory; a repeated call adds no handler."""
     logger = logging.getLogger(name)
     logger.setLevel(file_level)
-    if logger.handlers:  # already configured
-        return logger
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    fh = logging.FileHandler(Path(log_dir) / (filename or f"{name}.log"))
-    fh.setLevel(file_level)
-    fh.setFormatter(fmt)
-    logger.addHandler(fh)
-    ch = logging.StreamHandler()
-    ch.setLevel(console_level)
-    ch.setFormatter(fmt)
-    logger.addHandler(ch)
+    path = (Path(log_dir) / (filename or f"{name}.log")).resolve()
+    for h in list(logger.handlers):
+        if isinstance(h, logging.FileHandler) and Path(h.baseFilename) != path:
+            logger.removeHandler(h)
+            h.close()
+    if not any(isinstance(h, logging.FileHandler) for h in logger.handlers):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fh = logging.FileHandler(path)
+        fh.setLevel(file_level)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    if not any(type(h) is logging.StreamHandler for h in logger.handlers):
+        ch = logging.StreamHandler()
+        ch.setLevel(console_level)
+        ch.setFormatter(fmt)
+        logger.addHandler(ch)
     logger.propagate = False
     return logger

@@ -11,15 +11,22 @@ and the final ``{"ok": true, ...}`` line is not printed:
 3. kernel vs plain: the fused predictor against its plain torch version
    at (48, 64), (1024, 1024), (1000, 1030), (37, 129); max |Δ| ≤ 1e-6 and
    the boundary frame bit-equal to the input. Then the RB-SOR kernels:
-   kernel A (Neumann, Dirichlet, masked; 30 sweeps) at (32, 48), the
-   problem of tests/test_pallas.py:12-28, and at (37, 129), (180, 600)
-   with the cylinder's solid mask and (512, 512); kernel B against kernel
-   A and against its plain version at (64, 48) K=3, (72, 32) K=8, and
-   (1024, 1024), (1000, 1030) with a tail pass; the early exit (same
-   chunk count as the plain version). Band 1e-6 for A and 5e-6 for B (the
-   bands of tests/test_pallas.py) at every size: both kernels spell out
-   every rounding, so they are expected to give the plain versions' bits,
-   and each line says whether they do
+   kernel A (Neumann, Dirichlet, masked; 30 sweeps) on every route of its
+   plan: a cluster of 1 at (32, 48), the problem of
+   tests/test_pallas.py:12-28, of 2 at (37, 129), of 8 at (128, 256), of
+   16 at (180, 600) with the cylinder's solid mask and (512, 512) (40
+   sweeps: its bands take the cluster from 32), and the cooperative kernel
+   above the cluster's capacity at (360, 1200) with the cylinder's mask
+   and (768, 768); kernel B against kernel A and against
+   its plain version on each load route: TMA at (64, 48) K=3, (72, 32) K=8
+   and (1024, 1024) with a tail pass, cp.async at (1000, 1030) and (65,
+   33); the early exit on each route (48², and a tol reached after 3
+   chunks at 180×600 and 360×1200, and at 180×600 with a residual check
+   after every sweep: the same chunk count as the plain version). Each
+   line names its route. Band 1e-6 for A and
+   5e-6 for B (the bands of tests/test_pallas.py) at every size: the
+   kernels spell out every rounding, so they are expected to give the
+   plain versions' bits, and each line says whether they do
 4. golden: the 48² Re=100 cavity, 300 steps + one metrics step, fused
    predictor off and on, against tests/goldens.json (RTOL 2e-5)
 5. main path: the 1024² Re=1000 cavity through runner.Simulation, 600
@@ -29,37 +36,46 @@ and the final ``{"ok": true, ...}`` line is not printed:
    Re=600, SUPG, masked pressure solve through kernel A (1500 sweeps,
    ω=1.7, early exit at 1e-8 checked every 50 sweeps), 200 steps through
    runner.Simulation, health check on; finite, max |u| ≤ 5, fx finite,
-   kernel-A launches = steps × 30 (one launch per early-exit chunk, run
-   or skipped on the device); then 5 steps against the streaming rbsor
-   solve from the same state (u, v atol 1e-5; p less its mean within
-   1e-3 of its max)
+   kernel-A launches = steps (the whole early-exit solve is one cluster
+   launch) and chunks run = steps × 30 (all run, counted on the device);
+   then 5 steps against the streaming rbsor solve from the same state (u,
+   v atol 1e-5; p less its mean within 1e-3 of its max)
 7. multigrid path: the 1024² Re=1000 cavity with ``poisson="mg:2"``, 200
    steps through runner.Simulation; finite, max |u| ≤ 1.5, kernel-B
    launches = steps × 4 (fine level, pre and post smoothing, 2 V-cycles)
    and kernel-A launches = steps × 32 (8 coarser levels × 2 calls × 2
-   V-cycles); then 5 steps against plain smoothing from the same state,
+   V-cycles: the 512² level's 4 on the cooperative route, the 28 below on
+   a cluster); then 5 steps against plain smoothing from the same state,
    at the cylinder's bands
 8. timings, each beside the card's name and power limit: marginal
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
    plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2; kernel
-   A per 50-sweep masked chunk at 180×600 and kernel B per 2-sweep and
-   8-sweep call at 1024², each against its plain version; ``bench --all``
-   (marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s at 1024²) and
-   ``bench --cylinder`` (steps/s through kernel A and streaming rbsor)
-   (``cfdsim_tpu_torch/bench.py``). "Device" times replay the calls from a
-   CUDA graph, so they exclude the host's dispatch; "eager" times include
-   it. The predictor's, the DCT solve's and kernel B's inputs rotate
-   through buffers twice the card's L2, so those calls stream from device
-   memory as in a step; kernel A's 0.86-MB problem stays in L2, as it does
-   in the cylinder's solve
+   A per 50-sweep call on each route (the masked 180×600 chunk on a
+   cluster of 16, 32×48 on 1, 128×256 on 8, the masked 360×1200 on the
+   cooperative kernel), the multigrid's 512² 2-sweep call on the
+   cooperative route its plan takes and on a cluster of 16, and the
+   cluster route's synchronisation per half-sweep at minimal work on
+   clusters of 1, 8 and 16; kernel B per 1-, 2-, 4- and 8-sweep call at
+   1024² (TMA) and per 2-sweep call at 1000×1030 (cp.async), each
+   against its plain version; ``bench --all`` (marginal rbsor sweeps/s, MG
+   V-cycles/s, DCT solves/s at 1024²) and ``bench --cylinder`` (steps/s
+   through kernel A and streaming rbsor) (``cfdsim_tpu_torch/bench.py``).
+   "Device" times replay the calls from a CUDA graph, so they exclude the
+   host's dispatch; "eager" times include it. The predictor's, the DCT
+   solve's and kernel B's inputs rotate through buffers twice the card's
+   L2, so those calls stream from device memory as in a step; kernel A's
+   problem is read once per call and then stays on chip, as it does in the
+   cylinder's solve
 
 Before the last line it prints the card and a ``{"kernels": [...]}`` line:
 per kernel its launches on the paths above, the worst kernel-vs-plain
 |Δ|, its device ms and its plain version's, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM
-data sheet).
+data sheet); per route, the time of the route's call (``paths_ms``), and
+for kernel A the measured µs of its cluster route's synchronisation per
+half-sweep.
 
 It imports nothing of JAX: the machine with the card need not have it.
 """
@@ -81,6 +97,7 @@ from cfdsim_tpu_torch.bench import (
     predictor_ms,
     rbsor_blocked_ms,
     rbsor_ms,
+    rbsor_sync_us,
     run_all,
     run_bench,
     run_cylinder,
@@ -93,7 +110,7 @@ from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
 from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
-from cfdsim_tpu_torch.solvers.poisson import PoissonConfig
+from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, poisson_residual
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
 
 ROOT = Path(__file__).resolve().parent
@@ -103,10 +120,24 @@ GOLDEN_RTOL = 2e-5  # tests/test_goldens.py:28
 PREDICTOR_SHAPES = [(48, 64), (1024, 1024), (1000, 1030), (37, 129)]
 RBSOR_A_ATOL = 1e-6  # tests/test_pallas.py:28
 RBSOR_B_ATOL = 5e-6  # tests/test_pallas.py:69-70
-# (ny, nx, tile edge or None for the default, K, sweeps): tests/test_pallas.py:61,
-# then the multigrid fine level's size with a tail pass, and a ragged grid
+# kernel A's grids, one route or more each on the H100 (max cluster 16):
+# (32, 48) the problem of tests/test_pallas.py:12-28, a cluster of 1;
+# (37, 129) 2; (128, 256) 8; the cylinder's (180, 600) and, at 40 sweeps,
+# (512, 512) 16;
+# the cylinder at twice its resolution (360, 1200) and (768, 768) above the
+# cluster's capacity: the cooperative route
+KERNEL_A_SHAPES = [(32, 48), (37, 129), (128, 256), (180, 600), (512, 512), (360, 1200),
+                   (768, 768)]
+# 30 sweeps as in tests/test_pallas.py; 512², the largest band (8 rows per
+# thread), takes the cluster at rb.CLUSTER_MIN_SWEEPS sweeps or more
+KERNEL_A_SWEEPS = {(512, 512): 40}
+CYLINDER_SHAPES = {(180, 600), (360, 1200)}  # these take the cylinder's solid mask
+# (ny, nx, tile rows or None for the default, K, sweeps): tests/test_pallas.py:61,
+# then the multigrid fine level's size with a tail pass, and ragged grids;
+# the row pitch picks the load route: TMA (a multiple of 16 bytes: 48, 32,
+# 1024), cp.async (1030, 33)
 BLOCKED_CASES = [(64, 48, 16, 3, 10), (72, 32, 32, 8, 9), (1024, 1024, None, 8, 20),
-                 (1000, 1030, None, 8, 19)]
+                 (1000, 1030, None, 8, 19), (65, 33, None, 2, 5)]
 # kernel A vs the streaming solve, 5 cylinder steps from the same state,
 # and multigrid with kernel vs plain smoothing, 5 cavity steps: the same
 # sweeps with each neighbour set summed in another order, from solves that
@@ -179,61 +210,96 @@ def _check(label, got, want, atol, **fields):
     return err
 
 
+def _cylinder_solid(shape):
+    """The cylinder case's solid mask on its domain at this resolution."""
+    ny, nx = shape
+    solid, _ = cylinder_masks(Grid(nx=nx, ny=ny, x_max=20.0, y_max=4.0), (4.0, 2.0), 0.5)
+    return solid
+
+
 def phase_rbsor_vs_plain():
     worst_a = worst_b = 0.0
+    max_cluster = rb.max_cluster("cuda")
+    routes_a, routes_b = set(), set()
     # kernel A: the test_pallas problem (h = 1/32), then larger grids; the
-    # 180×600 case uses the cylinder's own solid mask
-    grid = Grid(nx=600, ny=180, x_max=20.0, y_max=4.0)
-    cyl_solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
-    for shape in [(32, 48), (37, 129), (180, 600), (512, 512)]:
+    # cylinder's grids use its own solid mask
+    for shape in KERNEL_A_SHAPES:
         phi0, rhs, solid = _rbsor_problem(shape)
-        if shape == (180, 600):
-            solid = cyl_solid
+        if shape in CYLINDER_SHAPES:
+            solid = _cylinder_solid(shape)
+        sweeps = KERNEL_A_SWEEPS.get(shape, 30)
+        plan = rb.plan_rbsor(shape, max_cluster, sweeps=sweeps)
+        routes_a.add((plan.route, plan.cluster))
         for bc, mask in [("neumann", None), ("dirichlet", None), ("neumann", solid)]:
             m = None if mask is None else _cuda(mask)
-            args = (_cuda(phi0), _cuda(rhs), 1.0 / 32, 1.0 / 32, 30, 1.7, bc, m)
+            args = (_cuda(phi0), _cuda(rhs), 1.0 / 32, 1.0 / 32, sweeps, 1.7, bc, m)
             worst_a = max(worst_a, _check("rbsor_a_vs_plain", rb.rbsor(*args), rb.rbsor_ref(*args),
                                           RBSOR_A_ATOL, shape=list(shape), bc=bc,
-                                          masked=mask is not None, sweeps=30))
+                                          masked=mask is not None, sweeps=sweeps, route=plan.route,
+                                          cluster=plan.cluster))
+    want = {("cluster", 1), ("cluster", 8), ("cluster", 16), ("cooperative", 0)}
+    if not want <= routes_a:
+        raise AssertionError(f"kernel A took the routes {sorted(routes_a)}, not all of {want}")
     # kernel B against A and against its plain version
     rs = np.random.RandomState(7)
     for ny, nx, tile, k, iters in BLOCKED_CASES:
         rhs = _cuda(rs.randn(ny, nx).astype(np.float32))
         phi0 = _cuda(rs.randn(ny, nx).astype(np.float32))
+        plan = rb.plan_blocked((ny, nx), min(k, iters), tile)
+        routes_b.add(plan.route)
         got = rb.rbsor_blocked(phi0, rhs, 0.02, 0.03, iters, 1.7, tile, k)
-        fields = dict(shape=[ny, nx], tile=tile or rb.TILE, sweeps_per_pass=k, sweeps=iters)
+        fields = dict(shape=[ny, nx], tile=[plan.tile_rows, plan.tile_cols], sweeps_per_pass=k,
+                      sweeps=iters, route=plan.route)
         worst_b = max(worst_b,
                       _check("rbsor_b_vs_a", got, rb.rbsor(phi0, rhs, 0.02, 0.03, iters, 1.7),
                              RBSOR_B_ATOL, **fields),
                       _check("rbsor_b_vs_plain", got,
                              rb.rbsor_blocked_ref(phi0, rhs, 0.02, 0.03, iters, 1.7, tile, k),
                              RBSOR_B_ATOL, **fields))
-    # the early exit: a tol the problem reaches, the same chunks as the plain version
-    n = 48
-    rhs = np.random.RandomState(1).randn(n, n).astype(np.float32)
-    rhs -= rhs.mean()
-    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
-    outs = [fn(torch.zeros(n, n, device="cuda"), _cuda(rhs), 1.0 / n, 1.0 / n, 4000, 1.7,
-               tol=1e-3, check_every=50, chunks_run=c)
-            for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
-    chunks = [int(c) for c in counts]
-    worst_a = max(worst_a, _check("rbsor_a_early_exit", outs[0], outs[1],
-                                  RBSOR_A_ATOL * float(outs[1].abs().max()),
-                                  shape=[n, n], tol=1e-3, chunks_kernel=chunks[0],
-                                  chunks_plain=chunks[1]))
-    if chunks[0] != chunks[1] or not chunks[0] < 4000 // 50:
-        raise AssertionError(f"early exit ran {chunks} chunks (kernel, plain)")
+    if routes_b != set(rb.B_ROUTES):
+        raise AssertionError(f"kernel B took the routes {sorted(routes_b)}, not all of "
+                             f"{sorted(rb.B_ROUTES)}")
+    # the early exit, one solve per route: a tol the 48² problem reaches,
+    # then on the cylinder's grid (a cluster of 16) and at twice its
+    # resolution (cooperative) the residual the plain version has after 3
+    # chunks; the kernel runs the same chunks as the plain version. On the
+    # cluster of 16 also with a check after every sweep, where a CTA may
+    # reach the next chunk's residual before a distant one has read this one's
+    for shape, tol, check in [((48, 48), 1e-3, 50), ((180, 600), None, 50),
+                              ((360, 1200), None, 50), ((180, 600), None, 1)]:
+        rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+        rhs -= rhs.mean()
+        h = 1.0 / shape[0]
+        mask = None if shape == (48, 48) else _cuda(_cylinder_solid(shape))
+        if tol is None:
+            three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 3 * check,
+                                 1.7, "neumann", mask)
+            tol = float(poisson_residual(three, _cuda(rhs), h, h, mask, "neumann"))
+        counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+        outs = [fn(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 4000, 1.7, "neumann",
+                   mask, tol=tol, check_every=check, chunks_run=c)
+                for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
+        chunks = [int(c) for c in counts]
+        plan = rb.plan_rbsor(shape, max_cluster, sweeps=4000 // check * check)
+        worst_a = max(worst_a, _check("rbsor_a_early_exit", outs[0], outs[1],
+                                      RBSOR_A_ATOL * float(outs[1].abs().max()),
+                                      shape=list(shape), tol=tol, check_every=check,
+                                      chunks_kernel=chunks[0],
+                                      chunks_plain=chunks[1], route=plan.route,
+                                      cluster=plan.cluster))
+        if chunks[0] != chunks[1] or not chunks[0] < 4000 // check:
+            raise AssertionError(f"early exit at {shape} ran {chunks} chunks (kernel, plain)")
     return worst_a, worst_b
 
 
 def _reset_counts():
-    for k in (pred.KERNEL, rb.KERNEL_A, rb.KERNEL_B):
+    for k in (pred.KERNEL, *rb.KERNELS):
         k.launches = 0
 
 
 def _counts():
     return {"predictor": pred.KERNEL.launches, "rbsor_a": rb.KERNEL_A.launches,
-            "rbsor_b": rb.KERNEL_B.launches}
+            "rbsor_a_cooperative": rb.KERNEL_A_COOP.launches, "rbsor_b": rb.KERNEL_B.launches}
 
 
 def _run(case, steps, chunk):
@@ -279,9 +345,12 @@ def phase_cylinder():
         wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
     if not (math.isfinite(fx) and math.isfinite(fy)):
         raise AssertionError(f"cylinder force not finite: {fx}, {fy}")
-    if launches["rbsor_a"] != steps * n_chunks or launches["rbsor_b"] or launches["predictor"]:
-        raise AssertionError(f"cylinder path launches {launches}, expected {steps * n_chunks} "
-                             "of kernel A only")
+    # the whole early-exit solve is one cluster launch per step; all 30
+    # chunks run (tol 1e-8 is below float32's reach)
+    want = {"predictor": 0, "rbsor_a": steps, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    if launches != want or chunks != steps * n_chunks:
+        raise AssertionError(f"cylinder path launches {launches} and {chunks} chunks, expected "
+                             f"{want} and {steps * n_chunks}")
 
     # kernel A vs the streaming solve from the same state (not counted)
     other = build("cylinder", ref_parity=True, scheme="supg", device="cuda")
@@ -322,8 +391,10 @@ def phase_mg_cavity():
         max_abs_u=max_u, t=report["final_time"], last_chunk=sim.metrics_history[-1],
         wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
     # per V-cycle: the 1024² level's pre and post smoothing through kernel B,
-    # 2 calls on each of the 8 coarser levels (512² … 4²) through kernel A
-    want = {"predictor": 0, "rbsor_a": steps * 2 * 16, "rbsor_b": steps * 2 * 2}
+    # 2 calls on each of the 8 coarser levels through kernel A: 512² (2
+    # sweeps on large bands) on the cooperative route, 256² … 4² on a cluster
+    want = {"predictor": 0, "rbsor_a": steps * 2 * 14, "rbsor_a_cooperative": steps * 2 * 2,
+            "rbsor_b": steps * 2 * 2}
     if launches != want:
         raise AssertionError(f"multigrid path launches {launches}, expected {want}")
 
@@ -387,7 +458,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pred.KERNEL.launches
-    if rb.KERNEL_A.launches or rb.KERNEL_B.launches:
+    if any(k.launches for k in rb.KERNELS):
         raise AssertionError(f"the DCT main path launched RB-SOR kernels: {_counts()}")
     steps = int(state.step)
     finite = bool(torch.isfinite(state.u).all() and torch.isfinite(state.v).all()
@@ -436,13 +507,33 @@ def phase_timings(card):
     say("time_predictor", shape=[1024, 1024], **pred_t, card=card)
     # one DCT solve at 1024²: rfft, rfft2, rfft2, rfft
     say("time_dct_solve", shape=[1024, 1024], **dct_solve_ms(1024, reps=50), card=card)
-    # kernel A: one 50-sweep chunk of the cylinder's masked solve
+    # kernel A: one 50-sweep chunk of the cylinder's masked solve (a
+    # cluster of 16), then 50 sweeps on each other route: a cluster of 1
+    # and of 8, and the cooperative kernel on the cylinder at twice its
+    # resolution
     a_t = rbsor_ms((180, 600), sweeps=50, reps=20)
     say("time_rbsor_a", **a_t, card=card)
-    # kernel B: the multigrid fine level's 2-sweep call, and 8 sweeps (one
-    # full pass), at 1024², inputs streamed from device memory
-    b_t = {k: rbsor_blocked_ms(1024, sweeps=k, reps=50) for k in (2, 8)}
-    for t in b_t.values():
+    a_paths = {f"cluster{a_t['cluster']}": a_t}
+    for shape, masked in [((32, 48), False), ((128, 256), False), ((360, 1200), True)]:
+        t = rbsor_ms(shape, sweeps=50, reps=10, masked=masked)
+        say("time_rbsor_a", **t, card=card)
+        a_paths[t["route"] if t["route"] == "cooperative" else f"cluster{t['cluster']}"] = t
+    # the multigrid's largest kernel-A level, 512², 2 sweeps: the route the
+    # plan takes (cooperative) against the cluster route the size alone gives
+    for plan in (None, rb.plan_rbsor((512, 512), rb.max_cluster("cuda"))):
+        t = rbsor_ms((512, 512), sweeps=2, reps=20, masked=False, plan=plan)
+        say("time_rbsor_a", **t, card=card)
+        a_paths[f"mg512_{t['route'] if plan is None else 'forced_cluster'}"] = t
+    # the cluster route's synchronisation per half-sweep, at minimal work
+    sync_us = {c: rbsor_sync_us(c) for c in (1, 8, 16)}
+    say("time_rbsor_a_sync", us_per_half_sweep=sync_us, card=card)
+    # kernel B: the multigrid fine level's 2-sweep call, 1, 4 and 8 sweeps
+    # (8: one full pass) at 1024² (TMA loads), whose intercept is the cost
+    # of the pass without its sweeps, and 2 sweeps at 1000×1030 (cp.async),
+    # inputs streamed from device memory
+    b_t = {k: rbsor_blocked_ms((1024, 1024), sweeps=k, reps=50) for k in (1, 2, 4, 8)}
+    b_cp = rbsor_blocked_ms((1000, 1030), sweeps=2, reps=50)
+    for t in (*b_t.values(), b_cp):
         say("time_rbsor_b", **t, card=card)
     # the JAX bench's secondary metrics, and the cylinder through kernel A
     # and through streaming rbsor
@@ -451,18 +542,29 @@ def phase_timings(card):
     for row in run_cylinder():
         say("time_cylinder", **row)
 
+    def best(t):
+        return min(t["kernel_device_ms"])
+
     n = 1024 * 1024
+    sweeps = a_t["sweeps"]
     kernels = {
-        "fused_predictor_central": (min(pred_t["kernel_device_ms"]),
-                                    min(pred_t["plain_device_ms"]),
-                                    _bound_ms(4 * 4 * n, PREDICTOR_FLOPS_PER_CELL * n)),
-        "rbsor": (min(a_t["kernel_device_ms"]), min(a_t["plain_device_ms"]),
-                  # φ, rhs, mask in; φ out; every fluid cell updated per sweep
-                  _bound_ms(4 * 4 * 180 * 600,
-                            RBSOR_FLOPS_PER_UPDATE * a_t["fluid_cells"] * a_t["sweeps"])),
-        "rbsor_blocked": (min(b_t[2]["kernel_device_ms"]), min(b_t[2]["plain_device_ms"]),
-                          # φ, rhs in; φ out; every cell updated per sweep
-                          _bound_ms(3 * 4 * n, RBSOR_FLOPS_PER_UPDATE * n * 2)),
+        "fused_predictor_central": dict(
+            ms=best(pred_t), plain_ms=min(pred_t["plain_device_ms"]),
+            bound=_bound_ms(4 * 4 * n, PREDICTOR_FLOPS_PER_CELL * n)),
+        "rbsor": dict(
+            ms=best(a_t), plain_ms=min(a_t["plain_device_ms"]),
+            # φ, rhs, mask in; φ out; every fluid cell updated per sweep
+            bound=_bound_ms(4 * 4 * 180 * 600,
+                            RBSOR_FLOPS_PER_UPDATE * a_t["fluid_cells"] * sweeps),
+            paths_ms={k: {"ms": best(t), "shape": t["shape"], "masked": t["masked"],
+                          "sweeps": t["sweeps"]} for k, t in a_paths.items()},
+            sync_us_per_half_sweep={f"cluster{c}": us for c, us in sync_us.items()}),
+        "rbsor_blocked": dict(
+            ms=best(b_t[2]), plain_ms=min(b_t[2]["plain_device_ms"]),
+            # φ, rhs in; φ out; every cell updated per sweep
+            bound=_bound_ms(3 * 4 * n, RBSOR_FLOPS_PER_UPDATE * n * 2),
+            paths_ms={f"{t['route']}_{t['shape'][0]}x{t['shape'][1]}_k{t['sweeps']}":
+                      best(t) for t in (*b_t.values(), b_cp)}),
     }
     return kernels
 
@@ -475,7 +577,7 @@ def main() -> int:
     say("card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], count=torch.cuda.device_count())
 
-    kernels = (pred.KERNEL, rb.KERNEL_A, rb.KERNEL_B)
+    kernels = (pred.KERNEL, *rb.KERNELS)
     say("build", seconds_per_source=cuda_build.build_all(kernels),
         kernels=[k.symbol for k in kernels])
     err = {"fused_predictor_central": phase_kernel_vs_plain()}
@@ -488,7 +590,8 @@ def main() -> int:
 
     launches = {
         "fused_predictor_central": {"cavity_1024_dct": pred_launches},
-        "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"]},
+        "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"],
+                  "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"]},
         "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"]},
     }
     info = {
@@ -503,17 +606,20 @@ def main() -> int:
     }
     rows = []
     for name, (source, replaces, timed) in info.items():
-        ms, plain_ms, (bound_ms, bound_by) = times[name]
-        for x in (err[name], ms, plain_ms, bound_ms):
+        t = times[name]
+        bound_ms, bound_by = t["bound"]
+        for x in (err[name], t["ms"], t["plain_ms"], bound_ms):
             if not math.isfinite(x):
                 raise AssertionError(f"non-finite measurement for {name}")
         if not sum(launches[name].values()):
             raise AssertionError(f"{name} was not launched on its path")
+        extra = {k: v for k, v in t.items() if k not in ("ms", "plain_ms", "bound")}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches[name].values()), "launches_by_path": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "timed": timed,
+            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "timed": timed,
+            **extra,
         })
     rows[1]["kernel_chunks_per_cylinder_step"] = cyl_chunks_per_step
     print(card, flush=True)

@@ -13,6 +13,7 @@ Tolerances:
 """
 
 import json
+import logging
 import subprocess
 import sys
 from pathlib import Path
@@ -131,6 +132,18 @@ def test_cli_run_cavity(tmp_path, capsys):
     assert report["final_time"] >= 0.05 and report["stopped_reason"] == ""
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
     assert (tmp_path / "logs" / "cfdsim_tpu_torch.log").exists()
+
+
+def test_cli_two_runs_in_one_process_log_into_their_own_out(tmp_path):
+    """The second run's log goes to its own ``--out``, not the first's."""
+    for name in ("first", "second"):
+        cli.main(["run", "cavity", "--n", "16", "--max-steps", "2", "--chunk-steps", "2",
+                  "--device", "cpu", "--out", str(tmp_path / name)])
+    for name in ("first", "second"):
+        log = tmp_path / name / "logs" / "cfdsim_tpu_torch.log"
+        assert log.exists() and log.stat().st_size > 0
+    handlers = logging.getLogger("cfdsim_tpu_torch").handlers
+    assert sum(isinstance(h, logging.FileHandler) for h in handlers) == 1
 
 
 @pytest.mark.parametrize("argv, why", [

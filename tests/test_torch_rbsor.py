@@ -1,7 +1,8 @@
 """The RB-SOR kernels of the port (``ops/kernels/poisson_rb.py``): their
 plain versions against the JAX package's Pallas kernels (interpret mode),
-the early exit, the routing, and on a card the kernels against the plain
-versions.
+the early exit, the routing, the size plans of kernel A (cluster or
+cooperative route) and kernel B (tiles and load route), and on a card the
+kernels on each route against the plain versions.
 
 Tolerances:
 - kernel A's plain version vs ``rbsor_pallas``: atol 1e-6, the band of
@@ -132,12 +133,13 @@ def test_routing_above_max_elems(monkeypatch, bc, masked, blocked):
 def test_cpu_tensors_take_the_plain_versions():
     phi0, rhs, h, solid = _problem()
     tp, tr, ts = (torch.from_numpy(a) for a in (phi0, rhs, solid))
-    rb.KERNEL_A.launches = rb.KERNEL_B.launches = 0
+    for k in rb.KERNELS:
+        k.launches = 0
     assert torch.equal(rb.rbsor(tp, tr, h, h, 10, 1.7, "neumann", ts),
                        rb.rbsor_ref(tp, tr, h, h, 10, 1.7, "neumann", ts))
     assert torch.equal(rb.rbsor_blocked(tp, tr, h, h, 10, 1.7, 16, 3),
                        rb.rbsor_blocked_ref(tp, tr, h, h, 10, 1.7, 16, 3))
-    assert rb.KERNEL_A.launches == rb.KERNEL_B.launches == 0
+    assert all(k.launches == 0 for k in rb.KERNELS)
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -159,8 +161,170 @@ def test_plain_versions_equal_the_streaming_solver():
     np.testing.assert_allclose(kernel.numpy(), stream.numpy(), rtol=0, atol=ATOL_A)
 
 
+# kernel A's plan on a card that schedules clusters of 16 (the H100):
+# (shape, max cluster, sweeps or None for the size alone) -> (route, cluster
+# size). Bands above LARGE_BAND cells take the cluster only for a solve of at
+# least CLUSTER_MIN_SWEEPS sweeps
+PLAN_CASES = [
+    ((32, 48), 16, None, "cluster", 1),  # the test_pallas problem: one CTA
+    ((37, 129), 16, None, "cluster", 2),
+    ((128, 256), 16, None, "cluster", 8),
+    ((180, 600), 16, None, "cluster", 16),  # the ref-parity cylinder
+    ((512, 512), 16, None, "cluster", 16),  # the largest multigrid level of mg:2 at 1024²
+    ((512, 512), 8, None, "cooperative", 0),  # ... needs 16
+    ((360, 1200), 16, None, "cooperative", 0),  # the cylinder at twice its resolution
+    ((768, 768), 16, None, "cooperative", 0),
+    ((4, 4), 16, None, "cluster", 1),  # the coarsest multigrid level
+    ((3, 4000), 16, None, "cooperative", 0),  # a row wider than 1024 column pairs
+    ((512, 512), 16, 2, "cooperative", 0),  # the multigrid's 512² smoothing call
+    ((512, 512), 16, 31, "cooperative", 0),
+    ((512, 512), 16, 32, "cluster", 16),
+    ((180, 600), 16, 2, "cluster", 16),  # 7,200 cells per band
+    ((180, 600), 16, 1500, "cluster", 16),  # the ref-parity cylinder's solve
+    ((256, 256), 16, 2, "cluster", 16),  # the multigrid's 256² level
+    ((360, 1200), 16, 1500, "cooperative", 0),  # over capacity at any sweeps
+]
+
+
+@pytest.mark.parametrize(
+    "shape, most, sweeps, route, cluster", PLAN_CASES,
+    ids=[f"{s[0]}x{s[1]}-max{m}" + (f"-{n}sweeps" if n else "") for s, m, n, _, _ in PLAN_CASES])
+def test_plan_rbsor_routes_by_size(shape, most, sweeps, route, cluster):
+    plan = rb.plan_rbsor(shape, most, sweeps=sweeps)
+    assert (plan.route, plan.cluster) == (route, cluster)
+    if route == "cooperative":
+        assert plan == rb.RbsorPlan("cooperative")
+        return
+    assert plan == rb.plan_rbsor(shape, most)  # the sweeps choose the route, not the cluster
+    ny, nx = shape
+    pairs_per_row = -(-((nx + 1) // 2) // 32) * 32  # column pairs rounded up to a warp
+    assert plan.rows_per_cta == -(-ny // cluster)
+    assert plan.rows_per_thread in rb.ROWS_PER_THREAD
+    assert plan.threads % pairs_per_row == 0 and plan.threads <= rb.CLUSTER_THREADS
+    assert plan.threads // pairs_per_row * plan.rows_per_thread >= plan.rows_per_cta
+    assert plan.smem_bytes <= rb.SMEM_LIMIT
+
+
+def test_plan_rbsor_needs_the_shared_memory_it_names():
+    plan = rb.plan_rbsor((180, 600), 16)
+    assert rb.plan_rbsor((180, 600), 16, smem_limit=plan.smem_bytes) == plan
+    # a cluster of 16 is the largest: with less shared memory the grid
+    # goes to the cooperative kernel
+    assert rb.plan_rbsor((180, 600), 16, smem_limit=plan.smem_bytes - 1).route == "cooperative"
+
+
+@pytest.mark.parametrize("shape, sweeps, rows, want", [
+    ((1024, 1024), 2, None, ("tma", 32)),
+    ((1024, 1024), 8, None, ("tma", 64)),
+    ((1000, 1030), 2, None, ("cp_async", 32)),
+    ((65, 33), 2, None, ("cp_async", 32)),
+    ((64, 48), 3, 16, ("tma", 16)),
+    ((72, 32), 8, 32, ("tma", 32)),
+])
+def test_plan_blocked_picks_the_load_route_by_pitch(shape, sweeps, rows, want):
+    plan = rb.plan_blocked(shape, sweeps, rows)
+    assert (plan.route, plan.tile_rows) == want
+    halo_cols = -(-2 * sweeps // 4) * 4  # 2K rounded up to 16 bytes
+    staged = (plan.tile_rows + 4 * sweeps) * (plan.tile_cols + 2 * halo_cols)
+    # φ and rhs, each rounded up to 128 bytes, and one mbarrier
+    assert plan.smem_bytes == 2 * (-(-staged // 32) * 32) * 4 + 8
+    assert plan.smem_bytes <= rb.SMEM_LIMIT
+    assert (plan.tile_cols + 2 * halo_cols) % 4 == 0  # a TMA box row is whole 16-byte words
+
+
+@pytest.mark.parametrize("sweeps, rows", [(40, None), (2, 300)])
+def test_plan_blocked_refuses_tiles_beyond_a_tma_box(sweeps, rows):
+    with pytest.raises(ValueError, match="per dimension"):
+        rb.plan_blocked((1024, 1024), sweeps, rows)
+
+
 def _cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def _cylinder_solid(shape):
+    from cfdsim_tpu_torch.grid import Grid
+    from cfdsim_tpu_torch.ibm import cylinder_masks
+
+    solid, _ = cylinder_masks(Grid(nx=shape[1], ny=shape[0], x_max=20.0, y_max=4.0), (4.0, 2.0),
+                              0.5)
+    return solid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 256), (180, 600), (360, 1200)],
+                         ids=["cluster8", "cluster16", "cooperative"])
+def test_kernel_a_routes_match_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    phi0, rhs, h, _ = _problem(shape)
+    mask = _cuda(_cylinder_solid(shape))
+    plan = rb.plan_rbsor(shape, rb.max_cluster("cuda"))
+    kernel = rb.KERNEL_A if plan.route == "cluster" else rb.KERNEL_A_COOP
+    before = kernel.launches
+    got = rb.rbsor(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, "neumann", mask)
+    want = rb.rbsor_ref(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, "neumann", mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert float((got - want).abs().max()) <= ATOL_A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny, nx", [(1000, 1030), (65, 33), (64, 48)],
+                         ids=["cp_async-even", "cp_async-odd", "tma"])
+def test_kernel_b_load_routes_match_plain_on_card(ny, nx):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.RandomState(7)
+    rhs, phi0 = _cuda(rng.randn(ny, nx).astype(np.float32)), _cuda(rng.randn(ny, nx).astype(np.float32))
+    got = rb.rbsor_blocked(phi0, rhs, 0.02, 0.03, 5, 1.7, None, 2)
+    plain = rb.rbsor_blocked_ref(phi0, rhs, 0.02, 0.03, 5, 1.7, None, 2)
+    torch.cuda.synchronize()
+    assert float((got - plain).abs().max()) <= ATOL_B
+
+
+@pytest.mark.cuda
+def test_cluster_early_exit_is_one_launch_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n = 48
+    rhs = np.random.RandomState(1).randn(n, n).astype(np.float32)
+    rhs -= rhs.mean()
+    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+    before = rb.KERNEL_A.launches
+    got = rb.rbsor(torch.zeros(n, n, device="cuda"), _cuda(rhs), 1.0 / n, 1.0 / n, 4000, 1.7,
+                   tol=1e-3, check_every=50, chunks_run=counts[0])
+    want = rb.rbsor_ref(torch.zeros(n, n, device="cuda"), _cuda(rhs), 1.0 / n, 1.0 / n, 4000,
+                        1.7, tol=1e-3, check_every=50, chunks_run=counts[1])
+    torch.cuda.synchronize()
+    assert rb.KERNEL_A.launches == before + 1
+    assert int(counts[0]) == int(counts[1]) < 80
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cluster_early_exit_checked_every_sweep_on_card():
+    """A residual check after every sweep on a cluster of 16: a CTA may
+    finish the next chunk before a distant CTA has read this chunk's
+    residual, so the chunks' residual slots alternate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    shape = (180, 600)
+    rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    rhs -= rhs.mean()
+    h = 1.0 / shape[0]
+    mask = _cuda(_cylinder_solid(shape))
+    assert rb.plan_rbsor(shape, rb.max_cluster("cuda"), sweeps=4000).cluster == 16
+    three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 3, 1.7,
+                         "neumann", mask)
+    tol = float(rb.poisson_residual(three, _cuda(rhs), h, h, mask, "neumann"))
+    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+    outs = [fn(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 4000, 1.7, "neumann", mask,
+               tol=tol, check_every=1, chunks_run=c)
+            for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
+    torch.cuda.synchronize()
+    assert int(counts[0]) == int(counts[1]) < 4000
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda
