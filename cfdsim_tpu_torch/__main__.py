@@ -6,7 +6,14 @@
     python -m cfdsim_tpu_torch run cylinder --device cuda --ref-parity true \\
         --scheme supg --max-steps 200
     python -m cfdsim_tpu_torch run cavity --n 1024 --Re 1000 --poisson mg:2
-    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder | --routes]
+    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder
+                                      | --routes]
+
+On a CUDA device ``run`` steps through captured chunks (one CUDA graph per
+chunk of ``--chunk-steps`` steps, replayed; see
+``models/incompressible.py::make_chunk``) unless the step reads the host;
+the route and its reason are logged and the route is in the report.
+``bench`` times the captured chunk and the eager loop side by side.
 
 Unknown ``--key value`` pairs on ``run`` are forwarded to the case builder
 (ints/floats/bools auto-parsed; ``--poisson`` takes
@@ -121,8 +128,9 @@ def cmd_bench(args, _extra):
         rows = bench.run_cylinder(device=device)
     elif args.routes:
         rows = bench.run_routes(device=device)
-    else:
-        rows = [bench.run_bench(n=args.n, device=device)]
+    else:  # the captured chunk (the path's metric), then the eager loop beside it
+        rows = (bench.run_bench(n=args.n, device=device, route=route)
+                for route in (None, "loop"))
     for row in rows:
         print(json.dumps(row), flush=True)
 

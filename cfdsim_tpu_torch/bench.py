@@ -7,13 +7,19 @@ fused predictor kernel when ``fused_predictor``), BCs, the exact DCT
 pressure projection. Throughput is measured marginally between a short and
 a long chunk of steps from the same initial state, so the per-chunk
 constant (first-launch and synchronisation cost) cancels. Each chunk ends
-in ``torch.cuda.synchronize()``.
+in ``torch.cuda.synchronize()``. A chunk is what
+``models/incompressible.py::make_chunk`` builds: on the card one captured
+device program (the ``"graph"`` route, the path's metric, as the JAX bench
+times a jitted chunk); ``route="loop"`` times the eager Python loop of step
+calls beside it, host dispatch included.
 
-``--sweep`` adds, per grid size, the device times of the predictor (kernel
-and plain torch), of one DCT solve (rfft and rfft2) and of one step (fused
-and unfused), next to the eager cells/s. ``--profile`` counts the device
+``--sweep`` adds, per grid size, the device times of the predictor (kernel,
+plain torch, a plain copy of the same bytes and an empty launch), of one DCT
+solve (rfft and rfft2) and of one step (fused and unfused), next to the
+chunk's and the eager loop's cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
-busy time against the wall time. ``--all`` is the twin of the JAX bench's
+busy time against the wall time, for both routes. ``--all`` is the twin of
+the JAX bench's
 ``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
 sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
 solves/s at 1024². ``--cylinder`` times the reference-parity cylinder at
@@ -33,6 +39,7 @@ CUDA device: a CPU number is not a device metric.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import math
 import time
@@ -45,6 +52,8 @@ from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.ops.kernels import poisson_rb
+from cfdsim_tpu_torch.ops.kernels import predictor as pred
+from cfdsim_tpu_torch.ops.kernels.cuda_build import build_library
 from cfdsim_tpu_torch.ops.kernels.predictor import (
     fused_predictor_central,
     fused_predictor_central_ref,
@@ -71,25 +80,35 @@ def _cavity(n, fused_predictor, device):
                       fused_predictor=fused_predictor, device=device)
 
 
-def _timed_chunk(case, state, n_steps: int):
-    """(best seconds of 3 runs, final state) for ``n_steps`` steps from ``state``."""
-    chunk = make_chunk(case.cfg, case.step, n_steps)
-    cfl = torch.ones((), dtype=torch.float32, device=state.u.device)
-    out, _ = chunk(state, cfl)  # warm-up: cuFFT plans, kernel build and load
+def _timed_chunk(case, state, n_steps: int, route=None):
+    """(best seconds of 3 runs, final state, the chunk) for ``n_steps`` steps
+    from ``state`` through :func:`make_chunk`'s chunk: the captured program
+    on the card, or with ``route="loop"`` the eager loop."""
+    chunk = make_chunk(case.cfg, case.step, n_steps, route=route, keep_graph=True)
+    out, _ = chunk(state, 1.0)  # warm-up: kernel build and load, cuFFT plans, the capture
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
-        out, _ = chunk(state, cfl)
+        out, _ = chunk(state, 1.0)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
-    return best, out
+    return best, out, chunk
 
 
-def run_bench(n=1024, short=100, long=600, device="cuda", fused_predictor=True):
+def _chunk_facts(chunk) -> dict:
+    """The route a chunk took and, for a captured one, what its capture cost."""
+    facts = {"route": chunk.mode}
+    if chunk.program is not None:
+        facts.update(steps_per_graph=chunk.steps_per_graph, nodes=chunk.program.nodes,
+                     capture_s=chunk.program.capture_seconds)
+    return facts
+
+
+def run_bench(n=1024, short=100, long=600, device="cuda", fused_predictor=True, route=None):
     case = _cavity(n, fused_predictor, _require_cuda(device))
-    t_short, _ = _timed_chunk(case, case.state, short)
-    t_long, state_l = _timed_chunk(case, case.state, long)
+    t_short, _, _ = _timed_chunk(case, case.state, short, route)
+    t_long, state_l, chunk = _timed_chunk(case, case.state, long, route)
 
     # sanity: the simulation must be healthy after the long chunk
     if not bool(torch.isfinite(state_l.u).all()):
@@ -105,6 +124,8 @@ def run_bench(n=1024, short=100, long=600, device="cuda", fused_predictor=True):
         "unit": "cells/s",
         "fused_predictor": fused_predictor,
         "dct_variant": POISSON.dct_variant,
+        **_chunk_facts(chunk),
+        "ms_per_step": (t_long - t_short) / (long - short) * 1e3,
         "t_short_s": t_short,
         "t_long_s": t_long,
         "steps": [short, long],
@@ -137,11 +158,32 @@ def _field(rng, n, device, scale=1.0):
     return torch.tensor(rng.standard_normal((n, n)) * scale, dtype=torch.float32, device=device)
 
 
+EMPTY_SOURCE = "empty_launch.cu"
+_empty_launch = None
+
+
+def empty_launch(stream: int) -> None:
+    """One launch of a kernel of one thread that does nothing
+    (``csrc/empty_launch.cu``, built at first use): the floor under any
+    kernel's time. It is on no path of the solver."""
+    global _empty_launch
+    if _empty_launch is None:
+        fn = ctypes.CDLL(str(build_library(EMPTY_SOURCE))).cfd_empty_launch
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        _empty_launch = fn
+    rc = _empty_launch(stream)
+    if rc != 0:
+        raise RuntimeError(f"the empty launch failed: CUDA error {rc}")
+
+
 def predictor_ms(n=1024, reps=200, device="cuda") -> dict:
     """Device and eager ms of one predictor call at n², the kernel against
-    plain torch, in turns plain, kernel, kernel, plain. u and v rotate
-    through a ring of buffers (:func:`_ring_len`), so no call finds its
-    inputs in L2."""
+    plain torch, in turns plain, kernel, kernel, plain; beside them the
+    card's practical time for the same bytes, a plain ``copy_`` of two
+    fields into two fields (``copy_device_ms``; not the same function), and
+    the floor under any kernel, an empty launch (``empty_device_ms``). u
+    and v rotate through a ring of buffers (:func:`_ring_len`), so no call
+    finds its inputs in L2."""
     device = _require_cuda(device)
     rng = np.random.default_rng(0)
     h = 1.0 / (n - 1)
@@ -151,10 +193,23 @@ def predictor_ms(n=1024, reps=200, device="cuda") -> dict:
             for _ in range(ring)]
     fns = {"kernel": _ring(fused_predictor_central, args),
            "plain": _ring(fused_predictor_central_ref, args)}
-    out = {"n": n, "ring": ring}
+    plan = pred.plan_predictor((n, n), pred.pointer_alignment(*args[0][:2]))
+    out = {"n": n, "ring": ring, "route": plan.route}
     for which in ("plain", "kernel", "kernel", "plain"):
         out.setdefault(f"{which}_device_ms", []).append(device_ms(fns[which], reps))
         out.setdefault(f"{which}_eager_ms", []).append(eager_ms(fns[which], reps))
+    dst = [(torch.empty_like(u), torch.empty_like(v)) for u, v, *_ in args]
+    turn = itertools.count()
+
+    def copy():
+        j = next(turn) % ring
+        dst[j][0].copy_(args[j][0])
+        dst[j][1].copy_(args[j][1])
+
+    out["copy_device_ms"] = [device_ms(copy, reps) for _ in range(2)]
+    out["empty_device_ms"] = [
+        device_ms(lambda: empty_launch(torch.cuda.current_stream(device).cuda_stream), reps)
+        for _ in range(2)]
     return out
 
 
@@ -198,29 +253,31 @@ def run_sweep(device="cuda"):
             row[f"step_device_ms_{tag}"] = step_device_ms(n, fused, reps=10, device=device)
         long = 600 if n <= 2048 else 300
         for fused, tag in ((True, "F"), (False, "U"), (False, "U"), (True, "F")):
-            r = run_bench(n=n, short=100, long=long, device=device, fused_predictor=fused)
-            row.setdefault(f"eager_cells_per_s_{tag}", []).append(r["value"])
-        row["eager_steps"] = [100, long]
+            for route, name in ((None, "chunk"), ("loop", "eager")):
+                r = run_bench(n=n, short=100, long=long, device=device, fused_predictor=fused,
+                              route=route)
+                row.setdefault(f"{name}_cells_per_s_{tag}", []).append(r["value"])
+        row["steps"] = [100, long]
         torch.cuda.empty_cache()
         yield row
 
 
-def _profile(case, steps, device, card, **labels):
+def profile_chunk(case, steps, device, card, route=None, **labels):
     """Device events and busy time per step of ``steps`` steps of ``case``
     under ``torch.profiler``, against the wall time of the same chunk run
-    without the profiler; plus the ten ops with the most device time."""
+    without the profiler; plus the ten ops with the most device time. The
+    chunk is the captured program, or with ``route="loop"`` the eager loop."""
     from torch.profiler import ProfilerActivity, profile
 
-    chunk = make_chunk(case.cfg, case.step, steps)
-    cfl = torch.ones((), dtype=torch.float32, device=device)
-    state, _ = chunk(case.state, cfl)  # warm-up: cuFFT plans, kernel build
+    chunk = make_chunk(case.cfg, case.step, steps, route=route, keep_graph=True)
+    state, _ = chunk(case.state, 1.0)  # warm-up: cuFFT plans, kernel build, the capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # the wall time without the profiler's cost
-    chunk(state, cfl)
+    chunk(state, 1.0)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunk(state, cfl)
+        chunk(state, 1.0)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
@@ -228,6 +285,7 @@ def _profile(case, steps, device, card, **labels):
                   if e.self_device_time_total > 0), reverse=True)[:10]
     return {
         **labels,
+        **_chunk_facts(chunk),
         "steps": steps,
         "device_events_per_step": len(events) / steps,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -239,20 +297,23 @@ def _profile(case, steps, device, card, **labels):
 
 
 def run_profile(n=1024, steps=50, device="cuda"):
-    """Per step, with compute_metrics off: the main path fused and unfused,
-    then the reference-parity cylinder through kernel A (600×180) and the
-    n² cavity with ``poisson="mg:2"`` (kernels A and B)."""
+    """Per step, with compute_metrics off, each through the captured chunk
+    and through the eager loop: the main path fused and unfused, then the
+    reference-parity cylinder through kernel A (600×180) and the n² cavity
+    with ``poisson="mg:2"`` (kernels A and B)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
-    for fused in (True, False):
-        yield _profile(_cavity(n, fused, device), steps, device, card, path=f"cavity{n}_dct",
-                       n=n, fused_predictor=fused)
-    yield _profile(cylinder(ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
-                            compute_metrics=False, device=device),
-                   20, device, card, path="cylinder600x180_rbsor_pallas")
-    yield _profile(lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False,
-                              device=device),
-                   steps, device, card, path=f"cavity{n}_mg2", n=n)
+    for route in (None, "loop"):
+        for fused in (True, False):
+            yield profile_chunk(_cavity(n, fused, device), steps, device, card, route,
+                                path=f"cavity{n}_dct", n=n, fused_predictor=fused)
+        yield profile_chunk(
+            cylinder(ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
+                     compute_metrics=False, device=device),
+            20, device, card, route, path="cylinder600x180_rbsor_pallas")
+        yield profile_chunk(
+            lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False, device=device),
+            steps, device, card, route, path=f"cavity{n}_mg2", n=n)
 
 
 def _marginal(body, x, r1=20, r2=200):
@@ -308,37 +369,39 @@ def run_all(n=1024, device="cuda"):
 
 
 def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):
-    """Eager steps/s of the reference-parity cylinder (``ref_parity=True,
+    """Steps/s of the reference-parity cylinder (``ref_parity=True,
     scheme="supg"``) at nx×ny, marginal between a short and a long chunk
     from the initial state, with the pressure solve through kernel A
-    (``rbsor_pallas``) and through streaming ``rbsor`` (the case's default),
-    in turns kernel, streaming, streaming, kernel. Each row also gives the
-    early-exit chunks run per step of the kernel path (counted on the
-    device)."""
+    (``rbsor_pallas``), as the captured chunk and as the eager loop, and
+    through streaming ``rbsor`` (the case's default; it reads its residual
+    on the host, so its chunk is the loop), in turns chunk, loop, streaming,
+    streaming, loop, chunk. Each kernel row also gives the early-exit
+    chunks run per step (counted on the device)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
-    turns = (("rbsor_pallas", CYLINDER_KERNEL_POISSON), ("rbsor", None),
-             ("rbsor", None), ("rbsor_pallas", CYLINDER_KERNEL_POISSON))
-    for method, pois in turns:
+    kernel, streaming = ("rbsor_pallas", CYLINDER_KERNEL_POISSON), ("rbsor", None)
+    turns = ((*kernel, None), (*kernel, "loop"), (*streaming, None), (*streaming, None),
+             (*kernel, "loop"), (*kernel, None))
+    for method, pois, route in turns:
         case = cylinder(nx=nx, ny=ny, ref_parity=True, scheme="supg", poisson=pois,
                         compute_metrics=False, device=device)
         # the streaming solve reads its residual on the host per 50 sweeps:
         # ~100× slower, so it gets shorter chunks
         n1, n2 = (short, long) if method == "rbsor_pallas" else (2, 6)
-        t_short, _ = _timed_chunk(case, case.state, n1)
+        t_short, _, _ = _timed_chunk(case, case.state, n1, route)
         chunks = case.step.poisson.chunks_run
         chunks.zero_()
-        t_long, state = _timed_chunk(case, case.state, n2)
+        t_long, state, chunk = _timed_chunk(case, case.state, n2, route)
         if not bool(torch.isfinite(state.u).all()):
             raise RuntimeError("non-finite state after the long chunk")
         row = {"metric": f"cylinder_ref_parity_steps_per_sec_{nx}x{ny}", "poisson": method,
                "value": (n2 - n1) / (t_long - t_short), "unit": "steps/s",
-               "t_short_s": t_short, "t_long_s": t_long, "steps": [n1, n2], "eager": True,
+               **_chunk_facts(chunk),
+               "t_short_s": t_short, "t_long_s": t_long, "steps": [n1, n2],
                "device": torch.cuda.get_device_name(device), "card": card}
         if method == "rbsor_pallas":  # the long chunk ran 4 times (warm-up + best of 3)
             row["kernel_chunks_per_step"] = int(chunks) / (4 * n2)
-            # one step replayed from a CUDA graph (the streaming solve reads
-            # its residual on the host, so it cannot be captured)
+            # one step replayed from a CUDA graph
             cfl = torch.ones((), dtype=torch.float32, device=device)
             row["step_device_ms"] = device_ms(lambda c=case, s=state: c.step(s, cfl), 5)
         yield row

@@ -100,6 +100,13 @@ __device__ __forceinline__ float relax(float p, float e, float w, float n,
   return __fadd_rn(__fmul_rn(c.one_minus_omega, p), __fmul_rn(c.omega, star));
 }
 
+// Each kernel adds one to its wrapper's launch count, from one thread, once
+// per launch: a count kept on the device also counts the launches that a
+// CUDA graph replays, which the host never sees.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  atomicAdd(launches, 1ULL);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -320,11 +327,13 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 rbsor_cluster_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
                      const float* __restrict__ mask, int ny, int nx, int rows_max,
                      int sweeps, int chunks, Relax c, int dirichlet,
-                     int* __restrict__ count, float tol, float two_a) {
+                     int* __restrict__ count, float tol, float two_a,
+                     unsigned long long* __restrict__ launches) {
   extern __shared__ __align__(16) float band_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  if (rank == 0 && threadIdx.x == 0) count_launch(launches);
   const bool multi = nranks > 1;
 
   const int hw = (nx + 1) / 2;
@@ -490,9 +499,11 @@ __global__ void __launch_bounds__(THREADS)
 rbsor_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
              const float* __restrict__ mask, int ny, int nx, int iters,
              Relax c, int dirichlet, int* __restrict__ ctl,
-             int* __restrict__ count, float tol, float two_a) {
+             int* __restrict__ count, float tol, float two_a,
+             unsigned long long* __restrict__ launches) {
   cg::grid_group grid = cg::this_grid();
   const bool first = blockIdx.x == 0 && threadIdx.x == 0;
+  if (first) count_launch(launches);  // an inactive chunk is a launch too
   if (ctl != nullptr) {
     // every block reads the flag before any block can write it (block 0
     // writes it only after the last grid sync), so all leave together
@@ -642,8 +653,10 @@ __global__ void __launch_bounds__(B_THREADS)
 rbsor_blocked_kernel(const __grid_constant__ CUtensorMap phi_map,
                      const __grid_constant__ CUtensorMap rhs_map,
                      const float* __restrict__ phi_in, const float* __restrict__ rhs,
-                     float* __restrict__ phi_out, Tiles g, Relax c) {
+                     float* __restrict__ phi_out, Tiles g, Relax c,
+                     unsigned long long* __restrict__ launches) {
   extern __shared__ __align__(128) float tile_smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) count_launch(launches);
   float* sp = tile_smem;
   const float* sr = sp + g.arr;
   const int tile = static_cast<int>(blockIdx.x);
@@ -746,7 +759,7 @@ int cooperative_blocks(int* cache) {
 }
 
 using ClusterKernel = void (*)(float*, const float*, const float*, int, int, int, int, int,
-                              Relax, int, int*, float, float);
+                              Relax, int, int*, float, float, unsigned long long*);
 
 // the instantiation for `rows_per_thread` rows per thread (1, 2, 4 or 8)
 ClusterKernel cluster_kernel(int rows_per_thread) {
@@ -822,7 +835,8 @@ bool tile_map(CUtensorMap* map, const float* base, const Tiles& g) {
 
 template <int ROUTE>
 cudaError_t launch_blocked(const float* phi_in, const float* rhs, float* phi_out, const Tiles& g,
-                           const Relax& c, int tiles, size_t smem, cudaStream_t stream) {
+                           const Relax& c, int tiles, size_t smem, cudaStream_t stream,
+                           unsigned long long* launches) {
   const auto kernel = rbsor_blocked_kernel<ROUTE>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -831,7 +845,8 @@ cudaError_t launch_blocked(const float* phi_in, const float* rhs, float* phi_out
   if (ROUTE == LOAD_TMA && !(tile_map(&maps[0], phi_in, g) && tile_map(&maps[1], rhs, g))) {
     return cudaErrorInvalidValue;
   }
-  kernel<<<tiles, B_THREADS, smem, stream>>>(maps[0], maps[1], phi_in, rhs, phi_out, g, c);
+  kernel<<<tiles, B_THREADS, smem, stream>>>(maps[0], maps[1], phi_in, rhs, phi_out, g, c,
+                                             launches);
   return cudaGetLastError();
 }
 
@@ -869,13 +884,14 @@ int cfd_rbsor_max_cluster(int smem_bytes, int* out) {
 // holding rows_max rows or one fewer, with smem_bytes of shared memory (the
 // plan of poisson_rb.py).
 // phi (updated in place), rhs: device fp32 (ny, nx), contiguous; mask: fp32
-// (ny, nx) or null; count: int32 or null. A refused launch returns its
-// error; nothing else is tried.
+// (ny, nx) or null; count: int32 or null; launches: the wrapper's launch
+// count on the device, one uint64 (every launcher here takes it last). A
+// refused launch returns its error; nothing else is tried.
 int cfd_rbsor_cluster(void* phi, const void* rhs, const void* mask, int ny, int nx,
                       int cluster, int rows_max, int threads, int rows_per_thread,
                       int smem_bytes, int sweeps, int chunks, float ax, float ay,
                       float denom_inv, float omega, float one_minus_omega, int dirichlet,
-                      void* count, float tol, float two_a, void* stream) {
+                      void* count, float tol, float two_a, void* stream, void* launches) {
   const ClusterKernel kernel = cluster_kernel(rows_per_thread);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare_cluster_kernel(kernel, smem_bytes, cluster);
@@ -886,7 +902,8 @@ int cfd_rbsor_cluster(void* phi, const void* rhs, const void* mask, int ny, int 
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(phi),
                            static_cast<const float*>(rhs), static_cast<const float*>(mask), ny, nx,
                            rows_max, sweeps, chunks, Relax{ax, ay, denom_inv, omega, one_minus_omega},
-                           dirichlet, static_cast<int*>(count), tol, two_a);
+                           dirichlet, static_cast<int*>(count), tol, two_a,
+                           static_cast<unsigned long long*>(launches));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -898,7 +915,7 @@ int cfd_rbsor_cluster(void* phi, const void* rhs, const void* mask, int ny, int 
 int cfd_rbsor(void* phi, const void* rhs, const void* mask, int ny, int nx,
               int iters, float ax, float ay, float denom_inv, float omega,
               float one_minus_omega, int dirichlet, void* ctl, void* count,
-              float tol, float two_a, void* stream) {
+              float tol, float two_a, void* stream, void* launches) {
   static int co_resident[MAX_DEVICES] = {0};
   const int cap = cooperative_blocks(co_resident);
   if (cap <= 0) {
@@ -916,8 +933,9 @@ int cfd_rbsor(void* phi, const void* rhs, const void* mask, int ny, int nx,
   Relax c{ax, ay, denom_inv, omega, one_minus_omega};
   int* ctl_p = static_cast<int*>(ctl);
   int* count_p = static_cast<int*>(count);
+  auto* launches_p = static_cast<unsigned long long*>(launches);
   void* args[] = {&phi_p, &rhs_p, &mask_p, &ny, &nx, &iters, &c,
-                  &dirichlet, &ctl_p, &count_p, &tol, &two_a};
+                  &dirichlet, &ctl_p, &count_p, &tol, &two_a, &launches_p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(rbsor_kernel), dim3(blocks), dim3(THREADS), args, 0,
       static_cast<cudaStream_t>(stream));
@@ -931,7 +949,8 @@ int cfd_rbsor(void* phi, const void* rhs, const void* mask, int ny, int nx,
 // 0 = TMA (nx % 4 == 0), 1 = cp.async of 4 bytes.
 int cfd_rbsor_blocked(const void* phi_in, const void* rhs, void* phi_out, int ny, int nx,
                       int sweeps, int tile_rows, int tile_cols, int route, float ax, float ay,
-                      float denom_inv, float omega, float one_minus_omega, void* stream) {
+                      float denom_inv, float omega, float one_minus_omega, void* stream,
+                      void* launches) {
   Tiles g;
   g.ny = ny;
   g.nx = nx;
@@ -955,9 +974,10 @@ int cfd_rbsor_blocked(const void* phi_in, const void* rhs, void* phi_out, int ny
   const float* r = static_cast<const float*>(rhs);
   float* out = static_cast<float*>(phi_out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* n = static_cast<unsigned long long*>(launches);
   const cudaError_t err = route == LOAD_TMA
-                              ? launch_blocked<LOAD_TMA>(in, r, out, g, c, tiles, smem, s)
-                              : launch_blocked<LOAD_CP>(in, r, out, g, c, tiles, smem, s);
+                              ? launch_blocked<LOAD_TMA>(in, r, out, g, c, tiles, smem, s, n)
+                              : launch_blocked<LOAD_CP>(in, r, out, g, c, tiles, smem, s, n);
   return static_cast<int>(err);
 }
 

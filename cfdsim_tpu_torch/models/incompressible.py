@@ -9,7 +9,10 @@ solids when ``masked_poisson``) → corrector → divergence cleanup → BCs →
 IBM → clipping, plus on-device diagnostics and the body forces. dt stays a
 0-dim float32 tensor on the device and the step reads nothing back to the
 host, except the streaming ``jacobi``/``rbsor`` early exit, which checks its
-residual on the host once per ``check_every`` sweeps.
+residual on the host once per ``check_every`` sweeps. :func:`make_chunk`
+runs a chunk of steps: on a CUDA device as one captured device program (a
+CUDA graph, the counterpart of the JAX package's jitted ``lax.scan``),
+else as a Python loop.
 
 Not ported: ``scheme="tvd"``, LES, implicit diffusion, body forcing and
 ``storage="bf16"``; they raise ``NotImplementedError`` at build time.
@@ -19,6 +22,7 @@ Not ported: ``scheme="tvd"``, LES, implicit diffusion, body forcing and
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -194,6 +198,7 @@ class IncompressibleStep(nn.Module):
         g = cfg.grid
         self.cfg = cfg
         self.bc_fn = bc_fn
+        self.device = torch.device(device)
         pois_mask = solid_mask if (cfg.masked_poisson and solid_mask is not None) else None
         self.poisson = PoissonSolver((g.ny, g.nx), g.dx, g.dy, cfg.poisson, pois_mask,
                                      device=device)
@@ -220,6 +225,8 @@ class IncompressibleStep(nn.Module):
         # k=0 mode in-spectrum, the others take a mean-free rhs
         self.subtract_mean = cfg.poisson.bc == "neumann" and cfg.poisson.method not in (
             "dct", "fft")
+        # whether a step waits for the host (then a chunk cannot be captured)
+        self.reads_host = self.poisson.reads_host
 
     def _dt(self, u, v, step, cfl_scale):
         """CFL + viscous dt with clipping and the fixed-dt warm-up (0-dim)."""
@@ -335,16 +342,164 @@ def make_step(cfg: IncompressibleConfig, bc_fn: Callable, solid_mask=None, ibm_m
     return IncompressibleStep(cfg, bc_fn, solid_mask, ibm_mask, device=device)
 
 
-def make_chunk(cfg: IncompressibleConfig, step_fn: Callable, n_steps: int) -> Callable:
-    """``chunk(state, cfl_scale) -> (state, [StepMetrics] * n_steps)``: a
-    Python loop of step calls; the launches queue on the device without a
-    host synchronisation."""
+CHUNK_ROUTES = ("graph", "loop")
+# steps one captured graph holds (where it divides the chunk): the step's
+# new fields are copied back into the static state once per replay, so the
+# copies' share of a replay falls with the steps it holds
+STEPS_PER_GRAPH = 10
 
-    def chunk(state, cfl_scale):
-        metrics = []
-        for _ in range(n_steps):
-            state, m = step_fn(state, cfl_scale)
-            metrics.append(m)
-        return state, metrics
 
-    return chunk
+def chunk_route(device, reads_host: bool) -> tuple[str, str]:
+    """(route, reason) of a chunk of steps on ``device``, from the device's
+    type and whether the step waits for the host: ``"graph"`` (one captured
+    device program) on a CUDA device for a step that reads nothing on the
+    host, else ``"loop"`` (a Python loop of step calls). Decided before
+    anything runs; nothing moves from one route to the other afterwards."""
+    kind = torch.device(device).type
+    if kind != "cuda":
+        return "loop", f"the state is on {kind}: a CUDA graph needs a CUDA device"
+    if reads_host:
+        return "loop", ("the step reads the host (the streaming jacobi/rbsor early exit "
+                        "checks its residual there), which a CUDA graph cannot capture")
+    return "graph", "a CUDA device and a step that reads nothing on the host"
+
+
+def _stacked(rows) -> StepMetrics:
+    """(n_steps, fields) → one StepMetrics of (n_steps,) tensors."""
+    return StepMetrics(*rows.unbind(1))
+
+
+class Chunk:
+    """``chunk(state, cfl_scale) -> (state, StepMetrics)``: ``n_steps`` steps,
+    the metrics stacked over the steps (each field a ``(n_steps,)`` tensor,
+    as the JAX package's scan returns them). ``mode`` is the route
+    (:func:`chunk_route`), ``reason`` why.
+
+    On the ``"graph"`` route the steps are one captured device program
+    (``utils/graphs.py::CapturedProgram``): a graph of ``steps_per_graph``
+    steps, replayed ``n_steps / steps_per_graph`` times per call, its
+    replays queued without a synchronisation. The program lives on static
+    buffers: the state (u, v, p, t, step), ``cfl_scale`` (the caller's float
+    or tensor is written into its buffer outside the graph, so a CFL
+    back-off needs no new capture) and the stacked metrics, whose row a
+    device-side counter picks. It is captured at the first call, after an
+    eager warm-up of ``steps_per_graph`` steps on a copy of the state
+    (kernel build and load, cuFFT plans, the allocator; the step's own
+    buffers, such as the solver's chunk counter, are put back afterwards;
+    the warm-up's kernel launches are launches, and stay counted). A
+    capture that fails raises. ``keep_graph`` keeps the CUDA graph beside
+    its executable so that ``program.nodes`` can count its nodes.
+
+    The input state is the chunk's to use up, as the JAX chunk donates its
+    argument (this implementation copies it into the static buffers). The
+    returned state and metrics are copies out of the static buffers: they
+    are the caller's, and later calls of the chunk do not change them.
+    """
+
+    def __init__(self, step_fn: Callable, n_steps: int, device, mode: str, reason: str,
+                 keep_graph: bool = False):
+        if n_steps < 1:
+            raise ValueError(f"a chunk runs at least one step, got {n_steps}")
+        self.step_fn = step_fn
+        self.n_steps = n_steps
+        self.device = torch.device(device)
+        self.mode = mode
+        self.reason = reason
+        self.keep_graph = keep_graph
+        # the most steps per graph, up to STEPS_PER_GRAPH, that divide the chunk
+        self.steps_per_graph = max(k for k in range(1, min(STEPS_PER_GRAPH, n_steps) + 1)
+                                   if n_steps % k == 0)
+        self.program = None  # the CapturedProgram, from the first call on
+
+    def __call__(self, state: IncompressibleState, cfl_scale):
+        if self.mode == "loop":
+            return self._loop(state, cfl_scale)
+        return self._replay(state, cfl_scale)
+
+    def _loop(self, state, cfl_scale):
+        if not torch.is_tensor(cfl_scale):
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
+        rows = []
+        for _ in range(self.n_steps):
+            state, m = self.step_fn(state, cfl_scale)
+            rows.append(torch.stack(tuple(m)))
+        return state, _stacked(torch.stack(rows))
+
+    def _capture(self, state):
+        from cfdsim_tpu_torch.utils.graphs import CapturedProgram
+
+        self._state = IncompressibleState(*(torch.empty_like(x) for x in state))
+        device = state.u.device
+        self._cfl = torch.ones((), dtype=torch.float32, device=device)
+        self._rows = torch.zeros((self.n_steps, len(StepMetrics._fields)),
+                                 dtype=torch.float32, device=device)
+        self._row = torch.zeros(1, dtype=torch.int64, device=device)
+
+        def steps():
+            s = self._state
+            for _ in range(self.steps_per_graph):
+                s, m = self.step_fn(s, self._cfl)
+                self._rows.index_copy_(0, self._row, torch.stack(tuple(m)).reshape(1, -1))
+                self._row += 1
+            for dst, src in zip(self._state, s):
+                dst.copy_(src)
+
+        # the warm-up steps run on a copy of the state, and leave the step's
+        # own buffers (the solver's chunk counter) as they were
+        for dst, src in zip(self._state, state):
+            dst.copy_(src)
+        buffers = {}
+        if isinstance(self.step_fn, nn.Module):
+            buffers = {name: b.clone() for name, b in self.step_fn.named_buffers()}
+        self.program = CapturedProgram(steps, keep_graph=self.keep_graph)
+        for name, b in buffers.items():
+            self.step_fn.get_buffer(name).copy_(b)
+
+    def _replay(self, state, cfl_scale):
+        if self.program is None:
+            self._capture(state)
+        if state.u.device != self._state.u.device:
+            raise ValueError(f"chunk captured on {self._state.u.device}, state on "
+                             f"{state.u.device}")
+        for dst, src in zip(self._state, state):
+            dst.copy_(src)
+        if torch.is_tensor(cfl_scale):
+            self._cfl.copy_(cfl_scale)
+        else:
+            self._cfl.fill_(float(cfl_scale))
+        self._row.zero_()
+        for _ in range(self.n_steps // self.steps_per_graph):
+            self.program.replay()
+        return (IncompressibleState(*(x.clone() for x in self._state)),
+                _stacked(self._rows.clone()))
+
+
+def make_chunk(cfg: IncompressibleConfig, step_fn: Callable, n_steps: int, *, device=None,
+               route: str | None = None, keep_graph: bool = False) -> Chunk:
+    """``chunk(state, cfl_scale) -> (state, stacked StepMetrics)`` running
+    ``n_steps`` steps: the JAX package's jitted ``lax.scan`` chunk. On a
+    CUDA device, for a step that reads nothing on the host, the steps are
+    one captured device program and cost the host a constant; else a Python
+    loop of step calls (:func:`chunk_route`; see :class:`Chunk`). The route
+    is on the returned object (``mode``, ``reason``) and is logged.
+
+    ``device`` defaults to the step's (``step_fn.device``). Whether the step
+    reads the host is its ``reads_host`` (a step without that attribute is
+    taken to read it). ``route="loop"`` asks for the loop where the graph
+    would be taken (to time the two side by side); ``route="graph"`` where
+    :func:`chunk_route` says "loop" is refused. ``keep_graph`` is
+    :class:`Chunk`'s."""
+    if device is None:
+        device = getattr(step_fn, "device", None)
+        if device is None:
+            raise ValueError("make_chunk needs device= for a step that has no .device")
+    mode, reason = chunk_route(device, getattr(step_fn, "reads_host", True))
+    if route is not None and route != mode:
+        if route not in CHUNK_ROUTES:
+            raise ValueError(f"unknown chunk route {route!r}; one of {CHUNK_ROUTES}")
+        if route == "graph":
+            raise ValueError(f"the graph route is not open here: {reason}")
+        mode, reason = "loop", "the caller asked for the loop"
+    logging.getLogger("cfdsim_tpu_torch").info(
+        "chunk of %d steps on %s: %s route (%s)", n_steps, device, mode, reason)
+    return Chunk(step_fn, n_steps, device, mode, reason, keep_graph)

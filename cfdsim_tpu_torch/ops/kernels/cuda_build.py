@@ -6,7 +6,8 @@ a shared library under ``build/cfdsim_tpu_torch/`` at the repository root,
 named by a hash of its source and flags (so an edited source rebuilds), and
 loaded with ``ctypes``. Nothing is compiled when a module is imported.
 
-Each ``.cu`` file exports its launcher (returning ``cudaGetLastError()``)
+Each ``.cu`` file exports its launcher (returning ``cudaGetLastError()``;
+a kernel's launcher takes the address of its device-side launch count last)
 and ``const char* cfd_cuda_error_string(int)``, so a failed launch raises
 with CUDA's own message.
 """
@@ -22,6 +23,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -69,18 +72,22 @@ def build_library(source: str) -> Path:
 
 class CudaKernel:
     """One hand-written kernel: its source, the C symbol that launches it,
-    and a count of launches.
+    and a count of its launches.
 
-    ``launches`` is incremented only in :meth:`__call__`, after the C entry
-    point reported a successful launch, so a run can show that it went
-    through the kernel.
+    The count lives on the device, one uint64 per device the kernel has run
+    on: :meth:`__call__` passes its address to the launcher as the last
+    argument (after ``argtypes``), and the kernel itself adds one, from one
+    thread, each time it runs. So ``launches`` counts the kernel's runs and
+    nothing else: a launch replayed from a CUDA graph counts like an eager
+    one, and a call that is only being captured, and runs nothing yet, does
+    not. Reading ``launches`` waits for the device.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self._counts: dict = {}  # device index -> its one-element int64 count
         self._lib = None
         self._fn = None
 
@@ -90,7 +97,7 @@ class CudaKernel:
         if self._fn is None:
             lib = ctypes.CDLL(str(build_library(self.source)))
             fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             lib.cfd_cuda_error_string.argtypes = [ctypes.c_int]
             lib.cfd_cuda_error_string.restype = ctypes.c_char_p
@@ -107,21 +114,43 @@ class CudaKernel:
     def error_string(self, code: int) -> str:
         return self.library().cfd_cuda_error_string(code).decode()
 
+    @property
+    def launches(self) -> int:
+        """The times the kernel has run since :meth:`reset_launches`, summed
+        over the devices, as the kernel counted them there."""
+        return sum(int(c) for c in self._counts.values())
+
+    def reset_launches(self) -> None:
+        for c in self._counts.values():
+            c.zero_()
+
+    def _count(self):
+        """The current device's count; made at the kernel's first call there,
+        which must be an eager one (memory allocated under a capture belongs
+        to that graph)."""
+        index = torch.cuda.current_device()
+        if index not in self._counts:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{self.symbol}: first call on cuda:{index} under a CUDA "
+                                   "graph capture; run it once eagerly first")
+            self._counts[index] = torch.zeros(1, dtype=torch.int64, device=f"cuda:{index}")
+        return self._counts[index]
+
     def __call__(self, *args) -> None:
+        """Launch on the current device (``args`` end with the stream)."""
         if self._fn is None:
             self.build()
-        rc = self._fn(*args)
+        rc = self._fn(*args, self._count().data_ptr())
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {rc} "
                                f"({self.error_string(rc)})")
-        self.launches += 1
 
 
-def build_all(kernels) -> dict:
-    """Compile the sources of ``kernels`` in parallel (one nvcc per source,
-    all started together), then load every kernel; return the seconds each
-    source took to build."""
-    sources = sorted({k.source for k in kernels})
+def build_all(kernels, more_sources=()) -> dict:
+    """Compile the sources of ``kernels`` and ``more_sources`` in parallel
+    (one nvcc per source, all started together), then load every kernel;
+    return the seconds each source took to build."""
+    sources = sorted({k.source for k in kernels} | set(more_sources))
 
     def timed(source):
         t0 = time.perf_counter()

@@ -10,11 +10,18 @@ CUDA tensor the wrapper launches ``csrc/predictor.cu`` (built for sm_90a at
 first use) or raises; on a CPU tensor it runs the plain torch version,
 :func:`fused_predictor_central_ref`. Nothing falls back from one to the
 other.
+
+The kernel gives each warp a strip of 32·``vec`` columns × 4 rows, each lane
+``vec`` consecutive columns as one aligned vector. :func:`plan_predictor`
+picks the vector width from the shape and the pointers' alignment, before
+the launch; the strip height and the block size are constants of the
+kernel source.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,9 +35,41 @@ _i = ctypes.c_int
 KERNEL = CudaKernel(
     "predictor.cu",
     "cfd_fused_predictor_central",
-    # u, v, dt, u*, v*, ny, nx, nu, 1/dx², 1/dy², 0.5/dx, 0.5/dy, stream
-    [_p, _p, _p, _p, _p, _i, _i, _f, _f, _f, _f, _f, _p],
+    # u, v, dt, u*, v*, ny, nx, vec, nu, 1/dx², 1/dy², 0.5/dx, 0.5/dy, stream
+    [_p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _f, _f, _f, _p],
 )
+
+
+class PredictorPlan(NamedTuple):
+    """How the kernel runs one call: each lane holds ``vec`` columns (one
+    4·``vec``-byte vector), each warp a strip of 32·``vec`` columns."""
+
+    vec: int
+
+    @property
+    def route(self) -> str:
+        return f"vec{self.vec}"
+
+
+def plan_predictor(shape, align_bytes: int) -> PredictorPlan:
+    """The kernel's plan for fields of ``shape`` whose pointers (u, v, u*,
+    v*) are all aligned to ``align_bytes``, from these sizes alone.
+
+    The vector width is the largest of 4, 2, 1 that divides nx (so every
+    row starts on a vector boundary and no vector straddles a row's end)
+    with vectors of 4·vec bytes aligned at the pointers."""
+    ny, nx = shape
+    vec = next(w for w in (4, 2, 1) if nx % w == 0 and align_bytes % (4 * w) == 0)
+    return PredictorPlan(vec)
+
+
+def pointer_alignment(*tensors) -> int:
+    """The largest power of two, up to 16, that divides every tensor's
+    data pointer."""
+    bits = 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
 
 
 def fused_predictor_central_ref(u, v, dt, nu: float, dx: float, dy: float):
@@ -72,14 +111,16 @@ def fused_predictor_central(u, v, dt, nu: float, dx: float, dy: float):
     if not torch.is_tensor(dt):
         dt = torch.tensor(dt, dtype=torch.float32, device=u.device)
     _check_cuda_args(u, v, dt)
-    ny, nx = u.shape
     us = torch.empty_like(u)
     vs = torch.empty_like(v)
+    plan = plan_predictor(tuple(u.shape), pointer_alignment(u, v, us, vs))
+    ny, nx = u.shape
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         KERNEL(
             u.data_ptr(), v.data_ptr(), dt.data_ptr(), us.data_ptr(), vs.data_ptr(),
-            ny, nx, float(nu), 1.0 / (dx * dx), 1.0 / (dy * dy), 0.5 / dx, 0.5 / dy,
+            ny, nx, plan.vec,
+            float(nu), 1.0 / (dx * dx), 1.0 / (dy * dy), 0.5 / dx, 0.5 / dy,
             stream,
         )
     return us, vs

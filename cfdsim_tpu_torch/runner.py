@@ -1,11 +1,14 @@
 """Simulation runner: chunked on-device stepping with host-side control
 (``cfdsim_tpu.runner``).
 
-A chunk is ``chunk_steps`` calls of the step; its launches queue on the
-device without a host synchronisation. Between chunks the host reads the
-per-step metric scalars, stacked on the device and copied over in one
-transfer, to do health checks, CFL back-off, logging and the wall-clock
-kill switch. Fields never cross to the host here. Snapshot I/O, the
+A chunk is ``chunk_steps`` steps, built once by
+``models/incompressible.py::make_chunk``: on a CUDA device one captured
+device program (a CUDA graph, as the JAX runner's chunk is one jitted
+``lax.scan``), on the CPU, or for a step that reads the host, a Python loop
+of step calls. Between chunks the host reads the per-step metric scalars,
+stacked on the device and copied over in one transfer, to do health checks,
+CFL back-off (a new value in the chunk's cfl buffer: no new capture),
+logging and the wall-clock kill switch. Fields never cross to the host here. Snapshot I/O, the
 progress bar and the memory log are not ported yet.
 """
 
@@ -19,7 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.models.incompressible import StepMetrics
+from cfdsim_tpu_torch.models.incompressible import StepMetrics, make_chunk
 from cfdsim_tpu_torch.monitor import check_metrics
 from cfdsim_tpu_torch.utils.profiling import PerfTracker
 
@@ -67,18 +70,15 @@ class Simulation:
         self.cfl_scale = 1.0
         self.metrics_history: list = []
         self.stopped_reason = ""
+        self.chunk = make_chunk(getattr(step_fn, "cfg", None), step_fn, cfg.chunk_steps,
+                                device=self.device)
 
     def _chunk(self, cfl_scale: float):
         """Run one chunk; return its metrics stacked per field as numpy
         arrays, plus the simulated time, read in ONE device→host copy."""
-        cfl = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
-        rows = []
-        state = self.state
-        for _ in range(self.cfg.chunk_steps):
-            state, m = self.step_fn(state, cfl)
-            rows.append(torch.stack(tuple(m)))
-        self.state = state
-        host = torch.cat([torch.stack(rows).T.reshape(-1), state.t.reshape(1)]).cpu().numpy()
+        self.state, m = self.chunk(self.state, cfl_scale)
+        host = torch.cat([torch.stack(tuple(m)).reshape(-1),
+                          self.state.t.reshape(1)]).cpu().numpy()
         per_field = host[:-1].reshape(len(StepMetrics._fields), -1)
         return StepMetrics(*per_field), float(host[-1])
 
@@ -158,6 +158,7 @@ class Simulation:
         report["stopped_reason"] = self.stopped_reason
         report["final_time"] = t_now
         report["final_step"] = int(self.state.step)
+        report["chunk_route"] = self.chunk.mode
         if "device_peak_bytes" in report:
             self.log.info(
                 "device memory: peak %.1f MB / limit %.1f MB",

@@ -463,7 +463,11 @@ class PoissonSolver(nn.Module):
     1/λ table and twiddles, the periodic symbol, the float solid mask the
     kernels read) are buffers built once on ``device``. ``chunks_run``
     counts, on the device, the early-exit chunks that
-    ``method="rbsor_pallas"`` with ``tol > 0`` ran."""
+    ``method="rbsor_pallas"`` with ``tol > 0`` ran. ``reads_host`` says
+    whether a solve waits for the host: only the streaming
+    ``jacobi``/``rbsor`` early exit (``tol > 0``) does, once per
+    ``check_every`` sweeps, so a step through it cannot be captured into a
+    CUDA graph."""
 
     def __init__(self, shape, dx: float, dy: float, cfg: PoissonConfig = PoissonConfig(),
                  solid_mask=None, *, device):
@@ -472,6 +476,7 @@ class PoissonSolver(nn.Module):
         self.shape = tuple(shape)
         self.dx, self.dy, self.cfg = dx, dy, cfg
         method = cfg.method
+        self.reads_host = method in ("jacobi", "rbsor") and cfg.tol > 0.0
         solid = None
         if solid_mask is not None:
             solid = torch.as_tensor(solid_mask, dtype=torch.bool, device=device)

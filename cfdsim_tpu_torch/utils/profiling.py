@@ -11,6 +11,8 @@ import time
 
 import torch
 
+from cfdsim_tpu_torch.utils.graphs import CapturedProgram
+
 
 def card_name_and_power_limit() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them (one
@@ -40,27 +42,24 @@ def eager_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA graph,
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA graph
+    (:class:`CapturedProgram`, after one eager pass of the same calls),
     replayed twice between CUDA events; the faster replay over ``reps``.
     No host dispatch is timed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):  # warm-up off the capture: cuFFT plans, allocations
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    def calls():
         for _ in range(reps):
             fn()
-    graph.replay()
+
+    program = CapturedProgram(calls)
+    program.replay()
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.replay()
+        program.replay()
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end) / reps)

@@ -9,8 +9,12 @@ and the final ``{"ok": true, ...}`` line is not printed:
 2. build: compile the hand-written kernels with nvcc (sm_90a), one nvcc
    per source, all started together
 3. kernel vs plain: the fused predictor against its plain torch version
-   at (48, 64), (1024, 1024), (1000, 1030), (37, 129); max |Δ| ≤ 1e-6 and
-   the boundary frame bit-equal to the input. Then the RB-SOR kernels:
+   on every route of its plan (16-byte vectors at (48, 64), (1024, 1024),
+   (4096, 4096) and (4, 8); 8-byte at (1000, 1030); 4-byte at (37, 129),
+   (3, 3), (4, 5) and at (48, 64) on a base pointer that is only 4-byte
+   aligned, a slice of a longer buffer); max |Δ| ≤ 1e-6 and the boundary
+   frame bit-equal to the input; each line names its route. Then the
+   RB-SOR kernels:
    kernel A (Neumann, Dirichlet, masked; 30 sweeps) on every route of its
    plan: a cluster of 1 at (32, 48), the problem of
    tests/test_pallas.py:12-28, of 2 at (37, 129), of 8 at (128, 256), of
@@ -27,27 +31,40 @@ and the final ``{"ok": true, ...}`` line is not printed:
    5e-6 for B (the bands of tests/test_pallas.py) at every size: the
    kernels spell out every rounding, so they are expected to give the
    plain versions' bits, and each line says whether they do
-4. golden: the 48² Re=100 cavity, 300 steps + one metrics step, fused
-   predictor off and on, against tests/goldens.json (RTOL 2e-5)
-5. main path: the 1024² Re=1000 cavity through runner.Simulation, 600
-   steps in chunks of 100, health check on; finite, max |u| ≤ 1.5, kernel
-   launches = steps; then 5 fused vs 5 unfused steps (atol 1e-5)
-6. cylinder path: the reference-parity cylinder at its published 600×180,
+4. chunk routes: 20 steps through the captured chunk (one CUDA graph,
+   ``make_chunk``'s route on the card) against 20 eager step calls from
+   the same state, metrics on, on the three paths below; the same kernels
+   in the same order, so u, v, p, t, step and every stacked metric must be
+   bit-equal; prints the graph's nodes and capture seconds per path, and
+   holds each kernel's launches, counted on the device by the kernel
+   itself, to 20 per captured chunk plus the capture's eager warm-up
+5. golden: the 48² Re=100 cavity, a 300-step captured chunk + one metrics
+   step, fused predictor off and on, against tests/goldens.json (RTOL 2e-5)
+6. main path: the 1024² Re=1000 cavity through runner.Simulation, 600
+   steps in captured chunks of 100, health check on; finite, max |u| ≤
+   1.5, kernel launches = steps + the warm-up's (every kernel counts its
+   own launches in device memory, so the graph's replays are counted where
+   they run; the capture's eager warm-up is ``steps_per_graph`` steps, and
+   its launches are launches); then one more chunk after a CFL back-off to 0.25 (the chunk's
+   cfl buffer changes, dt follows, the graph is not captured again); then
+   5 fused vs 5 unfused steps (atol 1e-5)
+7. cylinder path: the reference-parity cylinder at its published 600×180,
    Re=600, SUPG, masked pressure solve through kernel A (1500 sweeps,
    ω=1.7, early exit at 1e-8 checked every 50 sweeps), 200 steps through
    runner.Simulation, health check on; finite, max |u| ≤ 5, fx finite,
-   kernel-A launches = steps (the whole early-exit solve is one cluster
-   launch) and chunks run = steps × 30 (all run, counted on the device);
+   kernel-A launches = steps + warm-up (the whole early-exit solve is one
+   cluster launch) and chunks run = steps × 30 (all run, counted on the
+   device; the warm-up's are put back with the step's buffers);
    then 5 steps against the streaming rbsor solve from the same state (u,
    v atol 1e-5; p less its mean within 1e-3 of its max)
-7. multigrid path: the 1024² Re=1000 cavity with ``poisson="mg:2"``, 200
+8. multigrid path: the 1024² Re=1000 cavity with ``poisson="mg:2"``, 200
    steps through runner.Simulation; finite, max |u| ≤ 1.5, kernel-B
-   launches = steps × 4 (fine level, pre and post smoothing, 2 V-cycles)
-   and kernel-A launches = steps × 32 (8 coarser levels × 2 calls × 2
-   V-cycles: the 512² level's 4 on the cooperative route, the 28 below on
-   a cluster); then 5 steps against plain smoothing from the same state,
+   launches = (steps + warm-up) × 4 (fine level, pre and post smoothing, 2
+   V-cycles) and kernel-A launches = (steps + warm-up) × 32 (8 coarser
+   levels × 2 calls × 2 V-cycles: the 512² level's 4 on the cooperative
+   route, the 28 below on a cluster); then 5 steps against plain smoothing from the same state,
    at the cylinder's bands
-8. timings, each beside the card's name and power limit: marginal
+9. timings, each beside the card's name and power limit: marginal
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
    plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2; kernel
@@ -60,7 +77,8 @@ and the final ``{"ok": true, ...}`` line is not printed:
    1024² (TMA) and per 2-sweep call at 1000×1030 (cp.async), each
    against its plain version; ``bench --all`` (marginal rbsor sweeps/s, MG
    V-cycles/s, DCT solves/s at 1024²) and ``bench --cylinder`` (steps/s
-   through kernel A and streaming rbsor) (``cfdsim_tpu_torch/bench.py``).
+   through kernel A, captured and eager, and through streaming rbsor)
+   (``cfdsim_tpu_torch/bench.py``).
    "Device" times replay the calls from a CUDA graph, so they exclude the
    host's dispatch; "eager" times include it. The predictor's, the DCT
    solve's and kernel B's inputs rotate through buffers twice the card's
@@ -69,7 +87,8 @@ and the final ``{"ok": true, ...}`` line is not printed:
    cylinder's solve
 
 Before the last line it prints the card and a ``{"kernels": [...]}`` line:
-per kernel its launches on the paths above, the worst kernel-vs-plain
+per kernel its launches on the paths above (as the kernels counted them on
+the device, warm-up included), the worst kernel-vs-plain
 |Δ|, its device ms and its plain version's, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM
@@ -93,8 +112,10 @@ import torch
 
 from cfdsim_tpu_torch.bench import (
     CYLINDER_KERNEL_POISSON,
+    EMPTY_SOURCE,
     dct_solve_ms,
     predictor_ms,
+    profile_chunk,
     rbsor_blocked_ms,
     rbsor_ms,
     rbsor_sync_us,
@@ -106,6 +127,7 @@ from cfdsim_tpu_torch.bench import (
 from cfdsim_tpu_torch.cases import build, lid_cavity
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
+from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
@@ -117,7 +139,11 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
 STEP_ATOL = 1e-5  # tests/test_pallas.py:144-145
 GOLDEN_RTOL = 2e-5  # tests/test_goldens.py:28
-PREDICTOR_SHAPES = [(48, 64), (1024, 1024), (1000, 1030), (37, 129)]
+# (shape, floats the fields start past a 16-byte boundary): every vector
+# width of plan_predictor, the edge grids, and a base pointer that is only
+# 4-byte aligned
+PREDICTOR_CASES = [((48, 64), 0), ((1024, 1024), 0), ((1000, 1030), 0), ((37, 129), 0),
+                   ((4096, 4096), 0), ((3, 3), 0), ((4, 5), 0), ((4, 8), 0), ((48, 64), 1)]
 RBSOR_A_ATOL = 1e-6  # tests/test_pallas.py:28
 RBSOR_B_ATOL = 5e-6  # tests/test_pallas.py:69-70
 # kernel A's grids, one route or more each on the H100 (max cluster 16):
@@ -157,12 +183,16 @@ def say(phase: str, **fields):
 
 def phase_kernel_vs_plain():
     worst = 0.0
-    for ny, nx in PREDICTOR_SHAPES:
+    widths = set()
+    for (ny, nx), offset in PREDICTOR_CASES:
         rng = np.random.default_rng(ny * 10007 + nx)
-        u = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float32, device="cuda")
-        v = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float32, device="cuda")
+        # contiguous fields that start `offset` floats into a longer buffer
+        u, v = (torch.tensor(rng.standard_normal(ny * nx + offset), dtype=torch.float32,
+                             device="cuda")[offset:].view(ny, nx) for _ in range(2))
         dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
         nu, dx, dy = 0.01, 0.02, 0.03
+        plan = pred.plan_predictor((ny, nx), pred.pointer_alignment(u, v))
+        widths.add(plan.vec)
         us, vs = pred.fused_predictor_central(u, v, dt, nu, dx, dy)
         ur, vr = pred.fused_predictor_central_ref(u, v, dt, nu, dx, dy)
         torch.cuda.synchronize()
@@ -170,11 +200,13 @@ def phase_kernel_vs_plain():
         frame = torch.ones_like(u, dtype=torch.bool)
         frame[1:-1, 1:-1] = False
         frame_equal = bool(torch.equal(us[frame], u[frame]) and torch.equal(vs[frame], v[frame]))
-        say("kernel_vs_plain", shape=[ny, nx], max_abs_err=err, atol=KERNEL_ATOL,
-            frame_bit_equal=frame_equal)
+        say("kernel_vs_plain", shape=[ny, nx], pointer_alignment=pred.pointer_alignment(u, v),
+            route=plan.route, max_abs_err=err, atol=KERNEL_ATOL, frame_bit_equal=frame_equal)
         if not (err <= KERNEL_ATOL and frame_equal):
             raise AssertionError(f"fused predictor disagrees at {(ny, nx)}: {err}, frame {frame_equal}")
         worst = max(worst, err)
+    if widths != {1, 2, 4}:
+        raise AssertionError(f"the predictor ran vector widths {sorted(widths)}, not 1, 2 and 4")
     return worst
 
 
@@ -294,10 +326,13 @@ def phase_rbsor_vs_plain():
 
 def _reset_counts():
     for k in (pred.KERNEL, *rb.KERNELS):
-        k.launches = 0
+        k.reset_launches()
 
 
 def _counts():
+    """Each kernel's launches since :func:`_reset_counts`, read from the
+    counts the kernels keep in device memory."""
+    torch.cuda.synchronize()
     return {"predictor": pred.KERNEL.launches, "rbsor_a": rb.KERNEL_A.launches,
             "rbsor_a_cooperative": rb.KERNEL_A_COOP.launches, "rbsor_b": rb.KERNEL_B.launches}
 
@@ -310,7 +345,16 @@ def _run(case, steps, chunk):
     t0 = time.perf_counter()
     state, report = sim.run()
     torch.cuda.synchronize()
+    if sim.chunk.mode != "graph":
+        raise AssertionError(f"the runner took the {sim.chunk.mode} route: {sim.chunk.reason}")
     return sim, state, report, time.perf_counter() - t0
+
+
+def _chunk_facts(sim):
+    program = sim.chunk.program
+    return dict(route=sim.chunk.mode, steps_per_graph=sim.chunk.steps_per_graph,
+                warmup_steps=sim.chunk.steps_per_graph, capture_s=program.capture_seconds,
+                replays=program.replays)
 
 
 def _healthy(label, state, report, steps, max_u):
@@ -342,12 +386,14 @@ def phase_cylinder():
     say("cylinder_path", nx=600, ny=180, Re=600.0, steps=int(state.step), launches=launches,
         kernel_chunks_run=chunks, kernel_chunks_per_step=chunks / steps, max_abs_u=max_u,
         fx=fx, fy=fy, t=report["final_time"], last_chunk=sim.metrics_history[-1],
-        wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
+        wall_s=wall, **_chunk_facts(sim), device_peak_bytes=report.get("device_peak_bytes"))
     if not (math.isfinite(fx) and math.isfinite(fy)):
         raise AssertionError(f"cylinder force not finite: {fx}, {fy}")
-    # the whole early-exit solve is one cluster launch per step; all 30
-    # chunks run (tol 1e-8 is below float32's reach)
-    want = {"predictor": 0, "rbsor_a": steps, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    # the whole early-exit solve is one cluster launch per step, the
+    # capture's eager warm-up steps included; all 30 chunks run (tol 1e-8 is
+    # below float32's reach; the warm-up's are put back with the step's buffers)
+    ran = steps + sim.chunk.steps_per_graph
+    want = {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}
     if launches != want or chunks != steps * n_chunks:
         raise AssertionError(f"cylinder path launches {launches} and {chunks} chunks, expected "
                              f"{want} and {steps * n_chunks}")
@@ -389,12 +435,14 @@ def phase_mg_cavity():
     _, max_u = _healthy("mg_cavity", state, report, steps, 1.5)
     say("mg_path", n=1024, Re=1000.0, steps=int(state.step), launches=launches,
         max_abs_u=max_u, t=report["final_time"], last_chunk=sim.metrics_history[-1],
-        wall_s=wall, device_peak_bytes=report.get("device_peak_bytes"))
+        wall_s=wall, **_chunk_facts(sim), device_peak_bytes=report.get("device_peak_bytes"))
     # per V-cycle: the 1024² level's pre and post smoothing through kernel B,
     # 2 calls on each of the 8 coarser levels through kernel A: 512² (2
-    # sweeps on large bands) on the cooperative route, 256² … 4² on a cluster
-    want = {"predictor": 0, "rbsor_a": steps * 2 * 14, "rbsor_a_cooperative": steps * 2 * 2,
-            "rbsor_b": steps * 2 * 2}
+    # sweeps on large bands) on the cooperative route, 256² … 4² on a
+    # cluster; the capture's eager warm-up steps are steps too
+    ran = steps + sim.chunk.steps_per_graph
+    want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
+            "rbsor_b": ran * 2 * 2}
     if launches != want:
         raise AssertionError(f"multigrid path launches {launches}, expected {want}")
 
@@ -408,21 +456,78 @@ def phase_mg_cavity():
     return launches
 
 
+def _paths(compute_metrics=True):
+    """The three paths' cases: the 1024² DCT cavity with the fused predictor,
+    the 600×180 reference-parity cylinder through kernel A, the 1024²
+    ``mg:2`` cavity."""
+    return {
+        "cavity1024_dct_fused": lid_cavity(
+            n=1024, Re=1000.0, poisson=PoissonConfig(method="dct", dct_variant="rfft2"),
+            compute_metrics=compute_metrics, fused_predictor=True, device="cuda"),
+        "cylinder600x180_rbsor_pallas": build(
+            "cylinder", ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
+            compute_metrics=compute_metrics, device="cuda"),
+        "cavity1024_mg2": lid_cavity(n=1024, Re=1000.0, poisson="mg:2",
+                                     compute_metrics=compute_metrics, device="cuda"),
+    }
+
+
+def phase_chunk_routes():
+    """The captured chunk against the eager loop, 20 steps from one state."""
+    steps = 20
+    for path, case in _paths().items():
+        graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
+        loop = make_chunk(case.cfg, case.step, steps, route="loop")
+        if (graph.mode, loop.mode) != ("graph", "loop"):
+            raise AssertionError(f"{path}: routes {graph.mode}, {loop.mode}")
+        # from a developed state: 20 steps through the loop first
+        state, _ = loop(case.state, 1.0)
+        _reset_counts()
+        sg, mg = graph(state, 1.0)  # the eager warm-up, the capture, then the replays
+        by_graph = _counts()
+        _reset_counts()
+        sl, ml = loop(state, 1.0)
+        by_loop = _counts()
+        apart = [k for k in sg._fields if not torch.equal(getattr(sg, k), getattr(sl, k))]
+        apart += [k for k in mg._fields if not torch.equal(getattr(mg, k), getattr(ml, k))]
+        say("chunk_graph_vs_loop", path=path, steps=steps, bit_equal=not apart, differ=apart,
+            steps_per_graph=graph.steps_per_graph, nodes=graph.program.nodes,
+            capture_s=graph.program.capture_seconds,
+            launches_graph=by_graph, launches_loop=by_loop, reason=graph.reason)
+        # the kernels count their own launches on the device: the replays ran
+        # what the loop ran, and the warm-up steps_per_graph steps more
+        scale = (steps + graph.steps_per_graph) / steps
+        if by_graph != {k: round(n * scale) for k, n in by_loop.items()} or not any(
+                by_loop.values()):
+            raise AssertionError(f"{path}: the captured chunk launched {by_graph}, the loop "
+                                 f"{by_loop}")
+        if apart or int(sg.step) != 2 * steps or mg.dt.shape != (steps,):
+            raise AssertionError(f"{path}: the captured chunk and the eager loop differ in {apart}")
+    # the host-reading streaming solve takes the loop, by the decision made before it runs
+    streaming = build("cylinder", ref_parity=True, scheme="supg", device="cuda")
+    chunk = make_chunk(streaming.cfg, streaming.step, 2)
+    say("chunk_route", path="cylinder600x180_streaming_rbsor", route=chunk.mode,
+        reason=chunk.reason)
+    if chunk.mode != "loop":
+        raise AssertionError("the streaming early exit reads the host: its chunk is the loop")
+
+
 def golden_signature(case, steps: int) -> dict:
-    """Field L2/max checksums after ``steps`` steps and the metrics of one
-    more step (the signature of tests/test_goldens.py)."""
-    s = case.state
-    cfl = torch.ones((), dtype=torch.float32, device="cuda")
-    for _ in range(steps):
-        s, _ = case.step(s, cfl)
-    _, m = case.step(s, cfl)
+    """Field L2/max checksums after ``steps`` steps (one captured chunk)
+    and the metrics of one more step (the signature of
+    tests/test_goldens.py)."""
+    chunk = make_chunk(case.cfg, case.step, steps)
+    if chunk.mode != "graph":
+        raise AssertionError(f"the golden ran through the {chunk.mode} route")
+    s, _ = chunk(case.state, 1.0)
+    _, m = make_chunk(case.cfg, case.step, 1)(s, 1.0)
     sig = {}
     for name in ("u", "v", "p"):
         f = getattr(s, name)
         sig[f"l2_{name}"] = float(torch.sqrt(torch.mean(f * f)))
         sig[f"max_{name}"] = float(f.abs().max())
     for name in ("energy", "max_vel", "fx", "fy", "vort_max"):
-        sig[name] = float(getattr(m, name))
+        sig[name] = float(getattr(m, name)[-1])
     return sig
 
 
@@ -457,23 +562,43 @@ def phase_main_path():
     state, report = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pred.KERNEL.launches
-    if any(k.launches for k in rb.KERNELS):
-        raise AssertionError(f"the DCT main path launched RB-SOR kernels: {_counts()}")
+    counts = _counts()
+    launches = counts.pop("predictor")
+    if any(counts.values()):
+        raise AssertionError(f"the DCT main path launched RB-SOR kernels: {counts}")
     steps = int(state.step)
     finite = bool(torch.isfinite(state.u).all() and torch.isfinite(state.v).all()
                   and torch.isfinite(state.p).all())
     max_u = float(state.u.abs().max())
     say("main_path", n=1024, Re=1000.0, steps=steps, launches=launches, finite=finite,
         max_abs_u=max_u, t=report["final_time"], stopped_reason=report["stopped_reason"],
-        last_chunk=sim.metrics_history[-1], wall_s=wall,
+        last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim),
         device_peak_bytes=report.get("device_peak_bytes"))
     if report["stopped_reason"] or steps != 600:
         raise AssertionError(f"main path stopped early: {report['stopped_reason']!r} at {steps}")
     if not finite or not max_u <= 1.5:
         raise AssertionError(f"main path unhealthy: finite={finite} max|u|={max_u}")
-    if launches != steps:
-        raise AssertionError(f"fused predictor launched {launches} times in {steps} steps")
+    # one launch per step, counted by the kernel on the device: 600 steps
+    # replayed from the graph and the capture's eager warm-up steps
+    if launches != steps + sim.chunk.steps_per_graph or sim.chunk.mode != "graph":
+        raise AssertionError(f"fused predictor launched {launches} times in {steps} steps "
+                             f"(+{sim.chunk.steps_per_graph} of warm-up) on the "
+                             f"{sim.chunk.mode} route")
+
+    # a CFL back-off between two chunks: the host writes 0.25 into the
+    # chunk's cfl buffer; dt follows (0.25 × 0.5 × h / max|u| is below the
+    # viscous bound) and the program is the one captured before
+    program = sim.chunk.program
+    sim.cfl_scale = 0.25
+    m_host, _ = sim._chunk(sim.cfl_scale)
+    h = case.grid.dx
+    want_dt = 0.25 * case.cfg.cfl_target * h / float(m_host.max_vel[-2])
+    say("cfl_backoff", cfl_scale=0.25, dt_before=sim.metrics_history[-1]["dt"],
+        dt_after=float(m_host.dt[-1]), dt_expected=want_dt,
+        recaptured=sim.chunk.program is not program, replays=program.replays)
+    if sim.chunk.program is not program or abs(float(m_host.dt[-1]) - want_dt) > 1e-3 * want_dt:
+        raise AssertionError("the CFL back-off did not reach the captured chunk")
+    state = sim.state
 
     # fused vs unfused from the same state (these launches are not counted)
     other = lid_cavity(n=1024, Re=1000.0, poisson=pois, compute_metrics=True,
@@ -491,20 +616,33 @@ def phase_main_path():
 
 
 def phase_timings(card):
-    # main path, in turns on the same card: fused, unfused, unfused, fused
+    # main path, in turns on the same card: fused, unfused, unfused, fused,
+    # each through the captured chunk and then through the eager loop
     for fused in (True, False, False, True):
-        r = run_bench(n=1024, fused_predictor=fused)
-        say("time_main_path", fused_predictor=fused, cells_per_s=r["value"],
-            t_short_s=r["t_short_s"], t_long_s=r["t_long_s"], card=card)
+        for route in (None, "loop"):
+            r = run_bench(n=1024, fused_predictor=fused, route=route)
+            say("time_main_path", fused_predictor=fused, route=r["route"],
+                cells_per_s=r["value"], ms_per_step=r["ms_per_step"],
+                t_short_s=r["t_short_s"], t_long_s=r["t_long_s"], nodes=r.get("nodes"),
+                steps_per_graph=r.get("steps_per_graph"), capture_s=r.get("capture_s"),
+                card=card)
     # the device time of one main-path step (no host dispatch in it)
     step_ms = {fused: step_device_ms(1024, fused) for fused in (True, False)}
     say("time_step_device", n=1024, fused_ms=step_ms[True], unfused_ms=step_ms[False],
         fused_cells_per_s=1024 * 1024 / (step_ms[True] * 1e-3),
         unfused_cells_per_s=1024 * 1024 / (step_ms[False] * 1e-3), card=card)
-    # the predictor alone at the main path's shape, inputs streamed from
-    # device memory: plain, kernel, kernel, plain
+    # device events, busy time and idle share per step, metrics off: the
+    # three paths through the captured chunk and through the eager loop
+    for route in (None, "loop"):
+        for path, case in _paths(compute_metrics=False).items():
+            say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
+    # the predictor alone at the main path's shape and at 4096², inputs
+    # streamed from device memory: plain, kernel, kernel, plain; then a
+    # plain copy of the same bytes and an empty launch
     pred_t = predictor_ms(1024, reps=200)
     say("time_predictor", shape=[1024, 1024], **pred_t, card=card)
+    pred_4096 = predictor_ms(4096, reps=50)
+    say("time_predictor", shape=[4096, 4096], **pred_4096, card=card)
     # one DCT solve at 1024²: rfft, rfft2, rfft2, rfft
     say("time_dct_solve", shape=[1024, 1024], **dct_solve_ms(1024, reps=50), card=card)
     # kernel A: one 50-sweep chunk of the cylinder's masked solve (a
@@ -550,7 +688,14 @@ def phase_timings(card):
     kernels = {
         "fused_predictor_central": dict(
             ms=best(pred_t), plain_ms=min(pred_t["plain_device_ms"]),
-            bound=_bound_ms(4 * 4 * n, PREDICTOR_FLOPS_PER_CELL * n)),
+            bound=_bound_ms(4 * 4 * n, PREDICTOR_FLOPS_PER_CELL * n),
+            plan=pred_t["route"], copy_ms=min(pred_t["copy_device_ms"]),
+            empty_launch_ms=min(pred_t["empty_device_ms"]),
+            paths_ms={"4096x4096": {
+                "ms": best(pred_4096), "plan": pred_4096["route"],
+                "copy_ms": min(pred_4096["copy_device_ms"]),
+                "bound_ms": _bound_ms(4 * 4 * 4096 * 4096,
+                                      PREDICTOR_FLOPS_PER_CELL * 4096 * 4096)[0]}}),
         "rbsor": dict(
             ms=best(a_t), plain_ms=min(a_t["plain_device_ms"]),
             # φ, rhs, mask in; φ out; every fluid cell updated per sweep
@@ -578,10 +723,11 @@ def main() -> int:
         python=sys.version.split()[0], count=torch.cuda.device_count())
 
     kernels = (pred.KERNEL, *rb.KERNELS)
-    say("build", seconds_per_source=cuda_build.build_all(kernels),
+    say("build", seconds_per_source=cuda_build.build_all(kernels, [EMPTY_SOURCE]),
         kernels=[k.symbol for k in kernels])
     err = {"fused_predictor_central": phase_kernel_vs_plain()}
     err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
+    phase_chunk_routes()
     phase_golden()
     pred_launches = phase_main_path()
     cyl_a, cyl_chunks_per_step = phase_cylinder()

@@ -1,6 +1,7 @@
 """The fused central predictor: the port's plain version against the JAX
 package's Pallas kernel (interpret mode) and unfused ops, the kernel
-against the plain version on a card, and the wrapper's routing.
+against the plain version on a card on every route of its plan, the plan
+itself, and the wrapper's routing.
 
 Tolerance: atol 1e-6 (the band of tests/test_pallas.py:127-128). The
 fused and unfused forms group the same terms differently, which moves the
@@ -29,7 +30,7 @@ def _uv(shape, seed=5):
 
 
 @pytest.mark.parametrize("against", ["pallas_interpret", "unfused_jnp"])
-@pytest.mark.parametrize("shape", [(48, 64), (37, 129)])
+@pytest.mark.parametrize("shape", [(48, 64), (37, 129), (16, 128), (9, 132), (3, 3), (4, 5)])
 def test_plain_predictor_matches_jax(shape, against):
     u, v = _uv(shape)
     ju, jv = jnp.asarray(u), jnp.asarray(v)
@@ -47,7 +48,7 @@ def test_plain_predictor_matches_jax(shape, against):
 def test_cpu_tensors_take_the_plain_version():
     u, v = _uv((37, 129))
     tu, tv = torch.from_numpy(u), torch.from_numpy(v)
-    pred.KERNEL.launches = 0
+    pred.KERNEL.reset_launches()
     got = pred.fused_predictor_central(tu, tv, torch.tensor(DT), NU, DX, DY)
     want = pred.fused_predictor_central_ref(tu, tv, torch.tensor(DT), NU, DX, DY)
     assert pred.KERNEL.launches == 0
@@ -68,14 +69,57 @@ def test_fused_predictor_rejects_unsupported():
         lid_cavity(n=32, Re=100.0, scheme="upwind", fused_predictor=True, device="cpu")
 
 
+@pytest.mark.parametrize("shape, align, vec", [
+    ((1024, 1024), 16, 4),  # the main path
+    ((4096, 4096), 16, 4),
+    ((48, 64), 16, 4),
+    ((4, 8), 16, 4),
+    ((1000, 1030), 16, 2),  # a pitch of 4120 bytes: a multiple of 8, not of 16
+    ((37, 129), 16, 1),  # a pitch of 516 bytes
+    ((3, 3), 16, 1),
+    ((4, 5), 16, 1),
+    ((1024, 1024), 8, 2),  # pointers aligned to 8 bytes only
+    ((1024, 1024), 4, 1),  # a slice that starts one float into a buffer
+    ((1000, 1030), 4, 1),
+    ((48, 64), 12, 1),
+], ids=str)
+def test_plan_predictor(shape, align, vec):
+    plan = pred.plan_predictor(shape, align)
+    assert plan.vec == vec
+    # never a width the pitch or the pointers do not allow
+    assert shape[1] % plan.vec == 0 and align % (4 * plan.vec) == 0
+    assert plan.route == f"vec{plan.vec}"
+    # the plan depends on sizes alone
+    assert pred.plan_predictor(shape, align) == plan
+
+
+def test_pointer_alignment():
+    buf = torch.zeros(64)
+    base = pred.pointer_alignment(buf)
+    assert base in (4, 8, 16) and buf.data_ptr() % base == 0
+    assert pred.pointer_alignment(buf, buf[1:]) == 4
+    assert pred.pointer_alignment(buf[2:]) == min(base, 8)
+    assert pred.pointer_alignment(buf[4:]) == base
+
+
+# (shape, floats the fields start past their buffer's first element): every
+# vector width of the plan, the edge grids, a base pointer 4-byte aligned,
+# and per width a grid whose last strip is ragged both ways
+CARD_CASES = [((48, 64), 0), ((1000, 1030), 0), ((37, 129), 0), ((1024, 1024), 0),
+              ((16, 128), 0), ((9, 132), 0), ((3, 3), 0), ((4, 5), 0), ((4, 8), 0),
+              ((48, 64), 1), ((64, 128), 2), ((133, 260), 0), ((133, 130), 0),
+              ((133, 129), 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(48, 64), (1000, 1030), (37, 129)])
-def test_kernel_matches_plain_on_card(shape):
+@pytest.mark.parametrize("shape, offset", CARD_CASES, ids=str)
+def test_kernel_matches_plain_on_card(shape, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    u, v = _uv(shape)
-    tu = torch.from_numpy(u).cuda()
-    tv = torch.from_numpy(v).cuda()
+    ny, nx = shape
+    rng = np.random.default_rng(5)
+    tu, tv = (torch.from_numpy(rng.standard_normal(ny * nx + offset).astype(np.float32))
+              .cuda()[offset:].view(ny, nx) for _ in range(2))
     dt = torch.tensor(DT, device="cuda")
     before = pred.KERNEL.launches
     got = pred.fused_predictor_central(tu, tv, dt, NU, DX, DY)

@@ -134,7 +134,7 @@ def test_cpu_tensors_take_the_plain_versions():
     phi0, rhs, h, solid = _problem()
     tp, tr, ts = (torch.from_numpy(a) for a in (phi0, rhs, solid))
     for k in rb.KERNELS:
-        k.launches = 0
+        k.reset_launches()
     assert torch.equal(rb.rbsor(tp, tr, h, h, 10, 1.7, "neumann", ts),
                        rb.rbsor_ref(tp, tr, h, h, 10, 1.7, "neumann", ts))
     assert torch.equal(rb.rbsor_blocked(tp, tr, h, h, 10, 1.7, 16, 3),
