@@ -5,13 +5,17 @@ The JAX package stays the reference; this package mirrors its module paths
 ``models.incompressible``, ``cases``, ``runner``, …) and is tested against
 it on the same inputs. It imports torch and numpy, never JAX.
 
-Ported so far: the collocated tier's cavity, channel and immersed
-cylinder — central, upwind and SUPG convection, explicit diffusion,
-adaptive or fixed dt with warm-up, IBM penalization, the DCT and iterative
-pressure solves (Jacobi, red-black SOR, multigrid, hybrid, periodic FFT) —
-with every Pallas kernel of the JAX package as a hand-written CUDA kernel
-for Hopper (``csrc/predictor.cu``, ``csrc/rbsor.cu``, built by nvcc at
-first use). Every builder takes an explicit ``device``; nothing picks one.
+Ported so far: the collocated 2D incompressible tier and its run
+pipeline. The cases cavity, channel, immersed cylinder and scalar
+transport; central, upwind, TVD and SUPG convection; explicit or implicit
+(DST Helmholtz or damped Jacobi) diffusion; Smagorinsky LES; body forcing;
+adaptive or fixed dt with warm-up; IBM penalization; the DCT and iterative
+pressure solves (Jacobi, red-black SOR, multigrid, hybrid, periodic FFT);
+the chunked runner with snapshots (HDF5 and the native writer), resume,
+render, video and thin. Every Pallas kernel of the JAX package is a
+hand-written CUDA kernel for Hopper (``csrc/predictor.cu``,
+``csrc/rbsor.cu``, built by nvcc at first use). Every case function takes an
+explicit ``device``; nothing picks one.
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,13 @@
     python -m cfdsim_tpu_torch run cylinder --device cuda --ref-parity true \\
         --scheme supg --max-steps 200
     python -m cfdsim_tpu_torch run cavity --n 1024 --Re 1000 --poisson mg:2
+    python -m cfdsim_tpu_torch run transport --n 1024 --Re 1000 --Pe 1000 \
+        --io native --snapshot-interval 100 --max-steps 200
+    python -m cfdsim_tpu_torch run transport --n 1024 --Re 1000 --Pe 1000 \
+        --io native --snapshot-interval 100 --max-steps 400 --resume
+    python -m cfdsim_tpu_torch render out/cavity/snapshots.h5 out/cavity/frames
+    python -m cfdsim_tpu_torch video out/cavity/frames/velocity_frames movie.gif
+    python -m cfdsim_tpu_torch thin out/cavity/frames/velocity_frames --keep-every 3
     python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder
                                       | --routes]
 
@@ -20,8 +27,15 @@ Unknown ``--key value`` pairs on ``run`` are forwarded to the case builder
 "method[:iters[:omega]]", e.g. "mg:2" or "rbsor:100:1.7"). ``--device``
 defaults to ``cuda`` and is never swapped for another device: without a
 card, pass ``--device cpu``.
-Snapshots, ``--resume``, ``--render`` and ``--io`` are not ported yet and
-are refused.
+
+``run`` writes a snapshot every ``--snapshot-interval`` steps (default 200;
+0 turns them off) to ``<out>/snapshots.h5`` (``--io hdf5``, needs h5py) or
+``<out>/snapshots.csnap`` (``--io native``, needs g++ and zlib: the writer
+is compiled at first use). ``--resume [SNAPSHOTS]`` restores fields, step
+and t from the latest snapshot (bare: the case's own file under ``--out``;
+a ``.csnap`` file is read directly) and continues bit-exactly. ``--render``
+and the ``render``, ``video`` and ``thin`` sub-commands need matplotlib and
+Pillow, and h5py for the snapshots they read.
 """
 
 from __future__ import annotations
@@ -29,8 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-
-UNPORTED_RUN_FLAGS = ("snapshot_interval", "resume", "render", "io")
 
 
 def _parse_value(v: str):
@@ -41,6 +53,14 @@ def _parse_value(v: str):
             pass
     if v.lower() in ("true", "false"):
         return v.lower() == "true"
+    if v and v[0] in "([":
+        # tuple/list literals, e.g. --center "(4.0,2.0)"
+        import ast
+
+        try:
+            return ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass
     return v
 
 
@@ -81,13 +101,20 @@ def cmd_list(_args, _extra):
         print(f"{name:20s} {doc}")
 
 
+def _snapshot_fields(state) -> dict:
+    """The (≥2-D) fields of a state, nested states (transport's
+    ``CoupledState.flow``) included, by field name."""
+    fields = {}
+    for name in state._fields:
+        value = getattr(state, name)
+        if hasattr(value, "_fields"):
+            fields.update(_snapshot_fields(value))
+        elif hasattr(value, "ndim") and value.ndim >= 2:
+            fields[name] = value
+    return fields
+
+
 def cmd_run(args, extra):
-    refused = [k for k in UNPORTED_RUN_FLAGS if k in extra]
-    if refused:
-        raise SystemExit(
-            f"not ported yet: {', '.join('--' + k.replace('_', '-') for k in refused)} "
-            "(snapshot I/O and resume are ROADMAP.md queue 1)"
-        )
     from cfdsim_tpu_torch.cases import build
     from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
     from cfdsim_tpu_torch.utils.logging import setup_logging
@@ -97,19 +124,102 @@ def cmd_run(args, extra):
     out.mkdir(parents=True, exist_ok=True)
     log = setup_logging("cfdsim_tpu_torch", log_dir=out / "logs")
     case = build(args.case, device=device, **extra)
+
+    snapshot_fn = None
+    snap_path = out / ("snapshots.csnap" if args.io == "native" else "snapshots.h5")
+
+    state = case.state
+    if args.resume is not None:
+        # checkpoint-restart: fields, step and t from the latest snapshot;
+        # the HDF5 writer skips steps already present and a reader of the
+        # native container keeps one record per step and field, so numbering
+        # in the same file simply continues
+        from cfdsim_tpu_torch.io_ import restore
+
+        src = Path(args.resume) if args.resume != "latest" else snap_path
+        if not src.is_file():
+            raise SystemExit(f"--resume: no snapshot file {src}")
+        state = restore(case.state, src)
+        log.info("resumed %s from %s at t=%g step=%d", args.case, src, float(state.t),
+                 int(state.step))
+
+    writer = None
+    if args.snapshot_interval > 0:
+        if args.io == "native":
+            from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter
+
+            writer = NativeSnapshotWriter(snap_path)
+        else:
+            from cfdsim_tpu_torch.io_ import SnapshotWriter
+
+            writer = SnapshotWriter(snap_path)
+
+        def snapshot_fn(state, step, t):
+            writer.save(step, t, **_snapshot_fields(state))
+
     cfg = RunnerConfig(
         t_final=args.t_final,
         max_steps=args.max_steps,
         chunk_steps=args.chunk_steps,
+        snapshot_interval=args.snapshot_interval,
         on_unhealthy=args.on_unhealthy,
         wall_clock_limit_s=args.wall_clock_limit,
         div_threshold=args.div_threshold,
-        max_velocity=case.cfg.max_velocity,
+        max_velocity=getattr(case.cfg, "max_velocity", 1e3)
+        if not isinstance(case.cfg, tuple)
+        else 1e3,
     )
-    sim = Simulation(case.step, case.state, cfg, case.grid.n_cells, logger=log)
-    _, report = sim.run()
+    sim = Simulation(case.step, state, cfg, case.grid.n_cells, snapshot_fn=snapshot_fn,
+                     logger=log)
+    try:
+        _, report = sim.run()
+    finally:
+        if writer is not None and hasattr(writer, "close"):
+            writer.close()  # the native writer drains its queue here
     print(json.dumps(report))
+    if args.render and args.snapshot_interval > 0:
+        h5 = snap_path
+        if args.io == "native":
+            from cfdsim_tpu_torch.io_.native import csnap_to_hdf5
+
+            h5 = csnap_to_hdf5(snap_path, out / "snapshots.h5")
+        from cfdsim_tpu_torch.viz import render_frames_from_hdf5
+
+        fields = ("velocity", "vorticity")
+        if hasattr(case.state, "theta"):  # scalar-coupled states
+            fields = ("velocity", "vorticity", "temperature")
+        cyl = None
+        if "center" in case.extras and "radius" in case.extras:
+            cyl = (case.extras["center"], case.extras["radius"])
+        render_frames_from_hdf5(h5, out / "frames", grid=case.grid, fields=fields,
+                                cylinder=cyl)
+        print(f"frames in {out / 'frames'}")
     return report
+
+
+def cmd_render(args, _extra):
+    from cfdsim_tpu_torch.viz import render_frames_from_hdf5
+
+    if not Path(args.snapshots).is_file():
+        raise SystemExit(f"render: no snapshot file {args.snapshots}")
+    paths = render_frames_from_hdf5(args.snapshots, args.out)
+    print(json.dumps({k: len(v) for k, v in paths.items()}))
+
+
+def cmd_video(args, _extra):
+    from cfdsim_tpu_torch.viz import make_video
+
+    out = make_video(args.frames, args.out, duration_s=args.duration)
+    print(out)
+
+
+def cmd_thin(args, _extra):
+    from cfdsim_tpu_torch.viz import thin_frames
+
+    r = thin_frames(args.frames, keep_every=args.keep_every, dry_run=args.dry_run,
+                    confirm=not (args.yes or args.dry_run))
+    print(json.dumps({"kept": r["kept"], "deleted": r["deleted"],
+                      "aborted": r.get("aborted", False)}))
 
 
 def cmd_bench(args, _extra):
@@ -147,10 +257,34 @@ def main(argv=None):
     pr.add_argument("--t-final", type=float, default=1.0)
     pr.add_argument("--max-steps", type=int, default=10_000_000)
     pr.add_argument("--chunk-steps", type=int, default=100)
+    pr.add_argument("--snapshot-interval", type=int, default=200)
+    pr.add_argument("--io", choices=["hdf5", "native"], default="hdf5")
     pr.add_argument("--out", default=None)
     pr.add_argument("--on-unhealthy", choices=["stop", "backoff"], default="stop")
     pr.add_argument("--wall-clock-limit", type=float, default=0.0)
     pr.add_argument("--div-threshold", type=float, default=50.0)
+    pr.add_argument("--render", action="store_true")
+    pr.add_argument(
+        "--resume", nargs="?", const="latest", default=None, metavar="SNAPSHOTS",
+        help="resume from a snapshot file (bare --resume: the case's own "
+             "snapshots file under --out)",
+    )
+
+    pv = sub.add_parser("render", help="render frames from snapshots")
+    pv.add_argument("snapshots")
+    pv.add_argument("out")
+
+    pm = sub.add_parser("video", help="frames -> mp4/gif")
+    pm.add_argument("frames")
+    pm.add_argument("out")
+    pm.add_argument("--duration", type=float, default=10.0)
+
+    pt = sub.add_parser("thin", help="thin a frame directory")
+    pt.add_argument("frames")
+    pt.add_argument("--keep-every", type=int, default=2)
+    pt.add_argument("--dry-run", action="store_true")
+    pt.add_argument("--yes", "-y", action="store_true",
+                    help="skip the interactive delete confirmation")
 
     pb = sub.add_parser("bench", help="run the headline benchmark on the card")
     pb.add_argument("--n", type=int, default=1024)
@@ -160,9 +294,12 @@ def main(argv=None):
                       help="per-size device times and eager cells/s, 256² to 4096²")
     mode.add_argument("--profile", action="store_true",
                       help="device events, busy time and idle share per step: the --n "
-                           "cavity (DCT, MG) and the ref-parity cylinder")
+                           "cavity (DCT, MG, implicit), the ref-parity cylinder (also with "
+                           "LES) and the transport cavity")
     mode.add_argument("--all", action="store_true",
-                      help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s at --n")
+                      help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s, ms per "
+                           "Helmholtz solve and ms per step of the implicit, LES and "
+                           "transport paths at --n")
     mode.add_argument("--cylinder", action="store_true",
                       help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
     mode.add_argument("--routes", action="store_true",
@@ -172,7 +309,9 @@ def main(argv=None):
     extra = _extra_kwargs(unknown)
     if extra and args.cmd != "run":
         raise SystemExit(f"unexpected arguments for {args.cmd}: {unknown}")
-    return {"list": cmd_list, "run": cmd_run, "bench": cmd_bench}[args.cmd](args, extra)
+    commands = {"list": cmd_list, "run": cmd_run, "render": cmd_render, "video": cmd_video,
+                "thin": cmd_thin, "bench": cmd_bench}
+    return commands[args.cmd](args, extra)
 
 
 if __name__ == "__main__":

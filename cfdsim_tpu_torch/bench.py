@@ -22,7 +22,9 @@ busy time against the wall time, for both routes. ``--all`` is the twin of
 the JAX bench's
 ``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
 sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
-solves/s at 1024². ``--cylinder`` times the reference-parity cylinder at
+solves/s at 1024², plus the device time of one Dirichlet Helmholtz (DST)
+solve and ms per step of the implicit cavity, the LES cylinder and the
+transport cavity (:func:`run_paths`). ``--cylinder`` times the reference-parity cylinder at
 600×180 with its pressure solve through kernel A and through streaming
 rbsor. ``--routes`` times kernel A's cluster and cooperative routes side
 by side per grid and sweep count, the measurement behind
@@ -47,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.cases import cylinder, lid_cavity
+from cfdsim_tpu_torch.cases import cylinder, lid_cavity, transport
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.models.incompressible import make_chunk
@@ -58,8 +60,10 @@ from cfdsim_tpu_torch.ops.kernels.predictor import (
     fused_predictor_central,
     fused_predictor_central_ref,
 )
+from cfdsim_tpu_torch.solvers.helmholtz import DirichletHelmholtz
 from cfdsim_tpu_torch.solvers.poisson import NeumannDCT, PoissonConfig, PoissonSolver
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit, device_ms, eager_ms
+from cfdsim_tpu_torch.utils.tree import leaves
 
 # the JAX package's autotuner is not ported: the bench names its variant
 POISSON = PoissonConfig(method="dct", dct_variant="rfft2")
@@ -229,6 +233,70 @@ def dct_solve_ms(n=1024, reps=50, device="cuda") -> dict:
     return out
 
 
+def helmholtz_solve_ms(n=1024, reps=50, device="cuda") -> dict:
+    """Device ms of one Dirichlet Helmholtz solve (two forward and two
+    inverse 1-D DST-I passes over the (n−2)² interior, odd extension of
+    length 2(n−1)) at n², twice, beside one DCT solve (rfft2) on the same
+    ring of right-hand sides; ``coeff`` is a device scalar, as in the step."""
+    device = _require_cuda(device)
+    rng = np.random.default_rng(0)
+    h = 1.0 / (n - 1)
+    ring = _ring_len(device, 2 * 4 * n * n)  # b in, u out
+    coeff = torch.tensor(0.5 * h * 1e-3, dtype=torch.float32, device=device)
+    fields = [_field(rng, n, device) for _ in range(ring)]
+    solver = DirichletHelmholtz((n, n), h, h, device=device)
+    fns = {"helmholtz": _ring(solver, [(b, coeff) for b in fields]),
+           "dct_rfft2": _ring(NeumannDCT((n, n), h, h, "rfft2", device=device),
+                              [(b,) for b in fields])}
+    out = {"n": n, "ring": ring, "dst_length": 2 * (n - 1)}
+    for which in ("helmholtz", "dct_rfft2", "dct_rfft2", "helmholtz"):
+        out.setdefault(f"{which}_device_ms", []).append(device_ms(fns[which], reps))
+    return out
+
+
+def new_paths(n=1024, compute_metrics=False, device="cuda") -> dict:
+    """The cases of the implicit, LES and transport paths at full width:
+    the n² implicit cavity (DST Helmholtz, DCT projection), the same with
+    LES (so the damped Jacobi back end, 12 sweeps with the BCs inside
+    each), the LES + SUPG + IBM reference-parity cylinder at 600×180
+    through kernel A, and the n² transport cavity with the fused predictor."""
+    return {
+        f"cavity{n}_implicit_dst": lid_cavity(
+            n=n, Re=1000.0, diffusion="implicit", cfl=0.6, poisson=POISSON,
+            compute_metrics=compute_metrics, device=device),
+        f"cavity{n}_les_implicit_jacobi": lid_cavity(
+            n=n, Re=1000.0, diffusion="implicit", use_les=True, cfl=0.6, poisson=POISSON,
+            compute_metrics=compute_metrics, device=device),
+        "cylinder600x180_les_rbsor_pallas": cylinder(
+            ref_parity=True, scheme="supg", use_les=True, poisson=CYLINDER_KERNEL_POISSON,
+            compute_metrics=compute_metrics, device=device),
+        f"transport{n}_fused": transport(
+            n=n, Re=1000.0, Pe=1000.0, fused_predictor=True, poisson=POISSON,
+            compute_metrics=compute_metrics, device=device),
+    }
+
+
+def run_paths(n=1024, short=20, long=60, device="cuda"):
+    """ms per step of each of :func:`new_paths`, marginal between a short
+    and a long chunk from the initial state, through the captured chunk and
+    through the eager loop, in turns chunk, loop, loop, chunk."""
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    for path, case in new_paths(n, device=device).items():
+        row = {"metric": "ms_per_step", "path": path, "steps": [short, long], "card": card}
+        for route, name in ((None, "chunk"), ("loop", "eager"), ("loop", "eager"),
+                            (None, "chunk")):
+            t_short, _, _ = _timed_chunk(case, case.state, short, route)
+            t_long, state, chunk = _timed_chunk(case, case.state, long, route)
+            if not all(bool(torch.isfinite(x).all()) for x in leaves(state)):
+                raise RuntimeError(f"non-finite state after the long chunk of {path}")
+            row.setdefault(f"{name}_ms_per_step", []).append(
+                (t_long - t_short) / (long - short) * 1e3)
+            if route is None:
+                row.update(_chunk_facts(chunk))
+        yield row
+
+
 def step_device_ms(n=1024, fused_predictor=True, reps=20, device="cuda") -> float:
     """Device ms of one main-path step (compute_metrics off) from rest."""
     case = _cavity(n, fused_predictor, _require_cuda(device))
@@ -299,8 +367,9 @@ def profile_chunk(case, steps, device, card, route=None, **labels):
 def run_profile(n=1024, steps=50, device="cuda"):
     """Per step, with compute_metrics off, each through the captured chunk
     and through the eager loop: the main path fused and unfused, then the
-    reference-parity cylinder through kernel A (600×180) and the n² cavity
-    with ``poisson="mg:2"`` (kernels A and B)."""
+    reference-parity cylinder through kernel A (600×180), the n² cavity
+    with ``poisson="mg:2"`` (kernels A and B), and :func:`new_paths` (the
+    implicit cavity, the LES cylinder, the transport cavity)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -314,6 +383,9 @@ def run_profile(n=1024, steps=50, device="cuda"):
         yield profile_chunk(
             lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False, device=device),
             steps, device, card, route, path=f"cavity{n}_mg2", n=n)
+        for path, case in new_paths(n, device=device).items():
+            yield profile_chunk(case, 20 if path.startswith("cylinder") else steps, device,
+                                card, route, path=path)
 
 
 def _marginal(body, x, r1=20, r2=200):
@@ -342,7 +414,9 @@ def run_all(n=1024, device="cuda"):
     """The secondary metrics at n² (the twin of ``bench.py::run_secondary``),
     one row each: marginal streaming rbsor sweeps/s, RB-SOR kernel sweeps/s
     (``rbsor_pallas``: the blocked kernel above 512²), multigrid V-cycles/s
-    with kernel and with plain smoothing, and DCT solves/s."""
+    with kernel and with plain smoothing, and DCT solves/s; then the device
+    ms of one Helmholtz (DST) solve beside the DCT solve's, and ms per step
+    of the implicit, LES and transport paths (:func:`run_paths`)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     h = 1.0 / (n - 1)
@@ -366,6 +440,9 @@ def run_all(n=1024, device="cuda"):
                # the same call replayed from a CUDA graph: no host dispatch
                "device_ms_per_call": device_ms(lambda s=solver: s(phi0, rhs), 10),
                "device": torch.cuda.get_device_name(device), "card": card}
+    yield {"metric": f"helmholtz_solve_device_ms_{n}", **helmholtz_solve_ms(n, device=device),
+           "card": card}
+    yield from run_paths(n, device=device)
 
 
 def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):

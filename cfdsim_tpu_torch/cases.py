@@ -2,7 +2,7 @@
 
 Each named case is a builder that returns a ready-to-run bundle: static
 config, step module and initial state, all on the ``device`` the caller
-names: ``"cavity"``, ``"channel"`` and ``"cylinder"`` so far.
+names: ``"cavity"``, ``"channel"``, ``"cylinder"`` and ``"transport"`` so far.
 """
 
 from __future__ import annotations
@@ -186,10 +186,43 @@ def cylinder(
                 {"solid_mask": solid, "ibm_mask": ibm, "center": center, "radius": radius})
 
 
+def transport(
+    n: int = 128,
+    Re: float = 100.0,
+    Pe: float = 100.0,
+    scheme: str = "upwind",
+    hot_lid: float = 1.0,
+    *,
+    device,
+    **cavity_kwargs,
+) -> Case:
+    """Passive scalar (temperature/dye) carried by the lid-driven cavity
+    flow: θ=hot_lid on the moving lid, θ=0 on the other walls, diffusivity
+    κ = U·L/Pe."""
+    from cfdsim_tpu_torch.models import transport as tr
+
+    base = lid_cavity(n=n, Re=Re, device=device, **cavity_kwargs)
+
+    def theta_bc(th):  # in place, like boundary.py's edge writes
+        th[:, 0] = 0.0
+        th[:, -1] = 0.0
+        th[0, :] = 0.0
+        th[-1, :] = hot_lid
+        return th
+
+    tcfg = tr.TransportConfig(grid=base.grid, kappa=1.0 / Pe, scheme=scheme)
+    step = tr.make_coupled_step(base.step, tcfg, theta_bc)
+    theta0 = theta_bc(base.grid.zeros(device=device))
+    state = tr.init_coupled(base.state, theta0)
+    return Case("transport", (base.cfg, tcfg), step, state, base.grid,
+                {"hot_lid": hot_lid})
+
+
 CASES: dict[str, Callable[..., Case]] = {
     "cavity": lid_cavity,
     "channel": channel,
     "cylinder": cylinder,
+    "transport": transport,
 }
 
 

@@ -1,7 +1,8 @@
 """Carry a simulation state between numpy and the port.
 
-A CFD case has no weights: its state (u, v, p, t, step) is what moves
-between the JAX package and this one. Pass the JAX arrays through
+A CFD case has no weights: its state (u, v, p, t, step, and θ for the
+coupled transport state) is what moves between the JAX package and this
+one. Pass the JAX arrays through
 ``np.asarray`` on the way in and build a JAX state from the numpy dict on
 the way out.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from cfdsim_tpu_torch.models.incompressible import IncompressibleState
+from cfdsim_tpu_torch.models.transport import CoupledState
 
 
 def state_from_numpy(u, v, p, t, step, device) -> IncompressibleState:
@@ -35,4 +37,20 @@ def state_to_numpy(state: IncompressibleState) -> dict:
     out = {k: getattr(state, k).detach().cpu().numpy() for k in ("u", "v", "p")}
     out["t"] = np.float32(state.t.item())
     out["step"] = np.int32(state.step.item())
+    return out
+
+
+def coupled_state_from_numpy(u, v, p, t, step, theta, device) -> CoupledState:
+    """A :class:`CoupledState` on ``device`` from numpy arrays (the flow as
+    :func:`state_from_numpy`, θ cast to float32)."""
+    return CoupledState(
+        flow=state_from_numpy(u, v, p, t, step, device),
+        theta=torch.tensor(np.asarray(theta, dtype=np.float32), device=device),
+    )
+
+
+def coupled_state_to_numpy(state: CoupledState) -> dict:
+    """:func:`state_to_numpy` of the flow, plus ``"theta"``."""
+    out = state_to_numpy(state.flow)
+    out["theta"] = state.theta.detach().cpu().numpy()
     return out

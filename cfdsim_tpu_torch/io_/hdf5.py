@@ -1,0 +1,128 @@
+"""HDF5 snapshot I/O (``cfdsim_tpu.io_.hdf5``).
+
+The on-disk schema is the JAX package's, so a file one package wrote
+restores in the other: one group ``step_NNNNNN`` per snapshot with a
+``time`` attribute and gzip'd field datasets. :func:`restore` is the
+resume path; it also takes a ``.csnap`` file of the native writer directly
+(``io_/native.py``), with no detour over HDF5.
+
+Device→host copies happen only here, off the step path: a snapshot is
+taken between chunks, from the runner's own state.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def to_host(value) -> np.ndarray:
+    """A field as a numpy array (a tensor is copied off its device)."""
+    if torch.is_tensor(value):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+class SnapshotWriter:
+    """Appends step snapshots to an HDF5 file (reference schema)."""
+
+    def __init__(self, path, compression: str | None = "gzip", compression_opts=4):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.compression = compression
+        self.compression_opts = compression_opts if compression else None
+
+    def save(self, step: int, time: float, **fields) -> None:
+        import h5py
+
+        host_fields = {k: to_host(v) for k, v in fields.items() if v is not None}
+        with h5py.File(self.path, "a") as f:
+            name = f"step_{step:06d}"
+            if name in f:
+                return
+            g = f.create_group(name)
+            g.attrs["time"] = float(time)
+            for k, v in host_fields.items():
+                g.create_dataset(
+                    k,
+                    data=v,
+                    compression=self.compression,
+                    compression_opts=self.compression_opts,
+                )
+
+
+def list_steps(path) -> list[int]:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return sorted(
+            int(k.split("_")[1]) for k in f.keys() if k.startswith("step_")
+        )
+
+
+def load_step(path, step: int) -> tuple[dict, float]:
+    """Load one snapshot: ({field: np.ndarray}, time)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        g = f[f"step_{step:06d}"]
+        fields = {k: np.asarray(g[k][:]) for k in g.keys()}
+        return fields, float(g.attrs["time"])
+
+
+def load_latest(path) -> tuple[dict, int, float]:
+    """Resume support: load the most recent snapshot → (fields, step, time),
+    from an HDF5 file or a native ``.csnap`` container."""
+    if Path(path).suffix == ".csnap":
+        from cfdsim_tpu_torch.io_.native import csnap_steps
+
+        by_step = csnap_steps(path)
+        if not by_step:
+            raise FileNotFoundError(f"no snapshots in {path}")
+        step = max(by_step)
+        fields, t = by_step[step]
+        return fields, step, t
+    steps = list_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no snapshots in {path}")
+    step = steps[-1]
+    fields, t = load_step(path, step)
+    return fields, step, t
+
+
+def restore(state, path):
+    """Restore a model state from the latest snapshot of ``path`` (HDF5, or
+    a ``.csnap`` container read directly): every field whose name matches a
+    snapshot dataset is replaced by it (recursing into nested NamedTuple
+    states like transport's CoupledState), on the device of the field it
+    replaces; ``t`` (float32) and ``step`` (int32) are taken from the
+    snapshot's metadata."""
+    fields, step, t = load_latest(path)
+
+    def fill(st):
+        updates = {}
+        matched = 0
+        for name in st._fields:
+            v = getattr(st, name)
+            if hasattr(v, "_fields"):
+                sub, n = fill(v)
+                updates[name] = sub
+                matched += n
+            elif name in fields:
+                updates[name] = torch.tensor(np.asarray(fields[name]), dtype=v.dtype,
+                                             device=v.device)
+                matched += 1
+        if "t" in st._fields:
+            updates["t"] = torch.tensor(np.float32(t), device=st.t.device)
+        if "step" in st._fields:
+            updates["step"] = torch.tensor(np.int32(step), device=st.step.device)
+        return st._replace(**updates), matched
+
+    restored, matched = fill(state)
+    if matched == 0:
+        raise KeyError(
+            f"no snapshot dataset matches state fields {state._fields}"
+        )
+    return restored

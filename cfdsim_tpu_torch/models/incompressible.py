@@ -2,11 +2,14 @@
 (``cfdsim_tpu.models.incompressible``, the collocated tier).
 
 One call of :class:`IncompressibleStep` advances the state one step:
-adaptive (or fixed, or warm-up) dt → convection (central, upwind, SUPG) →
-explicit predictor → BCs → IBM penalization → pressure projection (any
-ported Poisson method, warm-started from the last pressure, masked inside
-solids when ``masked_poisson``) → corrector → divergence cleanup → BCs →
-IBM → clipping, plus on-device diagnostics and the body forces. dt stays a
+adaptive (or fixed, or warm-up) dt → Smagorinsky LES viscosity →
+convection (central, upwind, TVD, SUPG) → explicit predictor, or the
+implicit (backward-Euler) viscous solve: exact in one DST-I pair
+(``solvers/helmholtz.py``) or damped Jacobi where ν varies in space → body
+forcing → BCs → IBM penalization → pressure projection (any ported Poisson
+method, warm-started from the last pressure, masked inside solids when
+``masked_poisson``) → corrector → divergence cleanup → BCs → IBM →
+clipping, plus on-device diagnostics and the body forces. dt stays a
 0-dim float32 tensor on the device and the step reads nothing back to the
 host, except the streaming ``jacobi``/``rbsor`` early exit, which checks its
 residual on the host once per ``check_every`` sweeps. :func:`make_chunk`
@@ -14,9 +17,11 @@ runs a chunk of steps: on a CUDA device as one captured device program (a
 CUDA graph, the counterpart of the JAX package's jitted ``lax.scan``),
 else as a Python loop.
 
-Not ported: ``scheme="tvd"``, LES, implicit diffusion, body forcing and
-``storage="bf16"``; they raise ``NotImplementedError`` at build time.
-``fused_predictor`` runs the CUDA kernel of ``ops/kernels/predictor.py``.
+Not ported: ``storage="bf16"``, which raises ``NotImplementedError`` at
+build time. ``fused_predictor`` runs the CUDA kernel of
+``ops/kernels/predictor.py``. States and metrics may be nested NamedTuples
+(``models/transport.py``): the chunk works on their leaves
+(``utils/tree.py``).
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from cfdsim_tpu_torch.ibm import apply_ibm, ibm_ramp
 from cfdsim_tpu_torch.ops.convection import (
     convection_central,
     convection_supg,
+    convection_tvd,
     convection_upwind,
     supg_tau,
 )
 from cfdsim_tpu_torch.ops.kernels.predictor import fused_predictor_central
+from cfdsim_tpu_torch.ops.les import smagorinsky_viscosity
 from cfdsim_tpu_torch.ops.stencil import (
     curl,
     divergence,
@@ -45,14 +52,17 @@ from cfdsim_tpu_torch.ops.stencil import (
     interior_mask,
     laplacian_coeff,
 )
+from cfdsim_tpu_torch.solvers.helmholtz import DirichletHelmholtz
 from cfdsim_tpu_torch.solvers.poisson import (
     PoissonConfig,
     PoissonSolver,
     _neighbor_sum_dirichlet,
     poisson_residual,
 )
+from cfdsim_tpu_torch.utils.tree import leaves, rebuild, tree_map
 
-SCHEMES = ("central", "upwind", "supg", "supg_refparity")
+SCHEMES = ("central", "upwind", "tvd", "supg", "supg_refparity")
+IMPLICIT_SOLVERS = ("auto", "dst", "jacobi")
 
 
 class IncompressibleState(NamedTuple):
@@ -86,15 +96,22 @@ class StepMetrics(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class IncompressibleConfig:
     """Static solver configuration: the JAX package's fields, with the same
-    defaults, less the implicit-diffusion solver's knobs. ``scheme="tvd"``,
-    ``diffusion="implicit"``, ``use_les=True`` and ``storage="bf16"`` are
-    accepted here and refused by the step (``smagorinsky_constant`` is
-    carried for the LES path that is not ported)."""
+    defaults. ``storage="bf16"`` is accepted here and refused by the step."""
 
     grid: Grid
     nu: float
-    scheme: str = "central"  # central | upwind | supg | supg_refparity (tvd: not ported)
+    scheme: str = "central"  # central | upwind | tvd | supg | supg_refparity
+    # diffusion treatment: "explicit" (forward Euler, dt limited by the
+    # viscous bound) or "implicit" (backward Euler on the viscous term,
+    # which drops the viscous dt limit)
     diffusion: str = "explicit"
+    implicit_iters: int = 12
+    # implicit viscous back end: "dst" = exact Dirichlet Helmholtz in one
+    # DST-I transform pair (solvers/helmholtz.py; needs scalar ν, so not
+    # with LES); "jacobi" = damped Jacobi iteration (implicit_iters sweeps,
+    # works with spatially varying ν_eff); "auto" = dst when possible,
+    # else jacobi
+    implicit_solver: str = "auto"
     use_les: bool = False
     smagorinsky_constant: float = 0.17
     artificial_viscosity: float = 0.0
@@ -138,24 +155,19 @@ def init_state(cfg: IncompressibleConfig, u0=None, v0=None, p0=None, *, device):
     )
 
 
-def _check_ported(cfg: IncompressibleConfig) -> None:
+def _check_config(cfg: IncompressibleConfig) -> None:
     if cfg.scheme not in SCHEMES:
-        if cfg.scheme == "tvd":
-            raise NotImplementedError(
-                "scheme='tvd' is not ported yet (it needs ops/limiters.py); see "
-                "ROADMAP.md queue 1")
         raise ValueError(f"unknown scheme {cfg.scheme!r}")
-    unported = {
-        "diffusion": (cfg.diffusion, "explicit"),
-        "use_les": (cfg.use_les, False),
-        "storage": (cfg.storage, "fp32"),
-    }
-    for name, (got, ported) in unported.items():
-        if got != ported:
-            raise NotImplementedError(
-                f"{name}={got!r} is not ported yet (only {ported!r}); see "
-                "ROADMAP.md queue 1 for the order in which the rest follows"
-            )
+    if cfg.diffusion not in ("explicit", "implicit"):
+        raise ValueError(f"unknown diffusion {cfg.diffusion!r}")
+    if cfg.implicit_solver not in IMPLICIT_SOLVERS:
+        raise ValueError(f"unknown implicit_solver {cfg.implicit_solver!r}")
+    if cfg.storage == "bf16":
+        raise NotImplementedError(
+            "storage='bf16' is not ported (only 'fp32'): the JAX package measured it as "
+            "a bandwidth experiment that freezes long runs; see ROADMAP.md slice 0")
+    if cfg.storage != "fp32":
+        raise ValueError(f"unknown storage {cfg.storage!r}")
 
 
 def _cleanup_divergence(u, v, dx, dy, iters: int):
@@ -178,23 +190,25 @@ class IncompressibleStep(nn.Module):
     """``step(state, cfl_scale) -> (state, StepMetrics)`` for one case.
 
     Constant tables live in registered buffers on the device the step was
-    built for: the Poisson solver's (masks, 1/λ, level tables), the IBM
-    mask, the width-2 interior mask of the post-projection divergence
-    metric, and the fixed and warm-up dt. ``cfl_scale`` is a 0-dim float32
-    tensor (or a Python float): the host-controlled CFL back-off factor.
+    built for: the Poisson solver's (masks, 1/λ, level tables), the
+    implicit step's DST eigen-table, the IBM mask, the body forcing, the
+    width-2 interior mask of the post-projection divergence metric, and the
+    fixed and warm-up dt. ``cfl_scale`` is a 0-dim float32 tensor (or a
+    Python float): the host-controlled CFL back-off factor.
     """
 
     def __init__(self, cfg: IncompressibleConfig, bc_fn: Callable, solid_mask=None,
-                 ibm_mask=None, *, device):
+                 ibm_mask=None, forcing=None, *, device):
         super().__init__()
         if cfg.fused_predictor and (
             cfg.scheme != "central" or cfg.diffusion != "explicit" or cfg.use_les
+            or forcing is not None
         ):
             raise ValueError(
                 "fused_predictor requires scheme='central', explicit diffusion, "
                 "no LES, and no forcing"
             )
-        _check_ported(cfg)
+        _check_config(cfg)
         g = cfg.grid
         self.cfg = cfg
         self.bc_fn = bc_fn
@@ -214,13 +228,29 @@ class IncompressibleStep(nn.Module):
             cfg.dt_base, dtype=torch.float32, device=device))
         self.register_buffer("warmup_dt", torch.tensor(
             cfg.warmup_dt, dtype=torch.float32, device=device))
-        # ν_eff = (ν + ν_t) + ν_art with ν_t = 0 (no LES), summed in float32
+        # the optional (fx, fy) body force, numbers or (ny, nx) fields
+        self.has_forcing = forcing is not None
+        for name, f in zip(("force_x", "force_y"), forcing or (None, None)):
+            self.register_buffer(name, None if f is None else torch.as_tensor(
+                f, dtype=torch.float32, device=device))
+        # Without LES ν_eff = (ν + ν_t) + ν_art with ν_t = 0, summed in float32
         # as the JAX package sums its float32 arrays; the viscous dt bound is
-        # then a constant, evaluated once as its trace evaluates it per step
+        # then a constant, evaluated once as its trace evaluates it per step.
+        # With LES both follow ν_t, per step.
         nu_total = np.float32(cfg.nu) + np.float32(0.0) + np.float32(cfg.artificial_viscosity)
         self.nu_eff = float(nu_total)
         h = min(g.dx, g.dy)
+        self.register_buffer("visc_num", torch.tensor(
+            0.2 * h * h, dtype=torch.float32, device=device))
         self.dt_visc = float(np.float32(0.2 * h * h) / nu_total)
+        # the implicit viscous back end
+        self.use_dst = cfg.diffusion == "implicit" and (
+            cfg.implicit_solver == "dst" or (cfg.implicit_solver == "auto" and not cfg.use_les))
+        if self.use_dst and cfg.use_les:
+            raise ValueError("implicit_solver='dst' needs scalar viscosity; use 'jacobi' "
+                             "with LES")
+        self.helmholtz = (DirichletHelmholtz((g.ny, g.nx), g.dx, g.dy, device=device)
+                          if self.use_dst else None)
         # the Neumann problem's solvability: the direct solvers discard the
         # k=0 mode in-spectrum, the others take a mean-free rhs
         self.subtract_mean = cfg.poisson.bc == "neumann" and cfg.poisson.method not in (
@@ -228,29 +258,59 @@ class IncompressibleStep(nn.Module):
         # whether a step waits for the host (then a chunk cannot be captured)
         self.reads_host = self.poisson.reads_host
 
-    def _dt(self, u, v, step, cfl_scale):
-        """CFL + viscous dt with clipping and the fixed-dt warm-up (0-dim)."""
+    def _dt(self, u, v, nu_t, step, cfl_scale):
+        """CFL + viscous dt with clipping and the fixed-dt warm-up (0-dim);
+        implicit diffusion has no viscous bound."""
         cfg = self.cfg
         if not cfg.adaptive_dt:
             return self.dt_base
         h = min(cfg.grid.dx, cfg.grid.dy)
         vel_max = torch.maximum(u.abs().amax(), v.abs().amax()).clamp(min=1e-10)
-        dt_cfl = cfl_scale * cfg.cfl_target * h / vel_max
-        dt = dt_cfl.clamp(max=self.dt_visc).clamp(cfg.dt_min, cfg.dt_max)
+        dt = cfl_scale * cfg.cfl_target * h / vel_max
+        if cfg.diffusion != "implicit":
+            if nu_t is None:
+                dt = dt.clamp(max=self.dt_visc)
+            else:
+                nu_total = cfg.nu + nu_t.mean() + cfg.artificial_viscosity
+                dt = torch.minimum(dt, self.visc_num / nu_total)
+        dt = dt.clamp(cfg.dt_min, cfg.dt_max)
         if cfg.warmup_steps > 0:
             dt = torch.where(step < cfg.warmup_steps, self.warmup_dt, dt)
         return dt
 
-    def _convection(self, u, v, dt):
+    def _convection(self, u, v, dt, nu_eff):
         cfg = self.cfg
         dx, dy = cfg.grid.dx, cfg.grid.dy
         if cfg.scheme in ("supg", "supg_refparity"):
-            tau = supg_tau(u, v, dx, dy, dt, self.nu_eff)
+            tau = supg_tau(u, v, dx, dy, dt, nu_eff)
             parity = cfg.scheme == "supg_refparity"
             return (convection_supg(u, v, u, dx, dy, tau, ref_parity=parity),
                     convection_supg(u, v, v, dx, dy, tau, ref_parity=parity))
-        conv = convection_upwind if cfg.scheme == "upwind" else convection_central
+        conv = {"upwind": convection_upwind, "tvd": convection_tvd,
+                "central": convection_central}[cfg.scheme]
         return conv(u, v, u, dx, dy), conv(u, v, v, dx, dy)
+
+    def _implicit(self, bu, bv, dt, nu_eff, step, t):
+        """Backward-Euler viscous step: (I − dt ν_eff ∇²) u* = b."""
+        cfg = self.cfg
+        if self.use_dst:
+            # exact: the Dirichlet-frame Helmholtz operator is diagonal in
+            # the 2D DST-I basis; dt·ν stays a device scalar
+            coeff = dt * (cfg.nu + cfg.artificial_viscosity)
+            bu, bv = self.bc_fn(bu, bv, step, t)
+            return self.bc_fn(self.helmholtz(bu, coeff), self.helmholtz(bv, coeff), step, t)
+        # damped Jacobi, matrix-free, BCs re-imposed each iteration
+        # (diagonally dominant: converges in ~10 sweeps)
+        ax = 1.0 / (cfg.grid.dx * cfg.grid.dx)
+        ay = 1.0 / (cfg.grid.dy * cfg.grid.dy)
+        coeff = dt * nu_eff
+        denom_inv = torch.reciprocal(1.0 + 2.0 * (ax + ay) * coeff)
+        us, vs = self.bc_fn(bu.clone(), bv.clone(), step, t)  # the BCs write in place
+        for _ in range(cfg.implicit_iters):
+            us = (bu + coeff * _neighbor_sum_dirichlet(us, ax, ay)) * denom_inv
+            vs = (bv + coeff * _neighbor_sum_dirichlet(vs, ax, ay)) * denom_inv
+            us, vs = self.bc_fn(us, vs, step, t)
+        return us, vs
 
     def forward(self, state: IncompressibleState, cfl_scale):
         cfg = self.cfg
@@ -259,17 +319,36 @@ class IncompressibleStep(nn.Module):
         if not torch.is_tensor(cfl_scale):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
         u, v, p = state.u, state.v, state.p
-        dt = self._dt(u, v, state.step, cfl_scale)
+
+        # --- LES eddy viscosity: ν_eff is a field with it, a number without
+        nu_t = None
+        nu_eff = self.nu_eff
+        if cfg.use_les:
+            nu_t = smagorinsky_viscosity(u, v, dx, dy, cfg.smagorinsky_constant)
+            nu_eff = cfg.nu + nu_t + cfg.artificial_viscosity
+        dt = self._dt(u, v, nu_t, state.step, cfl_scale)
 
         # --- predictor
         if cfg.fused_predictor:
             u_star, v_star = fused_predictor_central(
                 u, v, dt, cfg.nu + cfg.artificial_viscosity, dx, dy)
+            u_star, v_star = self.bc_fn(u_star, v_star, state.step, state.t)
         else:
-            conv_u, conv_v = self._convection(u, v, dt)
-            u_star = u + dt * (laplacian_coeff(u, dx, dy, self.nu_eff) - conv_u)
-            v_star = v + dt * (laplacian_coeff(v, dx, dy, self.nu_eff) - conv_v)
-        u_star, v_star = self.bc_fn(u_star, v_star, state.step, state.t)
+            conv_u, conv_v = self._convection(u, v, dt, nu_eff)
+            if cfg.diffusion == "implicit":
+                bu = u - dt * conv_u
+                bv = v - dt * conv_v
+                if self.has_forcing:
+                    bu = bu + dt * self.force_x
+                    bv = bv + dt * self.force_y
+                u_star, v_star = self._implicit(bu, bv, dt, nu_eff, state.step, state.t)
+            else:
+                u_star = u + dt * (laplacian_coeff(u, dx, dy, nu_eff) - conv_u)
+                v_star = v + dt * (laplacian_coeff(v, dx, dy, nu_eff) - conv_v)
+                if self.has_forcing:
+                    u_star = u_star + dt * self.force_x
+                    v_star = v_star + dt * self.force_y
+                u_star, v_star = self.bc_fn(u_star, v_star, state.step, state.t)
 
         # --- IBM on the predictor; the damped momentum is the force on the
         # body, summed over both IBM applications
@@ -334,12 +413,12 @@ class IncompressibleStep(nn.Module):
 
 
 def make_step(cfg: IncompressibleConfig, bc_fn: Callable, solid_mask=None, ibm_mask=None,
-              *, device):
+              forcing=None, *, device):
     """Build the step module for a case on ``device``: ``solid_mask``
     (bool) freezes φ in the pressure solve when ``cfg.masked_poisson``;
-    ``ibm_mask`` (float) enables penalization forcing. Body forcing is not
-    ported."""
-    return IncompressibleStep(cfg, bc_fn, solid_mask, ibm_mask, device=device)
+    ``ibm_mask`` (float) enables penalization forcing; ``forcing`` is an
+    optional (fx, fy) body-force pair (numbers or (ny, nx) fields)."""
+    return IncompressibleStep(cfg, bc_fn, solid_mask, ibm_mask, forcing, device=device)
 
 
 CHUNK_ROUTES = ("graph", "loop")
@@ -364,9 +443,15 @@ def chunk_route(device, reads_host: bool) -> tuple[str, str]:
     return "graph", "a CUDA device and a step that reads nothing on the host"
 
 
-def _stacked(rows) -> StepMetrics:
-    """(n_steps, fields) → one StepMetrics of (n_steps,) tensors."""
-    return StepMetrics(*rows.unbind(1))
+def _row(metrics) -> torch.Tensor:
+    """One step's metrics (every leaf a 0-dim float32 tensor) as one row."""
+    return torch.stack(leaves(metrics))
+
+
+def _stacked(rows, like):
+    """(n_steps, leaves) → a metrics record of ``like``'s types whose every
+    leaf is an (n_steps,) tensor."""
+    return rebuild(like, rows.unbind(1))
 
 
 class Chunk:
@@ -379,7 +464,8 @@ class Chunk:
     (``utils/graphs.py::CapturedProgram``): a graph of ``steps_per_graph``
     steps, replayed ``n_steps / steps_per_graph`` times per call, its
     replays queued without a synchronisation. The program lives on static
-    buffers: the state (u, v, p, t, step), ``cfl_scale`` (the caller's float
+    buffers: the state's leaves (u, v, p, t, step, and θ for a coupled
+    state), ``cfl_scale`` (the caller's float
     or tensor is written into its buffer outside the graph, so a CFL
     back-off needs no new capture) and the stacked metrics, whose row a
     device-side counter picks. It is captured at the first call, after an
@@ -411,43 +497,44 @@ class Chunk:
                                    if n_steps % k == 0)
         self.program = None  # the CapturedProgram, from the first call on
 
-    def __call__(self, state: IncompressibleState, cfl_scale):
+    def __call__(self, state, cfl_scale):
         if self.mode == "loop":
             return self._loop(state, cfl_scale)
         return self._replay(state, cfl_scale)
 
     def _loop(self, state, cfl_scale):
         if not torch.is_tensor(cfl_scale):
-            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.t.device)
         rows = []
         for _ in range(self.n_steps):
             state, m = self.step_fn(state, cfl_scale)
-            rows.append(torch.stack(tuple(m)))
-        return state, _stacked(torch.stack(rows))
+            rows.append(_row(m))
+        return state, _stacked(torch.stack(rows), m)
 
     def _capture(self, state):
         from cfdsim_tpu_torch.utils.graphs import CapturedProgram
 
-        self._state = IncompressibleState(*(torch.empty_like(x) for x in state))
-        device = state.u.device
+        self._state = tree_map(torch.empty_like, state)
+        device = state.t.device
         self._cfl = torch.ones((), dtype=torch.float32, device=device)
-        self._rows = torch.zeros((self.n_steps, len(StepMetrics._fields)),
-                                 dtype=torch.float32, device=device)
+        self._rows = None  # (n_steps, metric leaves), made at the first step
         self._row = torch.zeros(1, dtype=torch.int64, device=device)
 
         def steps():
             s = self._state
             for _ in range(self.steps_per_graph):
                 s, m = self.step_fn(s, self._cfl)
-                self._rows.index_copy_(0, self._row, torch.stack(tuple(m)).reshape(1, -1))
+                if self._rows is None:
+                    self._like = m
+                    self._rows = torch.zeros((self.n_steps, len(leaves(m))),
+                                             dtype=torch.float32, device=device)
+                self._rows.index_copy_(0, self._row, _row(m).reshape(1, -1))
                 self._row += 1
-            for dst, src in zip(self._state, s):
-                dst.copy_(src)
+            self._copy_in(s)
 
         # the warm-up steps run on a copy of the state, and leave the step's
         # own buffers (the solver's chunk counter) as they were
-        for dst, src in zip(self._state, state):
-            dst.copy_(src)
+        self._copy_in(state)
         buffers = {}
         if isinstance(self.step_fn, nn.Module):
             buffers = {name: b.clone() for name, b in self.step_fn.named_buffers()}
@@ -455,14 +542,17 @@ class Chunk:
         for name, b in buffers.items():
             self.step_fn.get_buffer(name).copy_(b)
 
+    def _copy_in(self, state):
+        for dst, src in zip(leaves(self._state), leaves(state)):
+            dst.copy_(src)
+
     def _replay(self, state, cfl_scale):
         if self.program is None:
             self._capture(state)
-        if state.u.device != self._state.u.device:
-            raise ValueError(f"chunk captured on {self._state.u.device}, state on "
-                             f"{state.u.device}")
-        for dst, src in zip(self._state, state):
-            dst.copy_(src)
+        if state.t.device != self._state.t.device:
+            raise ValueError(f"chunk captured on {self._state.t.device}, state on "
+                             f"{state.t.device}")
+        self._copy_in(state)
         if torch.is_tensor(cfl_scale):
             self._cfl.copy_(cfl_scale)
         else:
@@ -470,8 +560,7 @@ class Chunk:
         self._row.zero_()
         for _ in range(self.n_steps // self.steps_per_graph):
             self.program.replay()
-        return (IncompressibleState(*(x.clone() for x in self._state)),
-                _stacked(self._rows.clone()))
+        return tree_map(torch.clone, self._state), _stacked(self._rows.clone(), self._like)
 
 
 def make_chunk(cfg: IncompressibleConfig, step_fn: Callable, n_steps: int, *, device=None,

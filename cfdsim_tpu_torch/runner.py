@@ -8,8 +8,12 @@ device program (a CUDA graph, as the JAX runner's chunk is one jitted
 of step calls. Between chunks the host reads the per-step metric scalars,
 stacked on the device and copied over in one transfer, to do health checks,
 CFL back-off (a new value in the chunk's cfl buffer: no new capture),
-logging and the wall-clock kill switch. Fields never cross to the host here. Snapshot I/O, the
-progress bar and the memory log are not ported yet.
+snapshots, progress, logging and the wall-clock kill switch. Fields cross
+to the host only at snapshot boundaries, between chunks, from the runner's
+own state (the chunk hands back copies of its static buffers), never from
+inside a captured program. States and metrics may be nested NamedTuples
+(``utils/tree.py``). :func:`run_on_device` runs to ``t_final`` with one
+host read per chunk and no other host control.
 """
 
 from __future__ import annotations
@@ -22,19 +26,22 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.models.incompressible import StepMetrics, make_chunk
+from torch import nn
+
+from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.monitor import check_metrics
 from cfdsim_tpu_torch.utils.profiling import PerfTracker
+from cfdsim_tpu_torch.utils.tree import leaves, rebuild, tree_map
 
 
 @dataclasses.dataclass
 class RunnerConfig:
-    """Host-loop configuration: the JAX package's fields and defaults, less
-    snapshots, the progress bar and the memory log, which are not ported."""
+    """Host-loop configuration: the JAX package's fields and defaults."""
 
     t_final: float = 1.0
     max_steps: int = 10_000_000
     chunk_steps: int = 50
+    snapshot_interval: int = 0  # steps between snapshots; 0 = off
     health_check: bool = True
     max_velocity: float = 1e3
     div_threshold: float = 5.0
@@ -45,6 +52,8 @@ class RunnerConfig:
     cfl_scale_min: float = 0.1
     wall_clock_limit_s: float = 0.0  # 0 = unlimited
     log_every_chunks: int = 10
+    progress: bool = False  # tqdm bar keyed on simulated time
+    log_memory: bool = False  # psutil RSS in the periodic log
 
 
 class Simulation:
@@ -58,13 +67,17 @@ class Simulation:
         n_cells: int,
         snapshot_fn: Optional[Callable] = None,
         logger: Optional[logging.Logger] = None,
+        health_fn: Optional[Callable] = None,
     ):
-        if snapshot_fn is not None:
-            raise NotImplementedError("snapshot I/O is not ported yet; pass snapshot_fn=None")
+        # snapshot_fn(state, step, t) is called between chunks with the
+        # runner's own state; health_fn(metrics_host, step) -> HealthReport
+        # overrides the default incompressible check
         self.step_fn = step_fn
         self.cfg = cfg
         self.state = state
-        self.device = state.u.device
+        self.snapshot_fn = snapshot_fn
+        self.health_fn = health_fn
+        self.device = state.t.device
         self.log = logger or logging.getLogger("cfdsim_tpu_torch")
         self.perf = PerfTracker(n_cells=n_cells, device=self.device)
         self.cfl_scale = 1.0
@@ -77,16 +90,27 @@ class Simulation:
         """Run one chunk; return its metrics stacked per field as numpy
         arrays, plus the simulated time, read in ONE device→host copy."""
         self.state, m = self.chunk(self.state, cfl_scale)
-        host = torch.cat([torch.stack(tuple(m)).reshape(-1),
+        flat = leaves(m)
+        host = torch.cat([torch.stack(flat).reshape(-1),
                           self.state.t.reshape(1)]).cpu().numpy()
-        per_field = host[:-1].reshape(len(StepMetrics._fields), -1)
-        return StepMetrics(*per_field), float(host[-1])
+        return rebuild(m, host[:-1].reshape(len(flat), -1)), float(host[-1])
 
     def run(self):
         cfg = self.cfg
         t_start = time.perf_counter()
         step = int(self.state.step)
         t_now = float(self.state.t)
+        next_snapshot = step
+        if self.snapshot_fn and cfg.snapshot_interval > 0:
+            self.snapshot_fn(self.state, step, t_now)
+            next_snapshot = step + cfg.snapshot_interval
+
+        pbar = None
+        if cfg.progress:
+            from tqdm import tqdm
+
+            pbar = tqdm(total=cfg.t_final, desc="Simulation", unit="time", initial=t_now)
+
         chunk_idx = 0
         while True:
             if t_now >= cfg.t_final or step >= cfg.max_steps:
@@ -102,8 +126,10 @@ class Simulation:
             step += cfg.chunk_steps
             self.perf.add_steps(cfg.chunk_steps)
             chunk_idx += 1
+            if pbar is not None:
+                pbar.update(min(t_now, cfg.t_final) - pbar.n)
 
-            # host-side control: health, back-off, logging
+            # host-side control: health, back-off, snapshots, logging
             self.metrics_history.append({
                 "step": step,
                 "t": t_now,
@@ -113,14 +139,17 @@ class Simulation:
                 "div_post": float(np.max(m_host.div_post)),
             })
             if cfg.health_check:
-                report = check_metrics(
-                    m_host,
-                    cfg.max_velocity,
-                    cfg.div_threshold,
-                    cfg.warmup_div_threshold,
-                    cfg.warmup_steps,
-                    step,
-                )
+                if self.health_fn is not None:
+                    report = self.health_fn(m_host, step)
+                else:
+                    report = check_metrics(
+                        m_host,
+                        cfg.max_velocity,
+                        cfg.div_threshold,
+                        cfg.warmup_div_threshold,
+                        cfg.warmup_steps,
+                        step,
+                    )
                 if not report.ok:
                     if cfg.on_unhealthy == "backoff":
                         self.cfl_scale *= cfg.cfl_backoff
@@ -142,6 +171,10 @@ class Simulation:
                         )
                         break
 
+            if self.snapshot_fn and cfg.snapshot_interval > 0 and step >= next_snapshot:
+                self.snapshot_fn(self.state, step, t_now)
+                next_snapshot += cfg.snapshot_interval
+
             if cfg.log_every_chunks and chunk_idx % cfg.log_every_chunks == 0:
                 h = self.metrics_history[-1]
                 self.log.info(
@@ -153,7 +186,14 @@ class Simulation:
                     h["energy"],
                     self.perf.steps_per_sec,
                 )
+                if cfg.log_memory:
+                    import psutil
 
+                    rss = psutil.Process().memory_info().rss / 1e6
+                    self.log.info("host memory usage: %.1f MB", rss)
+
+        if pbar is not None:
+            pbar.close()
         report = self.perf.report()
         report["stopped_reason"] = self.stopped_reason
         report["final_time"] = t_now
@@ -167,3 +207,51 @@ class Simulation:
             )
         self.log.info("Performance report: %s", report)
         return self.state, report
+
+
+class _UntilDone(nn.Module):
+    """``step_fn`` made a no-op once ``t ≥ t_final`` or ``step ≥ max_steps``:
+    the step runs, and a device predicate keeps the old state on every leaf.
+    A CUDA graph has no loop whose condition is on the device; a chunk of
+    these steps replayed until the host sees the run is over ends in the
+    state a device-side while-loop would end in, step for step."""
+
+    def __init__(self, step_fn, t_final: float, max_steps: int):
+        super().__init__()
+        self.step_fn = step_fn
+        self.t_final, self.max_steps = t_final, max_steps
+        self.device = getattr(step_fn, "device", None)
+        self.reads_host = getattr(step_fn, "reads_host", True)
+
+    def forward(self, state, cfl_scale):
+        new, metrics = self.step_fn(state, cfl_scale)
+        live = torch.logical_and(state.t < self.t_final, state.step < self.max_steps)
+        kept = [torch.where(live, a, b) for a, b in zip(leaves(new), leaves(state))]
+        return rebuild(new, kept), metrics
+
+
+def run_on_device(step_fn, state, t_final: float, max_steps: int = 10_000_000,
+                  cfl_scale: float = 1.0, chunk_steps: int = 50):
+    """Fast path: the run to ``t_final`` (or ``max_steps``) with no host
+    control, the counterpart of the JAX package's one jitted
+    ``lax.while_loop``: chunks of ``chunk_steps`` steps that stop advancing
+    on the device once the run is over (:class:`_UntilDone`), replayed with
+    one host read of ``t`` and ``step`` per chunk. No in-flight health
+    intervention or snapshots; check the returned metrics afterwards.
+    Returns (state, last_metrics): the metrics of the last step that
+    advanced, or of one step from ``state`` when none did."""
+    step_fn_done = _UntilDone(step_fn, t_final, max_steps)
+    chunk = make_chunk(getattr(step_fn, "cfg", None), step_fn_done, chunk_steps,
+                       device=state.t.device)
+    last = None
+    t_end = float(np.float32(t_final))  # the device compares in float32
+    while True:
+        step0 = int(state.step)
+        if float(state.t) >= t_end or step0 >= max_steps:
+            break
+        state, stacked = chunk(state, cfl_scale)
+        advanced = int(state.step) - step0
+        last = tree_map(lambda x: x[advanced - 1], stacked)
+    if last is None:
+        _, last = step_fn(state, cfl_scale)
+    return state, last

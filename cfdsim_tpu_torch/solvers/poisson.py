@@ -349,6 +349,26 @@ def _idct2d_rfft2(X, w1c, w2c, scale=None):
     return torch.stack([v[:, : n // 2], torch.flip(v[:, n // 2 :], (1,))], 2).reshape(m, n)
 
 
+def _dct_fwd(x, axis: int):
+    """DCT-II along ``axis`` of a 2D array, any length (Makhoul's single
+    real FFT where the length is even), twiddles built on the call: the
+    functional form that ``solvers/helmholtz.py`` builds its DST-II on. A
+    solver that transforms repeatedly keeps its twiddles as buffers
+    (:class:`NeumannDCT`)."""
+    n = x.shape[axis]
+    if n % 2 == 0:
+        return _dct2_fast(x, axis, _along(_twiddle(n, n // 2 + 1, -1, x.device), axis))
+    return _dct2(x, axis, _along(_twiddle(n, n, -1, x.device), axis))
+
+
+def _dct_inv(X, axis: int):
+    """Exact inverse of :func:`_dct_fwd`."""
+    n = X.shape[axis]
+    if n % 2 == 0:
+        return _idct2_fast(X, axis, _along(_twiddle(n, n // 2 + 1, +1, X.device), axis))
+    return _idct2(X, axis, _along(_twiddle(n, n, +1, X.device), axis))
+
+
 def _inv_neumann_eigenvalues(m: int, n: int, dx: float, dy: float) -> np.ndarray:
     """1/λ table (float32, built in float64) for the clamped-edge
     (DCT-II-diagonal) FD Laplacian, with the constant mode zeroed.

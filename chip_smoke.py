@@ -5,7 +5,10 @@
 Phases, one line each; any failure raises, so the exit code is non-zero
 and the final ``{"ok": true, ...}`` line is not printed:
 
-1. card: name and power limit (nvidia-smi); CUDA must be available
+1. card: name and power limit (nvidia-smi); CUDA must be available; and
+   which optional packages and tools the machine has (h5py, matplotlib,
+   tqdm, psutil, Pillow; g++, zlib.h, ffmpeg): the writer named by
+   ``SNAPSHOT_IO`` must be among them
 2. build: compile the hand-written kernels with nvcc (sm_90a), one nvcc
    per source, all started together
 3. kernel vs plain: the fused predictor against its plain torch version
@@ -33,9 +36,11 @@ and the final ``{"ok": true, ...}`` line is not printed:
    plain versions' bits, and each line says whether they do
 4. chunk routes: 20 steps through the captured chunk (one CUDA graph,
    ``make_chunk``'s route on the card) against 20 eager step calls from
-   the same state, metrics on, on the three paths below; the same kernels
-   in the same order, so u, v, p, t, step and every stacked metric must be
-   bit-equal; prints the graph's nodes and capture seconds per path, and
+   the same state, metrics on, on the three paths below and on the
+   implicit cavity (DST, and with LES the Jacobi back end), the LES
+   cylinder and the coupled transport cavity of phases 9-12; the same kernels
+   in the same order, so u, v, p, t, step (θ too) and every stacked metric
+   must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
    itself, to 20 per captured chunk plus the capture's eager warm-up
 5. golden: the 48² Re=100 cavity, a 300-step captured chunk + one metrics
@@ -64,7 +69,32 @@ and the final ``{"ok": true, ...}`` line is not printed:
    levels × 2 calls × 2 V-cycles: the 512² level's 4 on the cooperative
    route, the 28 below on a cluster); then 5 steps against plain smoothing from the same state,
    at the cylinder's bands
-9. timings, each beside the card's name and power limit: marginal
+9. implicit cavity: ``lid_cavity(n=1024, Re=1000, diffusion="implicit",
+   cfl=0.6)`` with the DCT projection, 200 steps through runner.Simulation
+   in captured chunks (the step reads nothing on the host: dt·ν stays a
+   device scalar through the DST Helmholtz solve); dt = 0.5·h, the case's
+   dt_max, where the explicit path's viscous bound held 1.911e-4; no
+   kernel launched; then ``solve_helmholtz_dirichlet`` on the final u at
+   the step's coeff: max |(I − c∇²)u − b| on the interior ≤ 1e-4 · max |b|
+   (checked in float64). The same case with ``poisson="mg:2"``, 50 steps:
+   kernels A and B launched as in phase 8
+10. Ghia gate: the 128² Re=100 implicit cavity (cfl 0.6) to t = 30 through
+   runner.Simulation; ``validation.ghia_error`` < 0.006 on both centerline
+   profiles (the row and tolerance of tests/test_ghia_slow.py:25-27)
+11. the reference's flagship: ``cylinder(ref_parity=True, scheme="supg",
+   use_les=True)`` at 600×180, Re=600, through kernel A as in phase 7, 200
+   steps: healthy, kernel-A launches = steps + warm-up, chunks run = steps
+   × 30, max ν_t > 0; then 50 steps of ``cylinder(scheme="tvd")`` with its
+   default DCT solve (no kernel launched)
+12. transport, snapshots and resume, through the command line's own
+   ``run``: ``transport --n 1024 --Re 1000 --Pe 1000 --fused-predictor
+   true --snapshot-interval 100 --chunk-steps 50``, 200 steps, then
+   ``--resume`` for 200 more, against one run of 400: every field of the
+   final snapshot bit-equal, and the states restored from both files
+   ``torch.equal`` on every leaf; 0 ≤ θ ≤ hot_lid; the file holds steps 0,
+   100, …, 400; the predictor launched once per step. Snapshots go through
+   the writer named by ``SNAPSHOT_IO``; then seconds per snapshot at 1024²
+13. timings, each beside the card's name and power limit: marginal
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
    plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2; kernel
@@ -76,7 +106,9 @@ and the final ``{"ok": true, ...}`` line is not printed:
    clusters of 1, 8 and 16; kernel B per 1-, 2-, 4- and 8-sweep call at
    1024² (TMA) and per 2-sweep call at 1000×1030 (cp.async), each
    against its plain version; ``bench --all`` (marginal rbsor sweeps/s, MG
-   V-cycles/s, DCT solves/s at 1024²) and ``bench --cylinder`` (steps/s
+   V-cycles/s, DCT solves/s at 1024², ms per Helmholtz solve beside the
+   DCT solve's, and ms per step, chunk and eager, of the implicit cavity,
+   the LES cylinder and the transport cavity) and ``bench --cylinder`` (steps/s
    through kernel A, captured and eager, and through streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``).
    "Device" times replay the calls from a CUDA graph, so they exclude the
@@ -101,8 +133,10 @@ It imports nothing of JAX: the machine with the card need not have it.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -114,6 +148,7 @@ from cfdsim_tpu_torch.bench import (
     CYLINDER_KERNEL_POISSON,
     EMPTY_SOURCE,
     dct_solve_ms,
+    new_paths,
     predictor_ms,
     profile_chunk,
     rbsor_blocked_ms,
@@ -124,16 +159,24 @@ from cfdsim_tpu_torch.bench import (
     run_cylinder,
     step_device_ms,
 )
+from cfdsim_tpu_torch import __main__ as cli
 from cfdsim_tpu_torch.cases import build, lid_cavity
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
+from cfdsim_tpu_torch.io_ import restore
+from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter, csnap_steps
 from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
+from cfdsim_tpu_torch.ops.les import smagorinsky_viscosity
+from cfdsim_tpu_torch.ops.stencil import laplacian
 from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
+from cfdsim_tpu_torch.solvers.helmholtz import solve_helmholtz_dirichlet
 from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, poisson_residual
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
+from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
+from cfdsim_tpu_torch.validation import ghia_error
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
@@ -171,6 +214,15 @@ BLOCKED_CASES = [(64, 48, 16, 3, 10), (72, 32, 32, 8, 9), (1024, 1024, None, 8, 
 # p, less its mean (see _steps_apart), to 1e-3 of its max
 CYL_UV_ATOL = MG_UV_ATOL = STEP_ATOL
 CYL_P_RTOL = MG_P_RTOL = 1e-3
+HELMHOLTZ_RTOL = 1e-4  # max interior residual of the DST solve over max |b|, at 1024²
+GHIA_TOL = 0.006  # tests/test_ghia_slow.py:25: 128², Re=100, t=30, measured + 20%
+# The snapshot writer of the resume phase. A machine that runs this script
+# needs only torch, numpy, nvcc and g++ with zlib: the native writer
+# (native/csnap.cc, compiled at first use) runs there, while the HDF5 writer
+# needs h5py, which the card's machine was found not to have. ``restore``
+# reads the .csnap container directly.
+SNAPSHOT_IO = "native"
+SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
 PREDICTOR_FLOPS_PER_CELL = 40  # two fields × (9 Laplacian + 7 convection + 4 update)
@@ -179,6 +231,18 @@ RBSOR_FLOPS_PER_UPDATE = 11  # the update expression of csrc/rbsor.cu::relax
 
 def say(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def machine_has() -> dict:
+    """Which optional packages and tools this machine has: what the
+    snapshot writers (h5py; g++ and zlib for the native one), the runner's
+    progress bar and memory line, and the render pipeline need."""
+    has = {name: importlib.util.find_spec(name) is not None
+           for name in ("h5py", "matplotlib", "tqdm", "psutil", "PIL")}
+    has.update({tool: shutil.which(tool) is not None for tool in ("g++", "ffmpeg")})
+    has["zlib.h"] = any(Path(d, "zlib.h").is_file()
+                        for d in ("/usr/include", "/usr/local/include"))
+    return has
 
 
 def phase_kernel_vs_plain():
@@ -337,10 +401,10 @@ def _counts():
             "rbsor_a_cooperative": rb.KERNEL_A_COOP.launches, "rbsor_b": rb.KERNEL_B.launches}
 
 
-def _run(case, steps, chunk):
+def _run(case, steps, chunk, warmup_div_threshold=20.0):
     cfg = RunnerConfig(t_final=1e9, max_steps=steps, chunk_steps=chunk, health_check=True,
-                       div_threshold=50.0, max_velocity=case.cfg.max_velocity,
-                       log_every_chunks=0)
+                       div_threshold=50.0, warmup_div_threshold=warmup_div_threshold,
+                       max_velocity=case.cfg.max_velocity, log_every_chunks=0)
     sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
     t0 = time.perf_counter()
     state, report = sim.run()
@@ -358,8 +422,8 @@ def _chunk_facts(sim):
 
 
 def _healthy(label, state, report, steps, max_u):
-    finite = all(bool(torch.isfinite(getattr(state, k)).all()) for k in ("u", "v", "p"))
-    got_u = float(state.u.abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in leaves(state))
+    got_u = float(getattr(state, "flow", state).u.abs().max())
     if report["stopped_reason"] or int(state.step) != steps:
         raise AssertionError(f"{label} stopped early: {report['stopped_reason']!r} at "
                              f"{int(state.step)}")
@@ -475,7 +539,10 @@ def _paths(compute_metrics=True):
 def phase_chunk_routes():
     """The captured chunk against the eager loop, 20 steps from one state."""
     steps = 20
-    for path, case in _paths().items():
+    paths = {**_paths(), **new_paths(compute_metrics=True)}
+    # plain torch and cuFFT only
+    no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi"}
+    for path, case in paths.items():
         graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
         loop = make_chunk(case.cfg, case.step, steps, route="loop")
         if (graph.mode, loop.mode) != ("graph", "loop"):
@@ -488,8 +555,8 @@ def phase_chunk_routes():
         _reset_counts()
         sl, ml = loop(state, 1.0)
         by_loop = _counts()
-        apart = [k for k in sg._fields if not torch.equal(getattr(sg, k), getattr(sl, k))]
-        apart += [k for k in mg._fields if not torch.equal(getattr(mg, k), getattr(ml, k))]
+        apart = [k for (k, a), b in zip(named_leaves(sg) + named_leaves(mg),
+                                        leaves(sl) + leaves(ml)) if not torch.equal(a, b)]
         say("chunk_graph_vs_loop", path=path, steps=steps, bit_equal=not apart, differ=apart,
             steps_per_graph=graph.steps_per_graph, nodes=graph.program.nodes,
             capture_s=graph.program.capture_seconds,
@@ -497,8 +564,8 @@ def phase_chunk_routes():
         # the kernels count their own launches on the device: the replays ran
         # what the loop ran, and the warm-up steps_per_graph steps more
         scale = (steps + graph.steps_per_graph) / steps
-        if by_graph != {k: round(n * scale) for k, n in by_loop.items()} or not any(
-                by_loop.values()):
+        if by_graph != {k: round(n * scale) for k, n in by_loop.items()} or any(
+                by_loop.values()) == (path in no_kernel):
             raise AssertionError(f"{path}: the captured chunk launched {by_graph}, the loop "
                                  f"{by_loop}")
         if apart or int(sg.step) != 2 * steps or mg.dt.shape != (steps,):
@@ -510,6 +577,177 @@ def phase_chunk_routes():
         reason=chunk.reason)
     if chunk.mode != "loop":
         raise AssertionError("the streaming early exit reads the host: its chunk is the loop")
+
+
+def phase_implicit_cavity():
+    """The implicit (DST Helmholtz) cavity at 1024² with the DCT projection,
+    then with ``mg:2``."""
+    steps = 200
+    case = lid_cavity(n=1024, Re=1000.0, diffusion="implicit", cfl=0.6, device="cuda")
+    if case.step.reads_host or not case.step.use_dst:
+        raise AssertionError("the implicit DST step must read nothing on the host")
+    _reset_counts()
+    # from rest at dt = 0.5·h the lid corners' divergence spike, which scales
+    # with 1/h, stands at 20.7 at 1024² just inside the metric's 2-node frame
+    # (20.0 is the runner's default bound for the first 1000 steps)
+    sim, state, report, wall = _run(case, steps, 50, warmup_div_threshold=50.0)
+    launches = _counts()
+    _, max_u = _healthy("implicit_cavity", state, report, steps, 1.5)
+    h = case.grid.dx
+    dt = sim.metrics_history[-1]["dt"]
+    # the Helmholtz solve alone, on the final u at the step's coeff, against
+    # the operator applied in float64
+    coeff = torch.tensor(dt * case.cfg.nu, dtype=torch.float32, device="cuda")
+    b = state.u
+    sol = solve_helmholtz_dirichlet(b, coeff, h, h).double()
+    res = (sol - coeff.double() * laplacian(sol, h, h) - b.double())[1:-1, 1:-1].abs().max()
+    rel = float(res) / float(b.abs().max())
+    say("implicit_cavity_path", n=1024, Re=1000.0, steps=int(state.step), launches=launches,
+        dt=dt, dt_expected=0.5 * h, max_abs_u=max_u, t=report["final_time"],
+        helmholtz_rel_residual=rel, helmholtz_rtol=HELMHOLTZ_RTOL,
+        last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim))
+    if abs(dt - 0.5 * h) > 1e-6 * 0.5 * h:
+        raise AssertionError(f"implicit dt {dt} is not the case's dt_max {0.5 * h}")
+    if any(launches.values()):
+        raise AssertionError(f"the implicit DCT cavity launched kernels: {launches}")
+    if not rel <= HELMHOLTZ_RTOL:
+        raise AssertionError(f"Helmholtz residual {rel} of max |b| at 1024²")
+
+    steps = 50
+    case = lid_cavity(n=1024, Re=1000.0, diffusion="implicit", cfl=0.6, poisson="mg:2",
+                      device="cuda")
+    _reset_counts()
+    sim, state, report, wall = _run(case, steps, 50, warmup_div_threshold=50.0)
+    launches = _counts()
+    _, max_u = _healthy("implicit_mg_cavity", state, report, steps, 1.5)
+    say("implicit_mg_path", n=1024, Re=1000.0, steps=int(state.step), launches=launches,
+        max_abs_u=max_u, t=report["final_time"], last_chunk=sim.metrics_history[-1],
+        wall_s=wall, **_chunk_facts(sim))
+    ran = steps + sim.chunk.steps_per_graph  # as in phase_mg_cavity
+    want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
+            "rbsor_b": ran * 2 * 2}
+    if launches != want:
+        raise AssertionError(f"implicit multigrid path launches {launches}, expected {want}")
+    return launches
+
+
+def phase_ghia():
+    """The physics gate of the implicit path: Ghia's Re=100 profiles at 128²."""
+    case = lid_cavity(n=128, Re=100.0, diffusion="implicit", cfl=0.6, device="cuda")
+    cfg = RunnerConfig(t_final=30.0, chunk_steps=500, health_check=True, div_threshold=50.0,
+                       max_velocity=case.cfg.max_velocity, log_every_chunks=0)
+    sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
+    t0 = time.perf_counter()
+    state, report = sim.run()
+    wall = time.perf_counter() - t0
+    if report["stopped_reason"] or report["chunk_route"] != "graph":
+        raise AssertionError(f"Ghia run: {report}")
+    eu, ev = (float(e) for e in ghia_error(state.u.cpu().numpy(), state.v.cpu().numpy(), 100,
+                                           case.grid.y_coords(), case.grid.x_coords()))
+    say("ghia_gate", n=128, Re=100, t=report["final_time"], steps=report["final_step"],
+        err_u=eu, err_v=ev, tol=GHIA_TOL, wall_s=wall)
+    if not (eu < GHIA_TOL and ev < GHIA_TOL):
+        raise AssertionError(f"Ghia Re=100 at 128²: RMS errors {eu}, {ev} (tol {GHIA_TOL})")
+
+
+def phase_les_cylinder():
+    """The LES + SUPG + IBM cylinder through kernel A; then the TVD cylinder."""
+    steps = 200
+    case = build("cylinder", ref_parity=True, scheme="supg", use_les=True,
+                 poisson=CYLINDER_KERNEL_POISSON, device="cuda")
+    chunks_run = case.step.poisson.chunks_run
+    _reset_counts()
+    chunks_run.zero_()
+    sim, state, report, wall = _run(case, steps, 50)
+    launches = _counts()
+    chunks = int(chunks_run)
+    _, max_u = _healthy("les_cylinder", state, report, steps, case.cfg.max_velocity)
+    g = case.grid
+    nu_t_max = float(smagorinsky_viscosity(state.u, state.v, g.dx, g.dy,
+                                           case.cfg.smagorinsky_constant).max())
+    say("les_cylinder_path", nx=600, ny=180, Re=600.0, steps=int(state.step),
+        launches=launches, kernel_chunks_run=chunks, max_abs_u=max_u, nu_t_max=nu_t_max,
+        nu=case.cfg.nu, t=report["final_time"], last_chunk=sim.metrics_history[-1],
+        wall_s=wall, **_chunk_facts(sim))
+    n_chunks = CYLINDER_KERNEL_POISSON.iters // CYLINDER_KERNEL_POISSON.check_every
+    ran = steps + sim.chunk.steps_per_graph
+    want = {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    if launches != want or chunks != steps * n_chunks:
+        raise AssertionError(f"LES cylinder launches {launches} and {chunks} chunks, expected "
+                             f"{want} and {steps * n_chunks}")
+    if not nu_t_max > 0.0:
+        raise AssertionError("the LES cylinder's eddy viscosity is zero everywhere")
+
+    tvd = build("cylinder", scheme="tvd", device="cuda")
+    _reset_counts()
+    sim, state, report, wall = _run(tvd, 50, 50)
+    tvd_launches = _counts()
+    _, max_u = _healthy("tvd_cylinder", state, report, 50, tvd.cfg.max_velocity)
+    say("tvd_cylinder_path", nx=600, ny=180, steps=int(state.step), launches=tvd_launches,
+        max_abs_u=max_u, last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim))
+    if any(tvd_launches.values()):
+        raise AssertionError(f"the TVD cylinder (DCT solve) launched kernels: {tvd_launches}")
+    return launches["rbsor_a"]
+
+
+def phase_transport_resume():
+    """Transport, snapshots and a bit-exact resume through the command line."""
+    shutil.rmtree(SMOKE_OUT, ignore_errors=True)
+    common = ["run", "transport", "--device", "cuda", "--n", "1024", "--Re", "1000", "--Pe",
+              "1000", "--fused-predictor", "true", "--t-final", "1e9", "--chunk-steps", "50",
+              "--snapshot-interval", "100", "--io", SNAPSHOT_IO]
+    file = "snapshots.csnap" if SNAPSHOT_IO == "native" else "snapshots.h5"
+    split, straight = SMOKE_OUT / "split" / file, SMOKE_OUT / "straight" / file
+    _reset_counts()
+    reports = [cli.main([*common, "--out", str(split.parent), "--max-steps", "200"]),
+               cli.main([*common, "--out", str(split.parent), "--max-steps", "400", "--resume"])]
+    launches = _counts()
+    reports.append(cli.main([*common, "--out", str(straight.parent), "--max-steps", "400"]))
+    if [r["final_step"] for r in reports] != [200, 400, 400] or any(
+            r["chunk_route"] != "graph" or r["stopped_reason"] for r in reports):
+        raise AssertionError(f"transport runs: {reports}")
+    # two runs of 200 steps, each with its capture's 10 warm-up steps
+    want = {"predictor": 420, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    if launches != want:
+        raise AssertionError(f"transport path launches {launches}, expected {want}")
+    snaps = {name: csnap_steps(path) for name, path in (("split", split),
+                                                        ("straight", straight))}
+    if any(sorted(s) != [0, 100, 200, 300, 400] for s in snaps.values()):
+        raise AssertionError(f"snapshot steps {[sorted(s) for s in snaps.values()]}")
+    (fa, ta), (fb, tb) = snaps["split"][400], snaps["straight"][400]
+    differ = [k for k in fb if not np.array_equal(fa[k], fb[k])]
+    # and as states: what a user would resume from
+    template = build("transport", n=1024, Re=1000.0, Pe=1000.0, device="cuda")
+    sa, sb = restore(template.state, split), restore(template.state, straight)
+    differ += [k for (k, a), b in zip(named_leaves(sa), leaves(sb)) if not torch.equal(a, b)]
+    hot = template.extras["hot_lid"]
+    th_min, th_max = float(sa.theta.min()), float(sa.theta.max())
+    say("transport_resume", n=1024, steps=400, fields=sorted(fb), bit_equal=not differ,
+        differ=differ, t_split=ta, t_straight=tb, theta_min=th_min, theta_max=th_max,
+        theta_mean=float(sa.theta.mean()), launches=launches, io=SNAPSHOT_IO,
+        file_bytes=split.stat().st_size, reports=reports)
+    if differ or ta != tb or sorted(fb) != ["p", "theta", "u", "v"] or int(sa.step) != 400:
+        raise AssertionError(f"resume is not bit-exact: {differ}, t {ta} vs {tb}")
+    if not (0.0 <= th_min and th_max <= hot):
+        raise AssertionError(f"θ left [0, {hot}]: {th_min}, {th_max}")
+
+    # seconds per snapshot at 1024² (u, v, p, θ: 16.8 MB): the call (device →
+    # host copies and the queue's copy), then the drain (zlib on the
+    # writer's thread, and the disk)
+    fields = {k: v for k, v in (*sa.flow._asdict().items(), ("theta", sa.theta)) if v.ndim == 2}
+    with NativeSnapshotWriter(SMOKE_OUT / "timing.csnap") as w:
+        call_s = []
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w.save(step, 0.0, **fields)
+            call_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        w.flush()
+        drain_s = time.perf_counter() - t0
+    say("time_snapshot", io="native", n=1024, fields=sorted(fields), save_call_s=call_s,
+        drain_s_for_3=drain_s, file_bytes=(SMOKE_OUT / "timing.csnap").stat().st_size)
+    return launches["predictor"]
 
 
 def golden_signature(case, steps: int) -> dict:
@@ -634,7 +872,7 @@ def phase_timings(card):
     # device events, busy time and idle share per step, metrics off: the
     # three paths through the captured chunk and through the eager loop
     for route in (None, "loop"):
-        for path, case in _paths(compute_metrics=False).items():
+        for path, case in {**_paths(compute_metrics=False), **new_paths()}.items():
             say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
     # the predictor alone at the main path's shape and at 4096², inputs
     # streamed from device memory: plain, kernel, kernel, plain; then a
@@ -719,8 +957,12 @@ def main() -> int:
     print(card, flush=True)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
+    has = machine_has()
     say("card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        python=sys.version.split()[0], count=torch.cuda.device_count())
+        python=sys.version.split()[0], count=torch.cuda.device_count(), machine_has=has)
+    needs = ("g++", "zlib.h") if SNAPSHOT_IO == "native" else ("h5py",)
+    if not all(has[k] for k in needs):
+        raise RuntimeError(f"the {SNAPSHOT_IO} snapshot writer needs {needs}: {has}")
 
     kernels = (pred.KERNEL, *rb.KERNELS)
     say("build", seconds_per_source=cuda_build.build_all(kernels, [EMPTY_SOURCE]),
@@ -732,13 +974,22 @@ def main() -> int:
     pred_launches = phase_main_path()
     cyl_a, cyl_chunks_per_step = phase_cylinder()
     mg = phase_mg_cavity()
+    implicit_mg = phase_implicit_cavity()
+    phase_ghia()
+    les_a = phase_les_cylinder()
+    transport_pred = phase_transport_resume()
     times = phase_timings(card)
 
     launches = {
-        "fused_predictor_central": {"cavity_1024_dct": pred_launches},
+        "fused_predictor_central": {"cavity_1024_dct": pred_launches,
+                                    "transport_1024_split_run": transport_pred},
         "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"],
-                  "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"]},
-        "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"]},
+                  "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"],
+                  "cylinder_600x180_les": les_a,
+                  "cavity_1024_implicit_mg": implicit_mg["rbsor_a"],
+                  "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"]},
+        "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"],
+                          "cavity_1024_implicit_mg": implicit_mg["rbsor_b"]},
     }
     info = {
         "fused_predictor_central": ("cfdsim_tpu_torch/csrc/predictor.cu",

@@ -120,10 +120,16 @@ def test_runner_two_chunks():
 
 
 def test_runner_refuses_snapshots():
+    """With ``snapshot_interval=0`` the runner takes no snapshot, whatever
+    ``snapshot_fn`` it was given; with an interval it takes one at the start
+    and one per interval, between chunks."""
     case = lid_cavity(n=16, Re=100.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="snapshot"):
-        Simulation(case.step, case.state, RunnerConfig(), case.grid.n_cells,
-                   snapshot_fn=lambda state, step, t: None)
+    for interval, want in ((0, []), (4, [0, 4, 8])):
+        taken = []
+        cfg = RunnerConfig(t_final=1e9, max_steps=8, chunk_steps=2, snapshot_interval=interval)
+        Simulation(case.step, case.state, cfg, case.grid.n_cells,
+                   snapshot_fn=lambda state, step, t: taken.append(step)).run()
+        assert taken == want
 
 
 def test_cli_run_cavity(tmp_path, capsys):
@@ -147,9 +153,8 @@ def test_cli_two_runs_in_one_process_log_into_their_own_out(tmp_path):
 
 
 @pytest.mark.parametrize("argv, why", [
-    (["run", "cavity", "--n", "16", "--device", "cpu", "--resume"], "not ported"),
-    (["run", "cavity", "--n", "16", "--device", "cpu", "--snapshot-interval", "10"],
-     "not ported"),
+    (["run", "cavity", "--n", "16", "--device", "cpu", "--resume"], "no snapshot file"),
+    (["render", "no_such_snapshots.h5", "frames"], "no snapshot file"),
     (["run", "cavity", "--n", "16", "--device", "cuda:0"], "CUDA is not available"),
     (["bench", "--n", "16", "--device", "cpu"], "measures a CUDA device"),
     (["bench", "--sweep", "--device", "cpu"], "measures a CUDA device"),

@@ -229,8 +229,6 @@ def test_cylinder_defaults_match_jax():
     jd, td = dataclasses.asdict(j_case.cfg), dataclasses.asdict(t_case.cfg)
     for cfg in (jd, td):
         cfg.pop("grid")
-    for key in ("implicit_iters", "implicit_solver"):  # implicit diffusion: not ported
-        jd.pop(key)
     assert td == jd
     ref = build("cylinder", device="cpu", ref_parity=True, **GEOMETRY).cfg.poisson
     assert dataclasses.asdict(ref) == dataclasses.asdict(
@@ -284,12 +282,12 @@ def test_cylinder_state_round_trips_through_numpy():
 
 
 @pytest.mark.parametrize("kw, error", [
-    (dict(scheme="tvd"), NotImplementedError),
-    (dict(use_les=True), NotImplementedError),
-    (dict(diffusion="implicit"), NotImplementedError),
+    (dict(storage="bf16"), NotImplementedError),
+    (dict(use_les=True, diffusion="implicit", implicit_solver="dst"), ValueError),
+    (dict(diffusion="semi"), ValueError),
     (dict(scheme="upwinds"), ValueError),
     (dict(scheme="upwind", fused_predictor=True), ValueError),
-], ids=["tvd", "les", "implicit", "unknown-scheme", "fused-upwind"])
+], ids=["bf16", "les-dst", "unknown-diffusion", "unknown-scheme", "fused-upwind"])
 def test_unported_options_raise(kw, error):
     with pytest.raises(error):
         build("cylinder", device="cpu", nx=60, ny=18, **kw)
