@@ -6,11 +6,15 @@ The JAX package stays the reference; this package mirrors its module paths
 it on the same inputs. It imports torch and numpy, never JAX.
 
 Ported so far: the collocated 2D incompressible tier and its run
-pipeline. The cases cavity, channel, immersed cylinder and scalar
-transport; central, upwind, TVD and SUPG convection; explicit or implicit
+pipeline, and the staggered (MAC) tiers, uniform and stretched. The cases
+cavity, channel, immersed cylinder and scalar transport; cavity_mac,
+cylinder_mac, cylinder_oscillating, cavity_stretched and
+cylinder_stretched; central, upwind, TVD and SUPG convection; explicit or implicit
 (DST Helmholtz or damped Jacobi) diffusion; Smagorinsky LES; body forcing;
 adaptive or fixed dt with warm-up; IBM penalization; the DCT and iterative
-pressure solves (Jacobi, red-black SOR, multigrid, hybrid, periodic FFT);
+pressure solves (Jacobi, red-black SOR, multigrid, hybrid, periodic FFT;
+every DCT variant, autotuned per device and shape; fast diagonalization);
+roofline counts;
 the chunked runner with snapshots (HDF5 and the native writer), resume,
 render, video and thin. Every Pallas kernel of the JAX package is a
 hand-written CUDA kernel for Hopper (``csrc/predictor.cu``,

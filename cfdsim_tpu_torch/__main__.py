@@ -13,8 +13,10 @@
     python -m cfdsim_tpu_torch render out/cavity/snapshots.h5 out/cavity/frames
     python -m cfdsim_tpu_torch video out/cavity/frames/velocity_frames movie.gif
     python -m cfdsim_tpu_torch thin out/cavity/frames/velocity_frames --keep-every 3
-    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --cylinder
-                                      | --routes]
+    python -m cfdsim_tpu_torch run cavity_mac --n 1024 --Re 1000 --device cuda
+    python -m cfdsim_tpu_torch run cylinder_oscillating --stretched true --device cuda
+    python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --roofline
+                                      | --cylinder | --routes]
 
 On a CUDA device ``run`` steps through captured chunks (one CUDA graph per
 chunk of ``--chunk-steps`` steps, replayed; see
@@ -234,6 +236,8 @@ def cmd_bench(args, _extra):
         rows = bench.run_profile(n=args.n, device=device)
     elif args.all:
         rows = bench.run_all(n=args.n, device=device)
+    elif args.roofline:
+        rows = bench.run_roofline(n=args.n, device=device)
     elif args.cylinder:
         rows = bench.run_cylinder(device=device)
     elif args.routes:
@@ -295,11 +299,14 @@ def main(argv=None):
     mode.add_argument("--profile", action="store_true",
                       help="device events, busy time and idle share per step: the --n "
                            "cavity (DCT, MG, implicit), the ref-parity cylinder (also with "
-                           "LES) and the transport cavity")
+                           "LES), the transport cavity and the MAC and stretched cells")
     mode.add_argument("--all", action="store_true",
                       help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s, ms per "
-                           "Helmholtz solve and ms per step of the implicit, LES and "
-                           "transport paths at --n")
+                           "Helmholtz solve, MAC and stretched cells/s and ms per step of "
+                           "the implicit, LES and transport paths at --n")
+    mode.add_argument("--roofline", action="store_true",
+                      help="the card's peaks and, per tier (collocated, MAC, stretched), flops "
+                           "and bytes per cell, the bound and the share of the roof reached")
     mode.add_argument("--cylinder", action="store_true",
                       help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
     mode.add_argument("--routes", action="store_true",

@@ -4,10 +4,13 @@ The headline number is cell-updates/sec on the 1024² lid-driven cavity,
 Re=1000 (the step ``bench.py::run_bench`` of the JAX package times). The
 full step runs: adaptive CFL dt, central convection and diffusion (the
 fused predictor kernel when ``fused_predictor``), BCs, the exact DCT
-pressure projection. Throughput is measured marginally between a short and
-a long chunk of steps from the same initial state, so the per-chunk
-constant (first-launch and synchronisation cost) cancels. Each chunk ends
-in ``torch.cuda.synchronize()``. A chunk is what
+pressure projection with ``dct_variant="auto"``: the fastest variant on
+this card, measured once per shape when the step is built and cached
+(``solvers/autotune.py``); the row names the variant that won. Throughput
+is measured marginally between a short and a long chunk of steps from the
+same initial state, so the per-chunk constant (first-launch and
+synchronisation cost) cancels. Each chunk ends in
+``torch.cuda.synchronize()``. A chunk is what
 ``models/incompressible.py::make_chunk`` builds: on the card one captured
 device program (the ``"graph"`` route, the path's metric, as the JAX bench
 times a jitted chunk); ``route="loop"`` times the eager Python loop of step
@@ -15,26 +18,30 @@ calls beside it, host dispatch included.
 
 ``--sweep`` adds, per grid size, the device times of the predictor (kernel,
 plain torch, a plain copy of the same bytes and an empty launch), of one DCT
-solve (rfft and rfft2) and of one step (fused and unfused), next to the
+solve by every variant and of one step (fused and unfused), next to the
 chunk's and the eager loop's cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
-busy time against the wall time, for both routes. ``--all`` is the twin of
-the JAX bench's
-``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
-sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
-solves/s at 1024², plus the device time of one Dirichlet Helmholtz (DST)
-solve and ms per step of the implicit cavity, the LES cylinder and the
-transport cavity (:func:`run_paths`). ``--cylinder`` times the reference-parity cylinder at
-600×180 with its pressure solve through kernel A and through streaming
-rbsor. ``--routes`` times kernel A's cluster and cooperative routes side
-by side per grid and sweep count, the measurement behind
-``poisson_rb.plan_rbsor``. Every function here refuses to run without a
-CUDA device: a CPU number is not a device metric.
+busy time against the wall time, for both routes, on every path: the
+collocated ones and the staggered tiers' (:func:`mac_paths`). ``--all`` is
+the twin of the JAX bench's ``run_secondary``: marginal streaming rbsor
+sweeps/s, RB-SOR kernel sweeps/s, multigrid V-cycles/s (kernel and plain
+smoothing) and DCT solves/s at 1024², the device time of one Dirichlet
+Helmholtz (DST) solve, the MAC-1024² and stretched-512² cells/s, and ms
+per step of the implicit cavity, the LES cylinder and the transport cavity
+(:func:`run_paths`). ``--roofline`` is the twin of ``run_roofline``: the
+card's measured peaks and, per tier, flops and bytes per cell of one step
+(``utils/roofline.py``, pre-fusion counts) against them. ``--cylinder``
+times the reference-parity cylinder at 600×180 with its pressure solve
+through kernel A and through streaming rbsor. ``--routes`` times kernel
+A's cluster and cooperative routes side by side per grid and sweep count,
+the measurement behind ``poisson_rb.plan_rbsor``. Every function here
+refuses to run without a CUDA device: a CPU number is not a device metric.
 
     python -m cfdsim_tpu_torch bench [--n 1024]
     python -m cfdsim_tpu_torch bench --sweep
     python -m cfdsim_tpu_torch bench --profile [--n 1024]
     python -m cfdsim_tpu_torch bench --all [--n 1024]
+    python -m cfdsim_tpu_torch bench --roofline [--n 1024]
     python -m cfdsim_tpu_torch bench --cylinder
     python -m cfdsim_tpu_torch bench --routes
 """
@@ -49,7 +56,14 @@ import time
 import numpy as np
 import torch
 
-from cfdsim_tpu_torch.cases import cylinder, lid_cavity, transport
+from cfdsim_tpu_torch.cases import (
+    build,
+    cavity_stretched,
+    cylinder,
+    lid_cavity,
+    lid_cavity_mac,
+    transport,
+)
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.models.incompressible import make_chunk
@@ -61,12 +75,16 @@ from cfdsim_tpu_torch.ops.kernels.predictor import (
     fused_predictor_central_ref,
 )
 from cfdsim_tpu_torch.solvers.helmholtz import DirichletHelmholtz
+from cfdsim_tpu_torch.solvers.autotune import _variants_for
 from cfdsim_tpu_torch.solvers.poisson import NeumannDCT, PoissonConfig, PoissonSolver
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit, device_ms, eager_ms
 from cfdsim_tpu_torch.utils.tree import leaves
 
-# the JAX package's autotuner is not ported: the bench names its variant
-POISSON = PoissonConfig(method="dct", dct_variant="rfft2")
+# the JAX bench's main path (bench.py:54): the fastest exact DCT variant on
+# this card, measured once per shape and cached (solvers/autotune.py)
+POISSON = PoissonConfig(method="dct", dct_variant="auto")
+# the staggered tier's twin (bench.py:131-132): the default DCT variant
+MAC_POISSON = PoissonConfig(method="dct")
 # the reference-parity cylinder's pressure budget through kernel A
 CYLINDER_KERNEL_POISSON = PoissonConfig(method="rbsor_pallas", iters=1500, tol=1e-8,
                                         check_every=50, omega=1.7)
@@ -127,7 +145,7 @@ def run_bench(n=1024, short=100, long=600, device="cuda", fused_predictor=True, 
         "value": cups,
         "unit": "cells/s",
         "fused_predictor": fused_predictor,
-        "dct_variant": POISSON.dct_variant,
+        "dct_variant": case.step.cfg.poisson.dct_variant,  # the variant "auto" chose
         **_chunk_facts(chunk),
         "ms_per_step": (t_long - t_short) / (long - short) * 1e3,
         "t_short_s": t_short,
@@ -218,18 +236,21 @@ def predictor_ms(n=1024, reps=200, device="cuda") -> dict:
 
 
 def dct_solve_ms(n=1024, reps=50, device="cuda") -> dict:
-    """Device ms of one DCT solve at n², rfft against rfft2, in turns
-    rfft, rfft2, rfft2, rfft; the right-hand side rotates through a ring."""
+    """Device ms of one DCT solve at n² by every variant the autotuner times
+    at that shape (the deep splits from 4096² on), in turns forward, then
+    backward through the variants; the right-hand side rotates through a
+    ring. ``winner`` is the variant with the least time."""
     device = _require_cuda(device)
     rng = np.random.default_rng(0)
     h = 1.0 / (n - 1)
     ring = _ring_len(device, 2 * 4 * n * n)  # rhs in, φ out
     args = [(_field(rng, n, device),) for _ in range(ring)]
-    fns = {var: _ring(NeumannDCT((n, n), h, h, var, device=device), args)
-           for var in ("rfft", "rfft2")}
+    variants = _variants_for((n, n))
+    fns = {var: _ring(NeumannDCT((n, n), h, h, var, device=device), args) for var in variants}
     out = {"n": n, "ring": ring}
-    for var in ("rfft", "rfft2", "rfft2", "rfft"):
+    for var in (*variants, *reversed(variants)):
         out.setdefault(f"{var}_device_ms", []).append(device_ms(fns[var], reps))
+    out["winner"] = min(variants, key=lambda v: min(out[f"{v}_device_ms"]))
     return out
 
 
@@ -274,6 +295,44 @@ def new_paths(n=1024, compute_metrics=False, device="cuda") -> dict:
             n=n, Re=1000.0, Pe=1000.0, fused_predictor=True, poisson=POISSON,
             compute_metrics=compute_metrics, device=device),
     }
+
+
+def mac_paths(n=1024, compute_metrics=False, device="cuda") -> dict:
+    """The cells of the staggered tiers at full width: the n² MAC cavity at
+    Re=1000 (chorin; incremental; implicit, Crank–Nicolson by the MAC
+    Helmholtz transforms; ``mg:2``, through kernels A and B), the MAC
+    cylinder at its default 720×240, the oscillating cylinder at 480×240
+    (uniform and stretched), the (n/2)² stretched cavity and the 512×256
+    stretched cylinder (fast diagonalization)."""
+    mac = dict(n=n, Re=1000.0, compute_metrics=compute_metrics, device=device)
+    rest = dict(compute_metrics=compute_metrics, device=device)
+    return {
+        f"cavity_mac{n}_chorin": lid_cavity_mac(poisson=MAC_POISSON, **mac),
+        f"cavity_mac{n}_incremental": lid_cavity_mac(poisson=MAC_POISSON,
+                                                     projection="incremental", **mac),
+        f"cavity_mac{n}_implicit": lid_cavity_mac(poisson=MAC_POISSON, diffusion="implicit",
+                                                  **mac),
+        f"cavity_mac{n}_mg2": lid_cavity_mac(poisson="mg:2", **mac),
+        "cylinder_mac720x240": build("cylinder_mac", **rest),
+        "cylinder_oscillating480x240": build("cylinder_oscillating", **rest),
+        "cylinder_oscillating480x240_stretched": build("cylinder_oscillating", stretched=True,
+                                                       **rest),
+        f"cavity_stretched{n // 2}": cavity_stretched(n=n // 2, Re=1000.0, beta=1.5, **rest),
+        "cylinder_stretched512x256": build("cylinder_stretched", **rest),
+    }
+
+
+def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
+    """Cells/s of ``case`` through the captured chunk, marginal between a
+    short and a long chunk from the initial state (the JAX bench's
+    ``_timed_chunk`` pair)."""
+    t_short, _, _ = _timed_chunk(case, case.state, short)
+    t_long, state, chunk = _timed_chunk(case, case.state, long)
+    if not all(bool(torch.isfinite(x).all()) for x in leaves(state)):
+        raise RuntimeError("non-finite state after the long chunk")
+    return {"value": n_cells * (long - short) / (t_long - t_short), "unit": "cells/s",
+            "ms_per_step": (t_long - t_short) / (long - short) * 1e3, "steps": [short, long],
+            **_chunk_facts(chunk)}
 
 
 def run_paths(n=1024, short=20, long=60, device="cuda"):
@@ -368,8 +427,9 @@ def run_profile(n=1024, steps=50, device="cuda"):
     """Per step, with compute_metrics off, each through the captured chunk
     and through the eager loop: the main path fused and unfused, then the
     reference-parity cylinder through kernel A (600×180), the n² cavity
-    with ``poisson="mg:2"`` (kernels A and B), and :func:`new_paths` (the
-    implicit cavity, the LES cylinder, the transport cavity)."""
+    with ``poisson="mg:2"`` (kernels A and B), :func:`new_paths` (the
+    implicit cavity, the LES cylinder, the transport cavity) and
+    :func:`mac_paths` (the staggered and stretched tiers)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -383,7 +443,7 @@ def run_profile(n=1024, steps=50, device="cuda"):
         yield profile_chunk(
             lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False, device=device),
             steps, device, card, route, path=f"cavity{n}_mg2", n=n)
-        for path, case in new_paths(n, device=device).items():
+        for path, case in {**new_paths(n, device=device), **mac_paths(n, device=device)}.items():
             yield profile_chunk(case, 20 if path.startswith("cylinder") else steps, device,
                                 card, route, path=path)
 
@@ -442,7 +502,48 @@ def run_all(n=1024, device="cuda"):
                "device": torch.cuda.get_device_name(device), "card": card}
     yield {"metric": f"helmholtz_solve_device_ms_{n}", **helmholtz_solve_ms(n, device=device),
            "card": card}
+    # the solver tiers' rates (bench.py:130-149): the staggered tier and the
+    # stretched tier, through the captured chunk
+    case = lid_cavity_mac(n=n, Re=1000.0, poisson=MAC_POISSON, compute_metrics=False,
+                          device=device)
+    yield {"metric": f"cell_updates_per_sec_cavity_mac{n}", **cells_per_sec(case, n * n),
+           "dct_variant": case.step.cfg.poisson.dct_variant, "card": card}
+    ns = n // 2
+    case = cavity_stretched(n=ns, Re=1000.0, beta=1.5, compute_metrics=False, device=device)
+    yield {"metric": f"cell_updates_per_sec_cavity_stretched{ns}",
+           **cells_per_sec(case, ns * ns), "card": card}
     yield from run_paths(n, device=device)
+
+
+def run_roofline(n=1024, device="cuda"):
+    """Roofline rows per tier, the twin of ``bench.py::run_roofline``: the
+    card's measured peaks, then for the n² collocated cavity ("auto"
+    DCT, fused predictor from 2048² on, as there), the n² MAC cavity and
+    the (n/2)² stretched cavity the flops and bytes per cell of one eager
+    step (``utils/roofline.py``: pre-fusion counts per aten op), the
+    bound, the ceilings and the measured cells/s through the captured
+    chunk. The JAX bench's sphere3d row waits for the 3D tier."""
+    from cfdsim_tpu_torch.utils.roofline import measure_peaks, roofline
+
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    peaks = measure_peaks(device)
+    yield {"metric": "machine_peaks", "peak_flops": peaks["peak_flops"],
+           "peak_bw_bytes_per_sec": peaks["peak_bw"], "card": card}
+    ns = n // 2
+    tiers = {
+        f"collocated{n}": (lid_cavity(n=n, Re=1000.0, poisson=POISSON, compute_metrics=False,
+                                      fused_predictor=n >= 2048, device=device), n * n),
+        f"mac{n}": (lid_cavity_mac(n=n, Re=1000.0, poisson=MAC_POISSON, compute_metrics=False,
+                                   device=device), n * n),
+        f"stretched{ns}": (cavity_stretched(n=ns, Re=1000.0, beta=1.5, compute_metrics=False,
+                                            device=device), ns * ns),
+    }
+    for name, (case, n_cells) in tiers.items():
+        rate = cells_per_sec(case, n_cells)["value"]
+        cfl = torch.ones((), dtype=torch.float32, device=device)
+        row = roofline(case.step, case.state, n_cells, rate, peaks, cfl)
+        yield {"metric": f"roofline_{name}", **row, "card": card}
 
 
 def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):

@@ -2,7 +2,11 @@
 
 Each named case is a builder that returns a ready-to-run bundle: static
 config, step module and initial state, all on the ``device`` the caller
-names: ``"cavity"``, ``"channel"``, ``"cylinder"`` and ``"transport"`` so far.
+names. The collocated tier: ``"cavity"``, ``"channel"``, ``"cylinder"``,
+``"transport"``; the staggered (MAC) tier: ``"cavity_mac"``,
+``"cylinder_mac"``, ``"cylinder_oscillating"`` (uniform, or with
+``stretched=True``); the stretched MAC tier: ``"cavity_stretched"``,
+``"cylinder_stretched"``.
 """
 
 from __future__ import annotations
@@ -10,11 +14,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from cfdsim_tpu_torch import boundary
 from cfdsim_tpu_torch.grid import Grid
-from cfdsim_tpu_torch.ibm import cylinder_masks, potential_flow_cylinder
+from cfdsim_tpu_torch.ibm import (
+    _gaussian_shell,
+    cylinder_masks,
+    cylinder_masks_mac,
+    oscillating_cylinder,
+    potential_flow_cylinder,
+    potential_flow_cylinder_mac,
+)
 from cfdsim_tpu_torch.models.incompressible import (
     IncompressibleConfig,
     init_state,
@@ -77,6 +89,41 @@ def lid_cavity(
     step = make_step(cfg, bc, device=device)
     state = init_state(cfg, device=device)
     return Case("cavity", cfg, step, state, grid)
+
+
+def lid_cavity_mac(
+    n: int = 128,
+    Re: float = 100.0,
+    lid_velocity: float = 1.0,
+    poisson: Optional[PoissonConfig] = None,
+    scheme: str = "central",
+    cfl: float = 0.5,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Lid-driven cavity on the staggered (MAC) grid, the accuracy tier:
+    an exactly divergence-free projection; the physics of ``lid_cavity``."""
+    from cfdsim_tpu_torch.models import mac
+
+    grid = Grid(nx=n, ny=n, centering="cell")
+    pois = _poisson_spec(poisson) or PoissonConfig(method="dct")
+    cfg = mac.MACConfig(
+        grid=grid,
+        nu=lid_velocity / Re,
+        scheme=scheme,
+        poisson=pois,
+        cfl_target=cfl,
+        dt_max=0.5 * min(grid.dx, grid.dy) / max(lid_velocity, 1e-10),
+        max_velocity=5.0 * lid_velocity,
+        **cfg_overrides,
+    )
+    bcs = mac.cavity_bcs(lid_velocity)
+    kit = (mac.cavity_implicit_kit(grid, lid_velocity, device=device)
+           if cfg.diffusion == "implicit" else None)
+    step = mac.make_step(cfg, bcs, implicit_kit=kit, device=device)
+    state = mac.init_state(cfg, device=device)
+    return Case("cavity_mac", cfg, step, state, grid, {"lid_velocity": lid_velocity, "bcs": bcs})
 
 
 def channel(
@@ -218,10 +265,245 @@ def transport(
                 {"hot_lid": hot_lid})
 
 
+def cavity_stretched(
+    n: int = 96,
+    Re: float = 1000.0,
+    lid_velocity: float = 1.0,
+    beta: float = 1.5,
+    scheme: str = "central",
+    cfl: float = 0.5,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Lid-driven cavity on a tanh wall-clustered stretched MAC grid with the
+    exact fast-diagonalization pressure solve."""
+    from cfdsim_tpu_torch.models import mac
+    from cfdsim_tpu_torch.models import mac_stretched as ms
+
+    xf = ms.wall_clustered_faces(n, 1.0, beta=beta)
+    yf = ms.wall_clustered_faces(n, 1.0, beta=beta)
+    h_min = float(min((xf[1:] - xf[:-1]).min(), (yf[1:] - yf[:-1]).min()))
+    defaults = dict(
+        cfl_target=cfl,
+        dt_max=cfl * h_min / max(lid_velocity, 1e-10),
+        max_velocity=5.0 * lid_velocity,
+    )
+    defaults.update(cfg_overrides)
+    cfg = ms.StretchedMACConfig(nx=n, ny=n, nu=lid_velocity / Re, scheme=scheme, **defaults)
+    bcs = mac.cavity_bcs(lid_velocity)
+    step = ms.make_step(cfg, bcs, xf, yf, device=device)
+    state = ms.init_state(cfg, device=device)
+    grid = Grid(nx=n, ny=n, centering="cell")  # the nominal uniform descriptor
+    return Case("cavity_stretched", cfg, step, state, grid,
+                {"x_faces": xf, "y_faces": yf, "beta": beta, "lid_velocity": lid_velocity,
+                 "bcs": bcs})
+
+
+def cylinder_stretched(
+    nx: int = 512,
+    ny: int = 256,
+    Re: float = 150.0,
+    v_inf: float = 1.0,
+    radius: float = 0.5,
+    center: tuple[float, float] = (6.0, 4.0),
+    domain: tuple[float, float] = (24.0, 8.0),
+    scheme: str = "tvd",
+    refine_strength: float = 3.0,
+    refine_width: float = 1.5,
+    wake_length: float = 6.0,
+    ibm_ramp_steps: int = 200,
+    perturb_ramp_steps: int = 200,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Cylinder flow on a stretched MAC grid: grid lines cluster around the
+    body and the near wake (Gaussian refinement regions)."""
+    from cfdsim_tpu_torch.models import mac
+    from cfdsim_tpu_torch.models import mac_stretched as ms
+
+    xf = ms.stretched_faces(
+        nx, domain[0],
+        refine=[(center[0], refine_width, refine_strength),
+                (center[0] + 0.5 * wake_length, wake_length, 0.5 * refine_strength)])
+    yf = ms.stretched_faces(ny, domain[1], refine=[(center[1], refine_width, refine_strength)])
+    h_min = float(min((xf[1:] - xf[:-1]).min(), (yf[1:] - yf[:-1]).min()))
+    defaults = dict(
+        cfl_target=0.4,
+        dt_max=0.4 * h_min / max(v_inf, 1e-10),
+        dt_min=1e-6,
+        warmup_steps=ibm_ramp_steps,
+        warmup_dt=min(5e-4, 0.1 * h_min / max(v_inf, 1e-10)),
+        max_velocity=5.0 * v_inf,
+    )
+    defaults.update(cfg_overrides)
+    cfg = ms.StretchedMACConfig(nx=nx, ny=ny, nu=v_inf * 2 * radius / Re, scheme=scheme,
+                                **defaults)
+    # face-sampled IBM masks at the stretched face locations
+    xc = 0.5 * (xf[:-1] + xf[1:])
+    yc = 0.5 * (yf[:-1] + yf[1:])
+    h_near = float(np.diff(xf)[np.argmin(np.abs(xc - center[0]))])
+    Xu, Yu = np.meshgrid(xf, yc, indexing="xy")
+    Xv, Yv = np.meshgrid(xc, yf, indexing="xy")
+    du = np.sqrt((Xu - center[0]) ** 2 + (Yu - center[1]) ** 2)
+    dv = np.sqrt((Xv - center[0]) ** 2 + (Yv - center[1]) ** 2)
+    mask_u = _gaussian_shell(du, radius, h_near).astype(np.float32)
+    mask_v = _gaussian_shell(dv, radius, h_near).astype(np.float32)
+    bcs = mac.external_flow_bcs(v_inf, yc, domain[1], perturb_ramp_steps=perturb_ramp_steps,
+                                device=device)
+    step = ms.make_step(cfg, bcs, xf, yf, ibm_mask_u=mask_u, ibm_mask_v=mask_v,
+                        ibm_ramp_steps=ibm_ramp_steps, device=device)
+    u0 = np.full((ny, nx + 1), v_inf, np.float32) * (np.float32(1.0) - mask_u)
+    state = ms.init_state(cfg, u0=u0, device=device)
+    grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
+    return Case("cylinder_stretched", cfg, step, state, grid,
+                {"x_faces": xf, "y_faces": yf, "ibm_mask_u": mask_u, "ibm_mask_v": mask_v,
+                 "center": center, "radius": radius, "h_near": h_near, "v_inf": v_inf,
+                 "bcs": bcs})
+
+
+def cylinder_mac(
+    nx: int = 720,
+    ny: int = 240,
+    Re: float = 150.0,
+    v_inf: float = 1.0,
+    radius: float = 0.5,
+    center: tuple[float, float] = (6.0, 4.0),
+    domain: tuple[float, float] = (24.0, 8.0),
+    scheme: str = "tvd",
+    poisson: Optional[PoissonConfig] = None,
+    ibm_ramp_steps: int = 200,
+    perturb_ramp_steps: int = 200,
+    ibm_profile: str = "shell",
+    ibm_scheme: str = "penalize",
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Flow past a cylinder on the staggered (MAC) grid: exact projection,
+    TVD convection, face-sampled IBM masks (``ibm_profile="shell"``, the
+    Gaussian shell, or ``"sharp"`` for quantitative forces).
+    ``ibm_scheme="ghost"`` (the ghost-cell IBM) is not ported yet."""
+    from cfdsim_tpu_torch.models import mac
+
+    if ibm_scheme == "ghost":
+        raise NotImplementedError(mac.GHOST_IBM_NOT_PORTED)
+    if ibm_scheme != "penalize":
+        raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
+    grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
+    mask_u, mask_v = cylinder_masks_mac(grid, center, radius, profile=ibm_profile)
+    pois = _poisson_spec(poisson) or PoissonConfig(method="dct")
+    defaults = dict(
+        cfl_target=0.4,
+        dt_max=0.4 * grid.dy / max(v_inf, 1e-10),
+        dt_min=1e-6,
+        dt_base=1e-3,
+        warmup_steps=ibm_ramp_steps,
+        warmup_dt=min(5e-4, 0.1 * grid.dy / max(v_inf, 1e-10)),
+        max_velocity=5.0 * v_inf,
+    )
+    defaults.update(cfg_overrides)
+    cfg = mac.MACConfig(grid=grid, nu=v_inf * 2 * radius / Re, scheme=scheme, poisson=pois,
+                        **defaults)
+    # the face centres in float32 arithmetic, as the JAX case builds them
+    y_face_centers = np.float32(grid.y_min) + (
+        np.arange(ny, dtype=np.float32) + np.float32(0.5)) * np.float32(grid.dy)
+    bcs = mac.external_flow_bcs(v_inf, y_face_centers, grid.y_max,
+                                perturb_ramp_steps=perturb_ramp_steps, device=device)
+    step = mac.make_step(cfg, bcs, ibm_mask_u=mask_u, ibm_mask_v=mask_v,
+                         ibm_ramp_steps=ibm_ramp_steps, device=device)
+    u0, v0 = potential_flow_cylinder_mac(grid, center, radius, v_inf, mask_u, mask_v)
+    state = mac.init_state(cfg, u0=u0, v0=v0, device=device)
+    return Case("cylinder_mac", cfg, step, state, grid,
+                {"ibm_mask_u": mask_u, "ibm_mask_v": mask_v, "center": center,
+                 "radius": radius, "v_inf": v_inf, "bcs": bcs})
+
+
+def cylinder_oscillating(
+    nx: int = 480,
+    ny: int = 240,
+    KC: float = 5.0,
+    Re: float = 100.0,
+    radius: float = 0.5,
+    period: float = 5.0,
+    domain: tuple[float, float] = (24.0, 12.0),
+    center: tuple[float, float] = (12.0, 6.0),
+    scheme: str = "tvd",
+    poisson: Optional[PoissonConfig] = None,
+    ibm_ramp_steps: int = 0,
+    stretched: bool = False,
+    refine_strength: float = 3.0,
+    ibm_scheme: str = "penalize",
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """In-line oscillating cylinder in fluid at rest, the moving-geometry IBM
+    benchmark: x_c(t) = x0 + A·sin(2πt/T), KC = 2πA/D, Re = U_max·D/ν with
+    U_max = 2πA/T; the sharp face masks are rebuilt on the device every
+    stage; the metrics carry the fluid–body momentum exchange (fx, fy);
+    free-slip far field. ``stretched=True`` clusters the grid around the
+    sweep. ``ibm_scheme="ghost"`` is not ported yet."""
+    from cfdsim_tpu_torch.models import mac
+
+    if ibm_scheme not in ("penalize", "ghost"):
+        raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
+    D = 2 * radius
+    A = KC * D / (2 * np.pi)
+    u_max = 2 * np.pi * A / period
+    nu = u_max * D / Re
+    grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
+    pois = _poisson_spec(poisson) or PoissonConfig(method="dct")
+    body = oscillating_cylinder(center, radius, A, period)
+    bcs = mac.free_slip_bcs()
+    extras = {"body": body, "amplitude": A, "period": period, "u_max": u_max,
+              "center": center, "radius": radius,
+              "coeff_scale": 2.0 / (u_max**2 * D)}  # Cd(t) = coeff_scale·fx(t)
+    if stretched:
+        from cfdsim_tpu_torch.models import mac_stretched as ms
+
+        xf = ms.stretched_faces(nx, domain[0], refine=[(center[0], A + 2 * radius,
+                                                        refine_strength)])
+        yf = ms.stretched_faces(ny, domain[1], refine=[(center[1], 2.5 * radius,
+                                                        refine_strength)])
+        h_min = float(min(np.diff(xf).min(), np.diff(yf).min()))
+        defaults = dict(
+            cfl_target=0.4,
+            dt_max=0.4 * h_min / max(u_max, 1e-10),
+            dt_min=1e-6,
+            max_velocity=5.0 * u_max,
+        )
+        defaults.update(cfg_overrides)
+        scfg = ms.StretchedMACConfig(nx=nx, ny=ny, nu=nu, scheme=scheme, **defaults)
+        step = ms.make_step(scfg, bcs, xf, yf, moving_body=body, ibm_ramp_steps=ibm_ramp_steps,
+                            moving_scheme=ibm_scheme, device=device)
+        state = ms.init_state(scfg, device=device)
+        extras.update({"x_faces": xf, "y_faces": yf, "h_min": h_min})
+        return Case("cylinder_oscillating", scfg, step, state, grid, extras)
+    defaults = dict(
+        cfl_target=0.4,
+        dt_max=0.4 * grid.dy / max(u_max, 1e-10),
+        dt_min=1e-6,
+        max_velocity=5.0 * u_max,
+    )
+    defaults.update(cfg_overrides)
+    cfg = mac.MACConfig(grid=grid, nu=nu, scheme=scheme, poisson=pois, **defaults)
+    step = mac.make_step(cfg, bcs, moving_body=body, ibm_ramp_steps=ibm_ramp_steps,
+                         moving_scheme=ibm_scheme, device=device)
+    state = mac.init_state(cfg, device=device)
+    return Case("cylinder_oscillating", cfg, step, state, grid, extras)
+
+
 CASES: dict[str, Callable[..., Case]] = {
     "cavity": lid_cavity,
+    "cavity_mac": lid_cavity_mac,
+    "cavity_stretched": cavity_stretched,
     "channel": channel,
     "cylinder": cylinder,
+    "cylinder_mac": cylinder_mac,
+    "cylinder_oscillating": cylinder_oscillating,
+    "cylinder_stretched": cylinder_stretched,
     "transport": transport,
 }
 

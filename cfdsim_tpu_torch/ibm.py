@@ -1,13 +1,20 @@
-"""Immersed-boundary geometry and forcing for the collocated cylinder
-(``cfdsim_tpu.ibm``: ``cylinder_masks``, ``apply_ibm``, ``ibm_ramp``,
-``potential_flow_cylinder``).
+"""Immersed-boundary geometry and forcing (``cfdsim_tpu.ibm``, 2D): the
+collocated cylinder's ``cylinder_masks``, ``apply_ibm``, ``ibm_ramp`` and
+``potential_flow_cylinder``; the staggered tiers' face-sampled
+``cylinder_masks_mac`` and ``potential_flow_cylinder_mac``; and the moving
+bodies (``MovingBody``, ``oscillating_cylinder``, ``translating_body``).
 
 The mask and initial-field builders are numpy, run once at set-up, and
 give the JAX package's arrays bit for bit; the step moves them to its
-device. ``apply_ibm`` and ``ibm_ramp`` are the per-step torch ops.
+device. ``apply_ibm`` and ``ibm_ramp`` are per-step torch ops, and a moving
+body's ``center(t)``/``velocity(t)`` are torch functions of the device-side
+time, so its masks are rebuilt on the device without a host read.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -60,3 +67,108 @@ def potential_flow_cylinder(grid: Grid, center: tuple[float, float], radius: flo
     u0 = np.where(far, u_far, u_near)
     v0 = np.where(far, v_far, 0.0)
     return u0.astype(np.float32), v0.astype(np.float32)
+
+
+def _gaussian_shell(dist, radius, dx):
+    sigma = 2.0 * dx
+    shell = np.exp(-(((dist - radius) / sigma) ** 2))
+    return np.where(dist < radius, 1.0, np.where(dist < radius + 5 * dx, shell, 0.0))
+
+
+def _mac_face_coords(grid: Grid):
+    """(Xu, Yu), (Xv, Yv): the u-face (ny, nx+1) and v-face (ny+1, nx)
+    coordinates of a cell-centred grid, float64."""
+    nx, ny, dx, dy = grid.nx, grid.ny, grid.dx, grid.dy
+    xu = grid.x_min + np.arange(nx + 1) * dx
+    yu = grid.y_min + (np.arange(ny) + 0.5) * dy
+    xv = grid.x_min + (np.arange(nx) + 0.5) * dx
+    yv = grid.y_min + np.arange(ny + 1) * dy
+    return (np.meshgrid(xu, yu, indexing="xy"), np.meshgrid(xv, yv, indexing="xy"))
+
+
+def cylinder_masks_mac(grid: Grid, center: tuple[float, float], radius: float,
+                       profile: str = "shell"):
+    """Face-sampled IBM masks (float32 numpy) for the staggered layout, at
+    the u-faces (ny, nx+1) and v-faces (ny+1, nx) of a cell-centred grid.
+    ``"shell"``: the Gaussian shell of :func:`cylinder_masks`; ``"sharp"``:
+    1 inside with a half-cell taper (quantitative forces)."""
+    dx = grid.dx
+    (Xu, Yu), (Xv, Yv) = _mac_face_coords(grid)
+    du = np.sqrt((Xu - center[0]) ** 2 + (Yu - center[1]) ** 2)
+    dv = np.sqrt((Xv - center[0]) ** 2 + (Yv - center[1]) ** 2)
+    if profile == "sharp":
+        def shape(d):
+            return np.clip((radius + 0.5 * dx - d) / dx, 0.0, 1.0)
+    elif profile == "shell":
+        def shape(d):
+            return _gaussian_shell(d, radius, dx)
+    else:
+        raise ValueError(f"unknown IBM mask profile {profile!r}")
+    return shape(du).astype(np.float32), shape(dv).astype(np.float32)
+
+
+def potential_flow_cylinder_mac(grid: Grid, center: tuple[float, float], radius: float,
+                                v_inf: float, mask_u, mask_v):
+    """Potential-flow initial (u, v) on the MAC faces, float32 numpy, at rest
+    inside the masks."""
+    dx = grid.dx
+
+    def fields(X, Y):
+        r = np.sqrt((X - center[0]) ** 2 + (Y - center[1]) ** 2)
+        th = np.arctan2(Y - center[1], X - center[0])
+        fac = (radius / np.maximum(r, 1e-10)) ** 2
+        u = v_inf * (1.0 - fac * np.cos(2.0 * th))
+        v = -v_inf * fac * np.sin(2.0 * th)
+        blend = np.minimum(1.0, ((r - radius) / (4.0 * dx)) ** 2)
+        near = r <= radius + 4.0 * dx
+        return np.where(near, v_inf * blend, u), np.where(near, 0.0, v)
+
+    (Xu, Yu), (Xv, Yv) = _mac_face_coords(grid)
+    u0 = fields(Xu, Yu)[0] * (1.0 - np.asarray(mask_u))
+    v0 = fields(Xv, Yv)[1] * (1.0 - np.asarray(mask_v))
+    return u0.astype(np.float32), v0.astype(np.float32)
+
+
+class MovingBody(NamedTuple):
+    """A rigid circular body in motion, for the moving-geometry IBM of the
+    MAC tiers: ``center(t) -> (cx, cy)`` and ``velocity(t) -> (ub, vb)``
+    are torch functions of the simulated time ``t`` (a 0-dim device
+    tensor); the step rebuilds the sharp face masks from them every stage
+    and drives the fluid toward the body's velocity."""
+
+    center: Callable
+    velocity: Callable
+    radius: float
+
+
+def oscillating_cylinder(center, radius: float, amplitude: float, period: float,
+                         axis: int = 0) -> MovingBody:
+    """In-line (axis=0) or transverse (axis=1) harmonic oscillation
+    x_c(t) = x0 + A·sin(2πt/T) (KC = 2πA/D)."""
+    x0, y0 = center
+    om = 2.0 * math.pi / period
+
+    def c(t):
+        d = amplitude * torch.sin(om * t)
+        return (x0 + d, y0) if axis == 0 else (x0, y0 + d)
+
+    def vel(t):
+        s = amplitude * om * torch.cos(om * t)
+        return (s, torch.zeros_like(s)) if axis == 0 else (torch.zeros_like(s), s)
+
+    return MovingBody(center=c, velocity=vel, radius=radius)
+
+
+def translating_body(center0, velocity, radius: float) -> MovingBody:
+    """A rigid body at constant velocity (the Galilean-invariance harness)."""
+    x0, y0 = center0
+    ub, vb = velocity
+
+    def c(t):
+        return (x0 + ub * t, y0 + vb * t)
+
+    def vel(t):
+        z = torch.zeros_like(t)
+        return (z + ub, z + vb)
+
+    return MovingBody(center=c, velocity=vel, radius=radius)

@@ -52,6 +52,7 @@ from cfdsim_tpu_torch.ops.stencil import (
     interior_mask,
     laplacian_coeff,
 )
+from cfdsim_tpu_torch.solvers.autotune import resolve_poisson_config
 from cfdsim_tpu_torch.solvers.helmholtz import DirichletHelmholtz
 from cfdsim_tpu_torch.solvers.poisson import (
     PoissonConfig,
@@ -210,6 +211,11 @@ class IncompressibleStep(nn.Module):
             )
         _check_config(cfg)
         g = cfg.grid
+        # pin dct_variant="auto" now: the autotuner times on the device,
+        # which a captured chunk must never do
+        pois = resolve_poisson_config(cfg.poisson, (g.ny, g.nx), g.dx, g.dy, device=device)
+        if pois is not cfg.poisson:
+            cfg = dataclasses.replace(cfg, poisson=pois)
         self.cfg = cfg
         self.bc_fn = bc_fn
         self.device = torch.device(device)
@@ -563,10 +569,13 @@ class Chunk:
         return tree_map(torch.clone, self._state), _stacked(self._rows.clone(), self._like)
 
 
-def make_chunk(cfg: IncompressibleConfig, step_fn: Callable, n_steps: int, *, device=None,
+def make_chunk(cfg, step_fn: Callable, n_steps: int, *, device=None,
                route: str | None = None, keep_graph: bool = False) -> Chunk:
     """``chunk(state, cfl_scale) -> (state, stacked StepMetrics)`` running
-    ``n_steps`` steps: the JAX package's jitted ``lax.scan`` chunk. On a
+    ``n_steps`` steps: the JAX package's jitted ``lax.scan`` chunk. ``cfg``
+    is the case's configuration (``IncompressibleConfig``, ``MACConfig``,
+    ``StretchedMACConfig``, or the transport pair); the chunk works on the
+    state's leaves whatever their shapes (a ``MACState`` has three). On a
     CUDA device, for a step that reads nothing on the host, the steps are
     one captured device program and cost the host a constant; else a Python
     loop of step calls (:func:`chunk_route`; see :class:`Chunk`). The route

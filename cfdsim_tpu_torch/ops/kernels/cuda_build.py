@@ -146,6 +146,18 @@ class CudaKernel:
                                f"({self.error_string(rc)})")
 
 
+def report_cost(bytes_moved: float, flops: float) -> None:
+    """Tell each active cost count (``utils/roofline.py::CostMode``, a
+    dispatch mode, which cannot see a launch through ``ctypes``) what one
+    hand-kernel launch moves and computes. A no-op outside a count."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        add = getattr(mode, "add_kernel_cost", None)
+        if add is not None:
+            add(bytes_moved, flops)
+
+
 def build_all(kernels, more_sources=()) -> dict:
     """Compile the sources of ``kernels`` and ``more_sources`` in parallel
     (one nvcc per source, all started together), then load every kernel;

@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from cfdsim_tpu_torch.ops.kernels.cuda_build import CudaKernel
+from cfdsim_tpu_torch.ops.kernels.cuda_build import CudaKernel, report_cost
 from cfdsim_tpu_torch.solvers.poisson import poisson_residual
 
 # routing threshold of the JAX wrapper (its single-VMEM-block limit), kept
@@ -74,6 +74,8 @@ B_ROUTES = {"tma": 0, "cp_async": 1}
 _p = ctypes.c_void_p
 _f = ctypes.c_float
 _i = ctypes.c_int
+FLOPS_PER_UPDATE = 11  # float32 operations of csrc/rbsor.cu::relax per cell update
+
 KERNEL_A = CudaKernel(
     "rbsor.cu",
     "cfd_rbsor_cluster",
@@ -363,6 +365,12 @@ def solve_a(phi, rhs, mask, plan: RbsorPlan, dx: float, dy: float, iters: int, o
     mask_ptr = None if mask is None else mask.data_ptr()
     check = max(1, check_every)
     count_ptr = None if chunks_run is None or tol <= 0.0 else chunks_run.data_ptr()
+    # φ, rhs (and the mask) in, φ out; every cell updated in every sweep the
+    # solve may run (all chunks of an early exit, masked cells included):
+    # an upper bound that reads nothing back from the device
+    fields = 3 if mask is None else 4
+    most = max(1, iters // check) * check if tol > 0.0 else iters
+    report_cost(4 * fields * ny * nx, FLOPS_PER_UPDATE * ny * nx * most)
     if plan.route == "cluster":
         # the whole early exit in one launch: up to max(1, iters // check)
         # chunks of `check` sweeps; without tol one chunk of `iters`
@@ -420,6 +428,7 @@ def rbsor_blocked(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: floa
             KERNEL_B(src.data_ptr(), rhs.data_ptr(), dst.data_ptr(), ny, nx, sweeps,
                      plan.tile_rows, plan.tile_cols, B_ROUTES[plan.route],
                      ax, ay, denom_inv, omega, 1.0 - omega, stream)
+            report_cost(12 * ny * nx, FLOPS_PER_UPDATE * ny * nx * sweeps)  # φ, rhs in; φ out
             src = dst
     return src
 

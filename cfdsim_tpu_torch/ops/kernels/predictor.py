@@ -26,12 +26,15 @@ from typing import NamedTuple
 import torch
 
 from cfdsim_tpu_torch.ops.convection import convection_central
-from cfdsim_tpu_torch.ops.kernels.cuda_build import CudaKernel
+from cfdsim_tpu_torch.ops.kernels.cuda_build import CudaKernel, report_cost
 from cfdsim_tpu_torch.ops.stencil import laplacian_coeff
 
 _p = ctypes.c_void_p
 _f = ctypes.c_float
 _i = ctypes.c_int
+# float32 operations per cell: two fields × (9 Laplacian + 7 convection + 4 update)
+FLOPS_PER_CELL = 40
+
 KERNEL = CudaKernel(
     "predictor.cu",
     "cfd_fused_predictor_central",
@@ -123,4 +126,5 @@ def fused_predictor_central(u, v, dt, nu: float, dx: float, dy: float):
             float(nu), 1.0 / (dx * dx), 1.0 / (dy * dy), 0.5 / dx, 0.5 / dy,
             stream,
         )
+    report_cost(16 * ny * nx, FLOPS_PER_CELL * ny * nx)  # u, v in; u*, v* out
     return us, vs

@@ -14,7 +14,14 @@ exactly diagonal in the 2D DCT-II basis, which the ``"dct"`` method uses:
 forward DCT, multiply by 1/λ, inverse DCT, with the constant nullspace mode
 projected out. The FFTs run on ``torch.fft`` (cuFFT on the card); the
 Makhoul permutes, twiddles and the 1/λ multiply are plain torch around
-them. ``"dirichlet"`` keeps the one-node frame at φ0's values and updates
+them. Its variants (``dct_variant``) solve the same problem by different
+routes: ``rfft`` (per-axis real FFTs), ``rfft2`` (one 2D real FFT),
+``rfft_split``/``rfft_split4``/``rfft_split8`` (the per-axis real FFT
+through a half-length complex FFT and 0-2 further radix-2 peels),
+``packed`` (two real lines per complex FFT), ``matmul`` (fast
+diagonalization, ``solvers/fdm.py``) and ``auto`` (the fastest of them on
+the device, measured once per shape by ``solvers/autotune.py`` when the
+solver is built). ``"dirichlet"`` keeps the one-node frame at φ0's values and updates
 only the interior (iterative methods only). An optional solid mask
 freezes φ inside embedded bodies.
 
@@ -25,8 +32,7 @@ CPU). The streaming ``"jacobi"``/``"rbsor"`` early exit (``tol > 0``)
 reads the residual on the host once per ``check_every`` sweeps; the
 kernel path keeps it on the device.
 
-Not ported: the DCT variants ``auto``, ``packed``, ``matmul`` and
-``rfft_split*``, and ``"dct"`` with a non-Neumann ``bc``; they raise
+Not ported: ``"dct"`` with a non-Neumann ``bc``, which raises
 ``NotImplementedError``.
 """
 
@@ -41,7 +47,8 @@ from torch import nn
 from cfdsim_tpu_torch.ops.stencil import laplacian
 
 METHODS = ("jacobi", "rbsor", "rbsor_pallas", "mg", "fft", "dct", "hybrid")
-PORTED_DCT_VARIANTS = ("rfft", "rfft2")
+DCT_VARIANTS = ("rfft", "rfft2", "rfft_split", "rfft_split4", "rfft_split8", "packed",
+                "matmul", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +69,10 @@ class PoissonConfig:
     mg_pre/mg_post: smoothing sweeps per level; mg_coarse: coarsest sweeps
     mg_pallas_smooth: multigrid smoothing through the RB-SOR kernels;
         "auto" = for CUDA tensors (plain sweeps on the CPU), True/False force
-    dct_variant: exact-DCT backend, "rfft" (per-axis real FFTs) or "rfft2"
-        (one 2D real FFT, even×even; other shapes take the per-axis path)
+    dct_variant: exact-DCT backend, one of ``DCT_VARIANTS`` (module
+        docstring); "rfft2" and "rfft_split*" take the per-axis "rfft" path
+        on a shape with an odd side; "auto" is resolved when the solver is
+        built
     """
 
     method: str = "rbsor"
@@ -86,12 +95,8 @@ def check_ported(cfg: PoissonConfig) -> None:
     if cfg.method not in METHODS:
         raise ValueError(f"unknown poisson method {cfg.method!r}")
     if cfg.method == "dct":
-        if cfg.dct_variant not in PORTED_DCT_VARIANTS:
-            raise NotImplementedError(
-                f"dct_variant {cfg.dct_variant!r} is not ported yet (ported: "
-                f"{PORTED_DCT_VARIANTS}); the autotuner and the packed, matmul and "
-                "rfft_split variants are ROADMAP.md queue 1"
-            )
+        if cfg.dct_variant not in DCT_VARIANTS:
+            raise ValueError(f"unknown dct_variant {cfg.dct_variant!r}; one of {DCT_VARIANTS}")
         if cfg.bc != "neumann":
             raise NotImplementedError(
                 f"the dct method solves the neumann problem only, got bc={cfg.bc!r}"
@@ -279,14 +284,16 @@ def _idct2(X, axis: int, tw):
     return torch.real(v.narrow(axis, 0, n))
 
 
-def _dct2_fast(x, axis: int, tw):
+def _dct2_fast(x, axis: int, tw, rfft=None):
     """Makhoul single-FFT DCT-II (even length): permute to
     v = [x_even, reversed(x_odd)], one real FFT, twiddle.
-    ``tw`` = exp(−iπk/2n), k ≤ n/2."""
+    ``tw`` = exp(−iπk/2n), k ≤ n/2. ``rfft(v, axis)`` replaces
+    ``torch.fft.rfft`` (the ``rfft_split`` variants' :class:`_HalfFFT`)."""
     n = x.shape[axis]
     ev = x[::2] if axis == 0 else x[:, ::2]
     od = x[1::2] if axis == 0 else x[:, 1::2]
-    W = torch.fft.rfft(torch.cat([ev, torch.flip(od, (axis,))], axis), dim=axis)
+    v = torch.cat([ev, torch.flip(od, (axis,))], axis)
+    W = torch.fft.rfft(v, dim=axis) if rfft is None else rfft(v, axis)
     # with B = e^{-iπk/2n}·W[k] (k ≤ n/2): X[k] = 2·Re(B[k]), X[n−k] = −2·Im(B[k])
     B = tw * W
     head = 2.0 * torch.real(B)
@@ -294,11 +301,11 @@ def _dct2_fast(x, axis: int, tw):
     return torch.cat([head, tail], axis)
 
 
-def _idct2_fast(X, axis: int, tw, scale_k=None, scale_nk=None):
+def _idct2_fast(X, axis: int, tw, scale_k=None, scale_nk=None, irfft=None):
     """Exact inverse of ``_dct2_fast``: V[k] = e^{iπk/2n}·(X[k] − i·X[n−k])/2,
     one inverse real FFT, un-permute. ``tw`` = exp(+iπk/2n), k ≤ n/2.
     ``scale_k``/``scale_nk`` fold a spectral multiplier (the Poisson 1/λ)
-    into this pass."""
+    into this pass; ``irfft(V, axis)`` replaces ``torch.fft.irfft``."""
     n = X.shape[axis]
     h = n // 2
     Xk = X.narrow(axis, 0, h + 1)
@@ -310,7 +317,7 @@ def _idct2_fast(X, axis: int, tw, scale_k=None, scale_nk=None):
         Xk = Xk * scale_k
         Xnk = Xnk * scale_nk
     V = tw * (0.5 * (Xk - 1j * Xnk))
-    v = torch.fft.irfft(V, n=n, dim=axis)
+    v = torch.fft.irfft(V, n=n, dim=axis) if irfft is None else irfft(V, axis)
     ev = v.narrow(axis, 0, h)
     od = torch.flip(v.narrow(axis, h, h), (axis,))
     return torch.stack([ev, od], axis + 1).reshape(X.shape)
@@ -383,30 +390,181 @@ def _inv_neumann_eigenvalues(m: int, n: int, dx: float, dy: float) -> np.ndarray
     return ilam
 
 
+def _root(n: int, length: int, sign: int, device) -> torch.Tensor:
+    """exp(sign·2πik/n) for k < ``length``, complex64, the angle in fp32."""
+    k = torch.arange(length, device=device, dtype=torch.float32)
+    return torch.exp((sign * 1j) * (2 * torch.pi * k / n))
+
+
+def _bcast(t: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    """A 1D table viewed to broadcast along ``axis`` of an ``ndim`` array."""
+    shape = [1] * ndim
+    shape[axis] = t.shape[0]
+    return t.view(shape)
+
+
+def _spectrum_reverse(F, axis: int):
+    """F[(n−k) mod n]: index reversal of a full FFT spectrum."""
+    return torch.roll(torch.flip(F, (axis,)), 1, axis)
+
+
+def _halves(x, axis: int):
+    """(x[0::2], x[1::2]) along ``axis``."""
+    lead = (slice(None),) * axis
+    return x[lead + (slice(0, None, 2),)], x[lead + (slice(1, None, 2),)]
+
+
+def _interleave(a, b, axis: int):
+    """The inverse of :func:`_halves`: a and b alternate along ``axis``."""
+    shape = list(a.shape)
+    shape[axis] *= 2
+    return torch.stack([a, b], axis + 1).reshape(shape)
+
+
+class _HalfFFT(nn.Module):
+    """The real FFT (and its inverse) of even-length-``n`` lines through ONE
+    half-length complex FFT (even/odd packing and a Hermitian split), with
+    ``depth`` further radix-2 decimation-in-time peels of that complex FFT,
+    whose halves are batched along a new leading axis (the JAX package's
+    ``_rfft_half``/``_irfft_half``/``_fft_split``/``_ifft_split``). The
+    twiddles are buffers."""
+
+    def __init__(self, n: int, depth: int, *, device):
+        super().__init__()
+        self.n, self.depth = n, depth
+        m = n // 2
+        self.register_buffer("w", _root(n, m, -1, device))
+        self.register_buffer("wc", _root(n, m, +1, device))
+        for level in range(depth):  # the peels split lengths m, m/2, …
+            L = m >> level
+            self.register_buffer(f"peel{level}", _root(L, L // 2, -1, device))
+            self.register_buffer(f"peelc{level}", _root(L, L // 2, +1, device))
+
+    def _fft(self, z, axis: int, level: int = 0):
+        if level == self.depth:
+            return torch.fft.fft(z, dim=axis)
+        ze, zo = _halves(z, axis)
+        ZZ = self._fft(torch.stack([ze, zo]), axis + 1, level + 1)
+        E, O = ZZ[0], ZZ[1]
+        wO = _bcast(getattr(self, f"peel{level}"), E.ndim, axis) * O
+        return torch.cat([E + wO, E - wO], axis)
+
+    def _ifft(self, Z, axis: int, level: int = 0):
+        if level == self.depth:
+            return torch.fft.ifft(Z, dim=axis)
+        n = Z.shape[axis]
+        A, B = Z.narrow(axis, 0, n // 2), Z.narrow(axis, n // 2, n // 2)
+        wc = _bcast(getattr(self, f"peelc{level}"), A.ndim, axis)
+        zz = self._ifft(torch.stack([0.5 * (A + B), 0.5 * wc * (A - B)]), axis + 1, level + 1)
+        return _interleave(zz[0], zz[1], axis)
+
+    def rfft(self, v, axis: int):
+        """``torch.fft.rfft(v, dim=axis)``: length n/2 + 1 along ``axis``."""
+        ve, vo = _halves(v, axis)
+        Z = self._fft(torch.complex(ve, vo), axis)  # length n/2
+        Zr = torch.conj(_spectrum_reverse(Z, axis))
+        E = 0.5 * (Z + Zr)
+        O = -0.5j * (Z - Zr)
+        head = E + _bcast(self.w, E.ndim, axis) * O  # X[k], k < n/2
+        return torch.cat([head, (E - O).narrow(axis, 0, 1)], axis)  # X[n/2] = E0 − O0
+
+    def irfft(self, X, axis: int):
+        """``torch.fft.irfft(X, n=n, dim=axis)`` of the half spectrum ``X``."""
+        m = self.n // 2
+        Xk = X.narrow(axis, 0, m)
+        Xc = torch.conj(torch.flip(X.narrow(axis, 1, m), (axis,)))  # conj X[n/2 − k]
+        E = 0.5 * (Xk + Xc)
+        O = 0.5 * _bcast(self.wc, Xk.ndim, axis) * (Xk - Xc)
+        z = self._ifft(E + 1j * O, axis)
+        return _interleave(torch.real(z), torch.imag(z), axis)
+
+
+def _cdct(z, axis: int, tw):
+    """Complexified Makhoul DCT-II along ``axis`` (even length n):
+    DCT(Re z) + i·DCT(Im z) in one full-length complex FFT,
+    X[k] = tw[k]·F[k] + conj(tw[k])·F[(n−k) mod n], tw = e^{−iπk/2n}, k < n."""
+    ev, od = _halves(z, axis)
+    F = torch.fft.fft(torch.cat([ev, torch.flip(od, (axis,))], axis), dim=axis)
+    return tw * F + torch.conj(tw) * _spectrum_reverse(F, axis)
+
+
+def _icdct(X, axis: int, tw):
+    """Exact inverse of :func:`_cdct`: F[k] = e^{iπk/2n}·(X[k] − i·X_rev[k])/2
+    with X_rev = [0, X[n−1], …, X[1]], one complex inverse FFT, un-permute;
+    ``tw`` = e^{+iπk/2n}, k < n."""
+    n = X.shape[axis]
+    Xrev = torch.cat([torch.zeros_like(X.narrow(axis, 0, 1)),
+                      torch.flip(X.narrow(axis, 1, n - 1), (axis,))], axis)
+    v = torch.fft.ifft(tw * (X - 1j * Xrev) * 0.5, dim=axis)
+    return _interleave(v.narrow(axis, 0, n // 2),
+                       torch.flip(v.narrow(axis, n // 2, n // 2), (axis,)), axis)
+
+
+def _pack(a, axis: int):
+    """Adjacent line pairs along ``axis`` as one complex line: a0 + i·a1."""
+    return torch.complex(*_halves(a, axis))
+
+
+def _unpack(z, axis: int):
+    """Re/Im back into adjacent real lines along ``axis``."""
+    return _interleave(torch.real(z), torch.imag(z), axis)
+
+
+def _split_depth(variant: str) -> int:
+    """Radix-2 levels of an ``rfft_split*`` variant: the name's suffix is
+    the division of the FFT length (none = 2): 2 → 1, 4 → 2, 8 → 3."""
+    factor = int(variant[len("rfft_split"):] or "2")
+    return max(factor.bit_length() - 1, 1)
+
+
 class NeumannDCT(nn.Module):
     """Exact solver of the clamped-edge (Neumann) FD Poisson problem on one
-    (m, n) grid. The 1/λ table and the twiddles are built once, as buffers,
-    on ``device``; ``forward(rhs)`` returns φ (mean-free)."""
+    (m, n) grid by the DCT variant ``variant`` (``DCT_VARIANTS``; "auto" is
+    measured, or read from the autotuner's cache, here at construction).
+    The 1/λ table and the twiddles (or the fast-diagonalization matrices)
+    are built once, as buffers, on ``device``; ``forward(rhs)`` returns φ
+    (mean-free) and does no host work."""
 
     def __init__(self, shape, dx: float, dy: float, variant: str = "rfft", *, device):
         super().__init__()
-        if variant not in PORTED_DCT_VARIANTS:
-            raise NotImplementedError(
-                f"dct_variant {variant!r} is not ported yet (ported: {PORTED_DCT_VARIANTS})"
-            )
+        if variant not in DCT_VARIANTS:
+            raise ValueError(f"unknown dct_variant {variant!r}; one of {DCT_VARIANTS}")
         m, n = shape
+        if variant == "auto":
+            from cfdsim_tpu_torch.solvers.autotune import best_dct_variant
+
+            variant = best_dct_variant((m, n), dx, dy, device=device)
         self.shape = (m, n)
-        self.use_rfft2 = variant == "rfft2" and m % 2 == 0 and n % 2 == 0
+        self.variant = variant
+        even = m % 2 == 0 and n % 2 == 0
+        # rfft2 and rfft_split* take the per-axis path on a shape with an odd
+        # side, as in the JAX package; packed needs even sides
+        mode = variant if even or variant in ("packed", "matmul") else "rfft"
+        if mode == "packed" and not even:
+            raise ValueError(f"the packed DCT variant needs even sizes, got {(m, n)}")
+        self.mode = mode
+        if mode == "matmul":
+            from cfdsim_tpu_torch.solvers.autotune import matmul_dct_solver
+
+            self.fdm = matmul_dct_solver(m, n, dx, dy, device=device)
+            return
+        if mode.startswith("rfft_split"):
+            depth = _split_depth(mode)
+            # the Makhoul permute needs even n, the peels n/2 divisible by 2^(depth−1)
+            if min(m, n) % (1 << (depth + 1)):
+                raise ValueError(f"{mode} needs sizes divisible by {1 << (depth + 1)}")
+            self.half0 = _HalfFFT(m, depth - 1, device=device)
+            self.half1 = _HalfFFT(n, depth - 1, device=device)
         ilam = _inv_neumann_eigenvalues(m, n, dx, dy)
         self.register_buffer("ilam", torch.from_numpy(ilam).to(device))
-        if self.use_rfft2:
-            lengths = (m, n // 2 + 1)
+        if mode in ("packed", "rfft2"):
+            lengths = (m, n) if mode == "packed" else (m, n // 2 + 1)
         else:
             lengths = tuple(L // 2 + 1 if L % 2 == 0 else L for L in (m, n))
         for axis, (L, length) in enumerate(zip((m, n), lengths)):
             self.register_buffer(f"fwd{axis}", _along(_twiddle(L, length, -1, device), axis))
             self.register_buffer(f"inv{axis}", _along(_twiddle(L, length, +1, device), axis))
-        if not self.use_rfft2 and n % 2 == 0:
+        if mode not in ("packed", "rfft2") and n % 2 == 0:
             # 1/λ for the X[k] and X[n−k] branches of the first inverse pass
             self.register_buffer("ilam_k", self.ilam[:, : n // 2 + 1].clone())
             self.register_buffer("ilam_nk", torch.cat(
@@ -424,9 +582,24 @@ class NeumannDCT(nn.Module):
     def forward(self, rhs):
         if tuple(rhs.shape) != self.shape:
             raise ValueError(f"solver built for {self.shape}, got {tuple(rhs.shape)}")
-        if self.use_rfft2:
+        mode = self.mode
+        if mode == "matmul":
+            return self.fdm(rhs)
+        if mode == "rfft2":
             rhs_hat = _dct2d_rfft2(rhs, self.fwd0, self.fwd1)
             return _idct2d_rfft2(rhs_hat, self.inv0, self.inv1, scale=self.ilam)
+        if mode == "packed":
+            # each axis transform packs line pairs along the other axis
+            A = _unpack(_cdct(_pack(rhs, 0), 1, self.fwd1), 0)
+            rhs_hat = _unpack(_cdct(_pack(A, 1), 0, self.fwd0), 1)
+            X = rhs_hat * self.ilam
+            A = _unpack(_icdct(_pack(X, 1), 0, self.inv0), 1)
+            return _unpack(_icdct(_pack(A, 0), 1, self.inv1), 0)
+        if mode.startswith("rfft_split"):
+            h0, h1 = self.half0, self.half1
+            rhs_hat = _dct2_fast(_dct2_fast(rhs, 0, self.fwd0, h0.rfft), 1, self.fwd1, h1.rfft)
+            X = _idct2_fast(rhs_hat, 1, self.inv1, self.ilam_k, self.ilam_nk, h1.irfft)
+            return _idct2_fast(X, 0, self.inv0, irfft=h0.irfft)
         rhs_hat = self._fwd(self._fwd(rhs, 0), 1)
         if self.shape[1] % 2 == 0:
             # fold 1/λ into the first inverse's spectrum-build pass

@@ -36,16 +36,49 @@ and the final ``{"ok": true, ...}`` line is not printed:
    plain versions' bits, and each line says whether they do
 4. chunk routes: 20 steps through the captured chunk (one CUDA graph,
    ``make_chunk``'s route on the card) against 20 eager step calls from
-   the same state, metrics on, on the three paths below and on the
+   the same state, metrics on, on the three paths below, on the
    implicit cavity (DST, and with LES the Jacobi back end), the LES
-   cylinder and the coupled transport cavity of phases 9-12; the same kernels
+   cylinder and the coupled transport cavity of phases 9-12, and on the
+   nine staggered cells of ``bench.mac_paths`` (phases 5c-5d); the same kernels
    in the same order, so u, v, p, t, step (θ too) and every stacked metric
    must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
    itself, to 20 per captured chunk plus the capture's eager warm-up
 5. golden: the 48² Re=100 cavity, a 300-step captured chunk + one metrics
    step, fused predictor off and on, against tests/goldens.json (RTOL 2e-5)
-6. main path: the 1024² Re=1000 cavity through runner.Simulation, 600
+5a. DCT variants: every variant against rfft at 1024² (rfft_split4 and
+   rfft_split8 also at 4096²), max |Δφ| ≤ 1e-5 of max|φ|; ``"auto"`` at
+   1024² in a cache directory of the run's own: the first build measures
+   once, the second reads the in-process cache, a cleared process the file,
+   a MAC cavity built with "auto" captures its chunk without timing, and a
+   cache miss under a capture raises; then every variant's device ms at
+   256², 512², 1024², 2048² and 4096² and each shape's winner
+5b. FDM precision: with ``torch.set_float32_matmul_precision("high")`` set,
+   the stretched 512² solve (``wall_clustered_faces``, β = 1.5) has
+   ‖Lφ − rhs‖ / ‖rhs‖ ≤ 1e-4, and the setting reads "high" afterwards; the
+   same four products without the guard are printed beside it
+5c. staggered paths, each from rest through runner.Simulation's captured
+   chunks, 200 steps: the 1024² Re=1000 MAC cavity (chorin, incremental,
+   implicit), ``cylinder_mac`` at 720×240, ``cylinder_oscillating`` at
+   480×240 uniform and stretched, ``cavity_stretched`` at 512² and
+   ``cylinder_stretched`` at 512×256: healthy, no kernel launched, and
+   ``div_post`` at float32 roundoff in every step: ≤ 1e-5·max|u|/h (max|u|
+   over the run) for the DCT projection, 1e-4 for the stretched tier's
+   four float32 matmuls
+5d. MAC kernels: the 1024² ``mg:2`` MAC cavity, 100 steps, launching
+   kernels A and B as phase 8's cavity does (the same pressure grid), then
+   5 steps against plain smoothing (u, v within 1e-5); ``cylinder_mac``
+   with the kernel-A solve of phase 7 (``rbsor_pallas``), 50 steps, one
+   launch per step
+5e. MAC goldens: ``cavity_mac_48_re1000`` (300 steps) and
+   ``cylinder_mac_forces`` (200) through the captured chunk, RTOL 2e-5
+   (the second's fy at 2e-5 of |fx| and max_p at 1e-4, the bands of
+   tests/test_torch_mac_cylinder.py)
+5f. Botella–Peyret gate: the 128² Re=1000 MAC cavity to t = 200 in
+   captured chunks of 2000 steps; the largest centreline-extremum error
+   under 0.009 (tests/test_mac_accuracy_slow.py:25)
+6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
+   resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
    1.5, kernel launches = steps + the warm-up's (every kernel counts its
    own launches in device memory, so the graph's replays are counted where
@@ -97,7 +130,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
 13. timings, each beside the card's name and power limit: marginal
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
-   plain torch at 1024²; one DCT solve at 1024² with rfft and rfft2; kernel
+   plain torch at 1024²; (every DCT variant per shape: phase 5a); kernel
    A per 50-sweep call on each route (the masked 180×600 chunk on a
    cluster of 16, 32×48 on 1, 128×256 on 8, the masked 360×1200 on the
    cooperative kernel), the multigrid's 512² 2-sweep call on the
@@ -107,8 +140,11 @@ and the final ``{"ok": true, ...}`` line is not printed:
    1024² (TMA) and per 2-sweep call at 1000×1030 (cp.async), each
    against its plain version; ``bench --all`` (marginal rbsor sweeps/s, MG
    V-cycles/s, DCT solves/s at 1024², ms per Helmholtz solve beside the
-   DCT solve's, and ms per step, chunk and eager, of the implicit cavity,
-   the LES cylinder and the transport cavity) and ``bench --cylinder`` (steps/s
+   DCT solve's, MAC-1024² and stretched-512² cells/s, and ms per step,
+   chunk and eager, of the implicit cavity, the LES cylinder and the
+   transport cavity), ``bench --roofline`` (the card's peaks, and flops,
+   bytes per cell and bound of the collocated, MAC and stretched tiers),
+   the profile of every path, staggered ones included, and ``bench --cylinder`` (steps/s
    through kernel A, captured and eager, and through streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``).
    "Device" times replay the calls from a CUDA graph, so they exclude the
@@ -136,6 +172,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import shutil
 import sys
 import time
@@ -147,7 +184,9 @@ import torch
 from cfdsim_tpu_torch.bench import (
     CYLINDER_KERNEL_POISSON,
     EMPTY_SOURCE,
+    POISSON,
     dct_solve_ms,
+    mac_paths,
     new_paths,
     predictor_ms,
     profile_chunk,
@@ -157,14 +196,16 @@ from cfdsim_tpu_torch.bench import (
     run_all,
     run_bench,
     run_cylinder,
+    run_roofline,
     step_device_ms,
 )
 from cfdsim_tpu_torch import __main__ as cli
-from cfdsim_tpu_torch.cases import build, lid_cavity
+from cfdsim_tpu_torch.cases import build, lid_cavity, lid_cavity_mac
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.io_ import restore
 from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter, csnap_steps
+from cfdsim_tpu_torch.models import mac_stretched
 from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
@@ -172,11 +213,17 @@ from cfdsim_tpu_torch.ops.kernels import predictor as pred
 from cfdsim_tpu_torch.ops.les import smagorinsky_viscosity
 from cfdsim_tpu_torch.ops.stencil import laplacian
 from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
+from cfdsim_tpu_torch.solvers import autotune, fdm
 from cfdsim_tpu_torch.solvers.helmholtz import solve_helmholtz_dirichlet
-from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, poisson_residual
+from cfdsim_tpu_torch.solvers.poisson import (
+    NeumannDCT,
+    PoissonConfig,
+    PoissonSolver,
+    poisson_residual,
+)
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
 from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
-from cfdsim_tpu_torch.validation import ghia_error
+from cfdsim_tpu_torch.validation import botella_peyret_errors, ghia_error
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
@@ -216,6 +263,26 @@ CYL_UV_ATOL = MG_UV_ATOL = STEP_ATOL
 CYL_P_RTOL = MG_P_RTOL = 1e-3
 HELMHOLTZ_RTOL = 1e-4  # max interior residual of the DST solve over max |b|, at 1024²
 GHIA_TOL = 0.006  # tests/test_ghia_slow.py:25: 128², Re=100, t=30, measured + 20%
+DCT_VARIANT_RTOL = 1e-5  # every DCT variant against rfft, of max|φ| (tests/test_torch_dct_variants.py)
+DCT_TIMING_SIZES = (256, 512, 1024, 2048, 4096)
+FDM_RESIDUAL_RTOL = 1e-4  # ‖Lφ − rhs‖ / ‖rhs‖ of the stretched 512² solve under "high"
+# the exact projection leaves div u at float32 roundoff: held to 1e-5 of
+# max|u|/h, max|u| over the run (tests/test_torch_mac.py observed ≤ 4e-6 at
+# 32², below 1e-5·32)
+MAC_DIV_POST_RTOL = 1e-5
+# the stretched tier's projection is four float32 matmuls (FDM), whose
+# rounding leaves a residual some 300 ulp wide (phase 5b: 3.8e-5 of ‖rhs‖):
+# its div u is held to 1e-4 of max|u|/h
+FDM_DIV_POST_RTOL = 1e-4
+# the goldens of the MAC tier (tests/test_goldens.py); the two keys of
+# cylinder_mac_forces below float32 reproducibility take the bands of
+# tests/test_torch_mac_cylinder.py: fy 2e-5 of the larger of |fx|, |fy|,
+# max_p 1e-4 relative
+MAC_GOLDENS = {"cavity_mac_48_re1000": (("cavity_mac", dict(n=48, Re=1000.0)), 300),
+               "cylinder_mac_forces": (("cylinder_mac", dict(nx=96, ny=48, Re=100.0,
+                                                              ibm_profile="sharp")), 200)}
+GOLDEN_P_RTOL = 1e-4
+BP_TOL = 0.009  # tests/test_mac_accuracy_slow.py:25: 128², Re=1000, t=200
 # The snapshot writer of the resume phase. A machine that runs this script
 # needs only torch, numpy, nvcc and g++ with zlib: the native writer
 # (native/csnap.cc, compiled at first use) runs there, while the HDF5 writer
@@ -225,8 +292,8 @@ SNAPSHOT_IO = "native"
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
-PREDICTOR_FLOPS_PER_CELL = 40  # two fields × (9 Laplacian + 7 convection + 4 update)
-RBSOR_FLOPS_PER_UPDATE = 11  # the update expression of csrc/rbsor.cu::relax
+PREDICTOR_FLOPS_PER_CELL = pred.FLOPS_PER_CELL
+RBSOR_FLOPS_PER_UPDATE = rb.FLOPS_PER_UPDATE
 
 
 def say(phase: str, **fields):
@@ -526,8 +593,8 @@ def _paths(compute_metrics=True):
     ``mg:2`` cavity."""
     return {
         "cavity1024_dct_fused": lid_cavity(
-            n=1024, Re=1000.0, poisson=PoissonConfig(method="dct", dct_variant="rfft2"),
-            compute_metrics=compute_metrics, fused_predictor=True, device="cuda"),
+            n=1024, Re=1000.0, poisson=POISSON, compute_metrics=compute_metrics,
+            fused_predictor=True, device="cuda"),
         "cylinder600x180_rbsor_pallas": build(
             "cylinder", ref_parity=True, scheme="supg", poisson=CYLINDER_KERNEL_POISSON,
             compute_metrics=compute_metrics, device="cuda"),
@@ -539,9 +606,11 @@ def _paths(compute_metrics=True):
 def phase_chunk_routes():
     """The captured chunk against the eager loop, 20 steps from one state."""
     steps = 20
-    paths = {**_paths(), **new_paths(compute_metrics=True)}
-    # plain torch and cuFFT only
-    no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi"}
+    macs = mac_paths(1024, compute_metrics=True, device="cuda")
+    paths = {**_paths(), **new_paths(compute_metrics=True), **macs}
+    # plain torch, cuFFT and cuBLAS only
+    no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi",
+                 *(k for k in macs if not k.endswith("_mg2"))}
     for path, case in paths.items():
         graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
         loop = make_chunk(case.cfg, case.step, steps, route="loop")
@@ -788,7 +857,7 @@ def phase_golden():
 
 
 def phase_main_path():
-    pois = PoissonConfig(method="dct", dct_variant="rfft2")
+    pois = POISSON  # the bench's: dct_variant="auto", resolved when the step is built
     case = lid_cavity(n=1024, Re=1000.0, poisson=pois, compute_metrics=True,
                       fused_predictor=True, device="cuda")
     cfg = RunnerConfig(t_final=1e9, max_steps=600, chunk_steps=100, health_check=True,
@@ -853,6 +922,257 @@ def phase_main_path():
     return launches
 
 
+def phase_dct_variants(card):
+    """Every DCT variant against rfft on the card; "auto" measured once,
+    then read from the cache, never timed under a capture; each variant's
+    device ms per shape and the winner. Returns the per-shape table."""
+    rng = np.random.default_rng(11)
+    checks = [(1024, v) for v in ("rfft2", "rfft_split", "rfft_split4", "rfft_split8", "packed",
+                                  "matmul")] + [(4096, "rfft_split4"), (4096, "rfft_split8")]
+    refs = {}
+    for n, variant in checks:
+        h = 1.0 / n
+        if n not in refs:
+            rhs = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device="cuda")
+            refs[n] = (rhs, NeumannDCT((n, n), h, h, "rfft", device="cuda")(rhs))
+        rhs, want = refs[n]
+        got = NeumannDCT((n, n), h, h, variant, device="cuda")(rhs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        say("dct_variant_vs_rfft", n=n, variant=variant, max_rel_err=err, rtol=DCT_VARIANT_RTOL)
+        if not err <= DCT_VARIANT_RTOL:
+            raise AssertionError(f"dct_variant {variant} at {n}²: {err} of max|φ|")
+    del refs
+
+    # "auto": a cache of this run's own; the first build measures, the second
+    # reads the in-process cache, a fresh process the file; a capture never times
+    cache_dir = SMOKE_OUT / "autotune"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    old_env = os.environ.get("CFDSIM_AUTOTUNE_CACHE")
+    os.environ["CFDSIM_AUTOTUNE_CACHE"] = str(cache_dir)
+    measured = []
+    real_measure = autotune.measure_dct_variants
+
+    def counting(*a, **k):
+        measured.append(a[0])
+        return real_measure(*a, **k)
+
+    autotune.measure_dct_variants = counting
+    try:
+        autotune._MEM.clear()
+        h = 1.0 / 1024
+        t0 = time.perf_counter()
+        first = PoissonSolver((1024, 1024), h, h, PoissonConfig(method="dct", dct_variant="auto"),
+                              device="cuda").dct.variant
+        tune_s = time.perf_counter() - t0
+        second = PoissonSolver((1024, 1024), h, h, PoissonConfig(method="dct", dct_variant="auto"),
+                               device="cuda").dct.variant
+        autotune._MEM.clear()
+        from_disk = autotune.best_dct_variant((1024, 1024), h, h, device="cuda")
+        entry = json.loads((cache_dir / "autotune.json").read_text())
+        # a MAC cavity with "auto" through the captured chunk: resolved at build
+        case = lid_cavity_mac(n=1024, Re=1000.0, poisson=PoissonConfig(method="dct",
+                                                                       dct_variant="auto"),
+                              device="cuda")
+        chunk = make_chunk(case.cfg, case.step, 10)
+        chunk(case.state, 1.0)
+        torch.cuda.synchronize()
+        # a miss under a capture raises, and times nothing
+        g = torch.cuda.CUDAGraph()
+        refused = None
+        with torch.cuda.graph(g):
+            try:
+                autotune.best_dct_variant((96, 160), 0.1, 0.1, device="cuda")
+            except RuntimeError as e:
+                refused = str(e)
+    finally:
+        autotune.measure_dct_variants = real_measure
+        if old_env is None:
+            os.environ.pop("CFDSIM_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["CFDSIM_AUTOTUNE_CACHE"] = old_env
+    say("dct_auto", n=1024, first=first, second=second, from_disk=from_disk,
+        measurements=len(measured), tune_s=tune_s, cache=entry, chunk_route=chunk.mode,
+        mac_step_variant=case.step.cfg.poisson.dct_variant, capture_refused=refused, card=card)
+    if not (first == second == from_disk == case.step.cfg.poisson.dct_variant) or len(
+            measured) != 1 or chunk.mode != "graph" or refused is None:
+        raise AssertionError(f"auto: {first}, {second}, {from_disk}, measured {measured}, "
+                             f"refused under capture: {refused!r}")
+
+    # each variant's device ms by shape, and the winner
+    table = {}
+    for n in DCT_TIMING_SIZES:
+        t = dct_solve_ms(n, reps=20 if n < 4096 else 5)
+        table[n] = {"winner": t["winner"], **{k[:-len("_device_ms")]: min(v)
+                                              for k, v in t.items() if k.endswith("_device_ms")}}
+        say("time_dct_variants", **t, card=card)
+        torch.cuda.empty_cache()
+    return table
+
+
+def phase_fdm_precision():
+    """The stretched 512² FDM solve stays full float32 under a caller's
+    "high" (TF32) matmul precision, and the caller's setting comes back."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        faces = mac_stretched.wall_clustered_faces(512, 1.0, beta=1.5)
+        h = np.diff(faces)
+        solver = fdm.make_fdm_solver(h, h, device="cuda")
+        rng = np.random.default_rng(5)
+        rhs = rng.standard_normal((512, 512))
+        w = np.outer(h, h)
+        rhs -= (w * rhs).sum() / w.sum()  # no nullspace component
+        r = torch.tensor(rhs, dtype=torch.float32, device="cuda")
+        L = torch.tensor(fdm.neumann_operator_1d(h), dtype=torch.float64, device="cuda")
+
+        def rel_residual(phi):
+            p = phi.double()
+            res = L @ p + p @ L.T - r.double()
+            return float(torch.linalg.norm(res) / torch.linalg.norm(r.double()))
+
+        guarded = rel_residual(solver(r))
+        after = torch.get_float32_matmul_precision()
+        # the same four products without the guard, under the caller's "high"
+        raw = solver.Vy @ ((solver.Vyi @ r @ solver.VxiT) * solver.inv_lam) @ solver.VxT
+        unguarded = rel_residual(raw)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    say("fdm_precision", n=512, beta=1.5, precision_set="high", rel_residual=guarded,
+        rel_residual_without_guard=unguarded, rtol=FDM_RESIDUAL_RTOL, precision_after=after)
+    if not guarded <= FDM_RESIDUAL_RTOL or after != "high":
+        raise AssertionError(f"FDM under 'high': residual {guarded}, precision after {after!r}")
+
+
+def _mac_h(case):
+    """The smallest spacing of a MAC case (stretched: of its faces)."""
+    if "x_faces" in case.extras:
+        return float(min(np.diff(case.extras["x_faces"]).min(),
+                         np.diff(case.extras["y_faces"]).min()))
+    return min(case.grid.dx, case.grid.dy)
+
+
+# the staggered paths of phase_mac_paths: the mac_paths cell, the steps and
+# the largest |u| a healthy run has
+MAC_PATH_RUNS = {
+    "cavity_mac1024_chorin": (200, 1.5),
+    "cavity_mac1024_incremental": (200, 1.5),
+    "cavity_mac1024_implicit": (200, 1.5),
+    "cylinder_mac720x240": (200, 3.0),
+    "cylinder_oscillating480x240": (200, 3.0),
+    "cylinder_oscillating480x240_stretched": (200, 3.0),
+    "cavity_stretched512": (200, 1.5),
+    "cylinder_stretched512x256": (200, 3.0),
+}
+
+
+def phase_mac_paths():
+    """Each staggered path from rest through runner.Simulation's captured
+    chunks: healthy, no kernel launched (DCT or FDM projection), and div u
+    at float32 roundoff after every step."""
+    cases = mac_paths(1024, compute_metrics=True, device="cuda")
+    for path, (steps, max_u) in MAC_PATH_RUNS.items():
+        case = cases.pop(path)
+        _reset_counts()
+        sim, state, report, wall = _run(case, steps, 50, warmup_div_threshold=50.0)
+        launches = _counts()
+        _, got_u = _healthy(path, state, report, steps, max_u)
+        h = _mac_h(case)
+        div_post = max(r["div_post"] for r in sim.metrics_history)
+        rtol = FDM_DIV_POST_RTOL if "x_faces" in case.extras else MAC_DIV_POST_RTOL
+        bound = rtol * max(r["max_vel"] for r in sim.metrics_history) / h
+        say("mac_path", path=path, steps=int(state.step), launches=launches, max_abs_u=got_u,
+            div_post_max=div_post, div_post_bound=bound, t=report["final_time"],
+            last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim),
+            device_peak_bytes=report.get("device_peak_bytes"))
+        if any(launches.values()):
+            raise AssertionError(f"{path} launched kernels: {launches}")
+        if not div_post <= bound:
+            raise AssertionError(f"{path}: div_post {div_post} above roundoff {bound}")
+    del cases
+    torch.cuda.empty_cache()
+
+
+def phase_mac_kernels():
+    """The MAC tier's pressure solve through the RB-SOR kernels: the mg:2
+    MAC cavity at 1024² (kernels A and B) against plain smoothing, and the
+    MAC cylinder through kernel A."""
+    steps = 100
+    case = lid_cavity_mac(n=1024, Re=1000.0, poisson="mg:2", device="cuda")
+    _reset_counts()
+    sim, state, report, wall = _run(case, steps, 50)
+    launches = _counts()
+    _, max_u = _healthy("mac_mg_cavity", state, report, steps, 1.5)
+    say("mac_mg_path", n=1024, Re=1000.0, steps=int(state.step), launches=launches,
+        max_abs_u=max_u, t=report["final_time"], last_chunk=sim.metrics_history[-1],
+        wall_s=wall, **_chunk_facts(sim))
+    ran = steps + sim.chunk.steps_per_graph  # the pressure grid of phase_mg_cavity
+    want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
+            "rbsor_b": ran * 2 * 2}
+    if launches != want:
+        raise AssertionError(f"MAC multigrid path launches {launches}, expected {want}")
+    plain = lid_cavity_mac(n=1024, Re=1000.0, device="cuda",
+                           poisson=PoissonConfig(method="mg", iters=2, mg_pallas_smooth=False))
+    diff = _steps_apart(case, plain, state, 5)
+    say("mac_mg_kernel_vs_plain_smoothing", steps=5, **diff, uv_atol=MG_UV_ATOL)
+    if not (diff["du"] <= MG_UV_ATOL and diff["dv"] <= MG_UV_ATOL):
+        raise AssertionError(f"MAC multigrid kernel vs plain smoothing: {diff}")
+
+    steps = 50
+    cyl = build("cylinder_mac", poisson=CYLINDER_KERNEL_POISSON, device="cuda")
+    chunks_run = cyl.step.poisson.chunks_run
+    _reset_counts()
+    chunks_run.zero_()
+    sim, state, report, wall = _run(cyl, steps, 50)
+    cyl_launches = _counts()
+    _, max_u = _healthy("mac_cylinder_kernel_a", state, report, steps, 3.0)
+    say("mac_cylinder_kernel_a_path", nx=720, ny=240, steps=int(state.step),
+        launches=cyl_launches, kernel_chunks_run=int(chunks_run), max_abs_u=max_u,
+        last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim))
+    ran = steps + sim.chunk.steps_per_graph
+    if cyl_launches != {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}:
+        raise AssertionError(f"MAC cylinder through kernel A launched {cyl_launches}")
+    return launches, cyl_launches
+
+
+def phase_mac_goldens():
+    for name, ((case_name, kw), steps) in MAC_GOLDENS.items():
+        ref = json.loads((ROOT / "tests" / "goldens.json").read_text())[name]
+        atol = 1e-6 * max(abs(v) for v in ref.values())
+        sig = golden_signature(build(case_name, device="cuda", **kw), steps)
+        tols = {k: max(GOLDEN_RTOL * abs(w), atol) for k, w in ref.items()}
+        if name == "cylinder_mac_forces":
+            tols["fy"] = GOLDEN_RTOL * max(abs(ref["fx"]), abs(ref["fy"]))
+            tols["max_p"] = GOLDEN_P_RTOL * abs(ref["max_p"])
+        rel = {k: abs(sig[k] - w) / max(abs(w), atol) for k, w in ref.items()}
+        say("mac_golden", golden=name, rel_err=rel, rtol=GOLDEN_RTOL,
+            worst_share_of_tol=max(abs(sig[k] - w) / tols[k] for k, w in ref.items()))
+        for key, want in ref.items():
+            if not abs(sig[key] - want) <= tols[key]:
+                raise AssertionError(f"golden {name}.{key}: {sig[key]} vs {want}")
+
+
+def phase_botella_peyret():
+    """The accuracy gate of the MAC tier: 128², Re=1000, t = 200."""
+    n = 128
+    case = lid_cavity_mac(n=n, Re=1000.0, device="cuda")
+    cfg = RunnerConfig(t_final=200.0, chunk_steps=2000, health_check=True, div_threshold=50.0,
+                       max_velocity=case.cfg.max_velocity, log_every_chunks=0)
+    sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
+    t0 = time.perf_counter()
+    state, report = sim.run()
+    wall = time.perf_counter() - t0
+    if report["stopped_reason"] or report["chunk_route"] != "graph":
+        raise AssertionError(f"B&P run: {report}")
+    x = (np.arange(n) + 0.5) / n
+    errs = botella_peyret_errors(state.u[:, n // 2].cpu().numpy(), x,
+                                 state.v[n // 2, :].cpu().numpy(), x)
+    say("botella_peyret_gate", n=n, Re=1000, t=report["final_time"], steps=report["final_step"],
+        errors=errs, tol=BP_TOL, wall_s=wall)
+    if not max(errs.values()) < BP_TOL:
+        raise AssertionError(f"Botella–Peyret at 128²: {errs} (tol {BP_TOL})")
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -872,8 +1192,13 @@ def phase_timings(card):
     # device events, busy time and idle share per step, metrics off: the
     # three paths through the captured chunk and through the eager loop
     for route in (None, "loop"):
-        for path, case in {**_paths(compute_metrics=False), **new_paths()}.items():
+        for path, case in {**_paths(compute_metrics=False), **new_paths(),
+                           **mac_paths()}.items():
             say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
+        torch.cuda.empty_cache()
+    # per tier the flops and bytes of one step against the card's peaks
+    for row in run_roofline(1024):
+        say("time_roofline", **row)
     # the predictor alone at the main path's shape and at 4096², inputs
     # streamed from device memory: plain, kernel, kernel, plain; then a
     # plain copy of the same bytes and an empty launch
@@ -881,8 +1206,6 @@ def phase_timings(card):
     say("time_predictor", shape=[1024, 1024], **pred_t, card=card)
     pred_4096 = predictor_ms(4096, reps=50)
     say("time_predictor", shape=[4096, 4096], **pred_4096, card=card)
-    # one DCT solve at 1024²: rfft, rfft2, rfft2, rfft
-    say("time_dct_solve", shape=[1024, 1024], **dct_solve_ms(1024, reps=50), card=card)
     # kernel A: one 50-sweep chunk of the cylinder's masked solve (a
     # cluster of 16), then 50 sweeps on each other route: a cluster of 1
     # and of 8, and the cooperative kernel on the cylinder at twice its
@@ -953,6 +1276,7 @@ def phase_timings(card):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     card = card_name_and_power_limit()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -971,6 +1295,12 @@ def main() -> int:
     err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
     phase_chunk_routes()
     phase_golden()
+    dct_table = phase_dct_variants(card)
+    phase_fdm_precision()
+    phase_mac_paths()
+    mac_mg, mac_cyl = phase_mac_kernels()
+    phase_mac_goldens()
+    phase_botella_peyret()
     pred_launches = phase_main_path()
     cyl_a, cyl_chunks_per_step = phase_cylinder()
     mg = phase_mg_cavity()
@@ -987,9 +1317,13 @@ def main() -> int:
                   "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"],
                   "cylinder_600x180_les": les_a,
                   "cavity_1024_implicit_mg": implicit_mg["rbsor_a"],
-                  "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"]},
+                  "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"],
+                  "cavity_mac_1024_mg": mac_mg["rbsor_a"],
+                  "cavity_mac_1024_mg_cooperative": mac_mg["rbsor_a_cooperative"],
+                  "cylinder_mac_720x240": mac_cyl["rbsor_a"]},
         "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"],
-                          "cavity_1024_implicit_mg": implicit_mg["rbsor_b"]},
+                          "cavity_1024_implicit_mg": implicit_mg["rbsor_b"],
+                          "cavity_mac_1024_mg": mac_mg["rbsor_b"]},
     }
     info = {
         "fused_predictor_central": ("cfdsim_tpu_torch/csrc/predictor.cu",
@@ -1019,6 +1353,9 @@ def main() -> int:
             **extra,
         })
     rows[1]["kernel_chunks_per_cylinder_step"] = cyl_chunks_per_step
+    say("dct_autotune_table", winners={n: t["winner"] for n, t in dct_table.items()},
+        ms=dct_table, card=card)
+    say("smoke_seconds", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ def _last_json(capsys):
 def test_list_cases(capsys):
     cli.main(["list"])
     out = capsys.readouterr().out
-    for name in ("cavity", "channel", "cylinder", "transport"):
+    for name in ("cavity", "channel", "cylinder", "transport", "cavity_mac", "cavity_stretched",
+                 "cylinder_mac", "cylinder_oscillating", "cylinder_stretched"):
         assert name in out
 
 
@@ -76,18 +77,29 @@ TINY = {
     "channel": dict(nx=32, ny=16),
     "cylinder": dict(nx=48, ny=24),
     "transport": dict(n=16),
+    "cavity_mac": dict(n=16),
+    "cavity_stretched": dict(n=16),
+    "cylinder_mac": dict(nx=48, ny=16),
+    "cylinder_oscillating": dict(nx=32, ny=16),
+    "cylinder_stretched": dict(nx=32, ny=16),
 }
+# the options each tier has: the collocated cases take implicit diffusion
+# and LES together; on the MAC tiers the cavity takes each alone, the
+# oscillating cylinder also runs on the stretched grid
+VARIANTS = {name: [{}, dict(diffusion="implicit"), dict(use_les=True),
+                   dict(use_les=True, diffusion="implicit")]
+            for name in ("cavity", "channel", "cylinder", "transport")}
+VARIANTS.update(cavity_mac=[{}, dict(diffusion="implicit"), dict(use_les=True)],
+                cylinder_oscillating=[{}, dict(stretched=True)])
 
 
 def test_every_registered_case_builds_and_steps():
     """tests/test_cli.py:67, for the cases the port registers, each also
-    with the options this tier has: every one is a case of the JAX package."""
+    with the options its tier has: every one is a case of the JAX package."""
     assert set(TINY) == set(CASES), "update the tiny-shape table"
     assert set(CASES) <= set(J_CASES)
-    variants = [{}, dict(diffusion="implicit"), dict(use_les=True),
-                dict(use_les=True, diffusion="implicit")]
     for name, kw in TINY.items():
-        for extra in variants:
+        for extra in VARIANTS.get(name, [{}]):
             case = build(name, device="cpu", **kw, **extra)
             state, metrics = case.step(case.state, 1.0)
             assert all(bool(torch.isfinite(x).all()) for x in leaves(state)), (name, extra)

@@ -63,12 +63,24 @@ def test_solve_poisson_dispatches_dct():
     dict(method="dct", dct_variant="rfft_split4"),
     dict(method="dct", bc="dirichlet"),
 ], ids=str)
-def test_unported_poisson_configs_raise(cfg):
-    rhs = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError):
-        tpois.solve_poisson(rhs, rhs, 0.1, 0.1, tpois.PoissonConfig(**cfg))
+def test_unported_poisson_configs_raise(cfg, tmp_path, monkeypatch):
+    """Of the configurations the port once refused, only the non-Neumann
+    ``dct`` still raises; the DCT variants now solve, equal to ``rfft``
+    (tests/test_torch_dct_variants.py holds each against the JAX package)."""
+    monkeypatch.setenv("CFDSIM_AUTOTUNE_CACHE", str(tmp_path))
+    rhs = torch.from_numpy(_rhs((8, 8), seed=6))
+    rhs -= rhs.mean()
+    cfg = tpois.PoissonConfig(**cfg)
+    if cfg.bc != "neumann":
+        with pytest.raises(NotImplementedError):
+            tpois.solve_poisson(rhs, rhs, 0.1, 0.1, cfg)
+        return
+    got = tpois.solve_poisson(torch.zeros_like(rhs), rhs, 0.1, 0.1, cfg)
+    want = tpois.solve_poisson_neumann_dct(rhs, 0.1, 0.1, "rfft")
+    assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
 
 
 def test_unported_dct_variant_raises_in_solver():
-    with pytest.raises(NotImplementedError, match="packed"):
-        tpois.NeumannDCT((8, 8), 0.1, 0.1, "packed", device="cpu")
+    """Every variant of the JAX package is ported; a name outside them raises."""
+    with pytest.raises(ValueError, match="packed"):
+        tpois.NeumannDCT((8, 8), 0.1, 0.1, "packed2", device="cpu")
