@@ -15,6 +15,9 @@
     python -m cfdsim_tpu_torch thin out/cavity/frames/velocity_frames --keep-every 3
     python -m cfdsim_tpu_torch run cavity_mac --n 1024 --Re 1000 --device cuda
     python -m cfdsim_tpu_torch run cylinder_oscillating --stretched true --device cuda
+    python -m cfdsim_tpu_torch run cylinder_mac --ibm-scheme ghost --device cuda
+    python -m cfdsim_tpu_torch run heated_cavity --n 1024 --Ra 1e4 --poisson mg:2
+    python -m cfdsim_tpu_torch run cavity3d_mac --n 256 --io native --device cuda
     python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --roofline
                                       | --cylinder | --routes]
 

@@ -22,13 +22,16 @@ solve by every variant and of one step (fused and unfused), next to the
 chunk's and the eager loop's cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
 busy time against the wall time, for both routes, on every path: the
-collocated ones and the staggered tiers' (:func:`mac_paths`). ``--all`` is
+collocated ones, the staggered tiers' with their ghost-IBM cylinders
+(:func:`mac_paths`), the Boussinesq cavities and the 3D cavities. ``--all`` is
 the twin of the JAX bench's ``run_secondary``: marginal streaming rbsor
 sweeps/s, RB-SOR kernel sweeps/s, multigrid V-cycles/s (kernel and plain
 smoothing) and DCT solves/s at 1024², the device time of one Dirichlet
 Helmholtz (DST) solve, the MAC-1024² and stretched-512² cells/s, and ms
-per step of the implicit cavity, the LES cylinder and the transport cavity
-(:func:`run_paths`). ``--roofline`` is the twin of ``run_roofline``: the
+per step of the implicit cavity, the LES cylinder, the transport cavity,
+the 1024² heated cavity (DCT and ``mg:2``) and the 256³ cavities
+(:func:`run_paths` over :func:`new_paths`, :func:`boussinesq_paths` and
+:func:`threed_paths`). ``--roofline`` is the twin of ``run_roofline``: the
 card's measured peaks and, per tier, flops and bytes per cell of one step
 (``utils/roofline.py``, pre-fusion counts) against them. ``--cylinder``
 times the reference-parity cylinder at 600×180 with its pressure solve
@@ -58,8 +61,11 @@ import torch
 
 from cfdsim_tpu_torch.cases import (
     build,
+    cavity3d,
+    cavity3d_mac,
     cavity_stretched,
     cylinder,
+    heated_cavity,
     lid_cavity,
     lid_cavity_mac,
     transport,
@@ -319,7 +325,31 @@ def mac_paths(n=1024, compute_metrics=False, device="cuda") -> dict:
                                                        **rest),
         f"cavity_stretched{n // 2}": cavity_stretched(n=n // 2, Re=1000.0, beta=1.5, **rest),
         "cylinder_stretched512x256": build("cylinder_stretched", **rest),
+        "cylinder_mac720x240_ghost": build("cylinder_mac", ibm_scheme="ghost", **rest),
+        "cylinder_oscillating480x240_ghost": build("cylinder_oscillating", ibm_scheme="ghost",
+                                                   **rest),
+        "cylinder_oscillating480x240_stretched_ghost": build(
+            "cylinder_oscillating", stretched=True, ibm_scheme="ghost", **rest),
     }
+
+
+def boussinesq_paths(n=1024, device="cuda") -> dict:
+    """The Boussinesq cells: the n² differentially heated cavity at Ra =
+    1e4 with the exact DCT projection and with ``mg:2`` (kernel B on the
+    fine level above 512², kernel A below). Its metrics (the Nusselt
+    numbers) are always on, as in the JAX package."""
+    return {f"heated_cavity{n}_dct": heated_cavity(n=n, Ra=1e4, device=device),
+            f"heated_cavity{n}_mg2": heated_cavity(n=n, Ra=1e4, poisson="mg:2", device=device)}
+
+
+def threed_paths(n=256, compute_metrics=False, device="cuda") -> dict:
+    """The 3D cells at BASELINE.json config 5's size: the n³ collocated
+    cavity with ``mg:2`` and the n³ MAC cavity with the exact ``rfftn`` DCT,
+    Re = 400 (plain torch and cuFFT: the JAX package has no kernel here)."""
+    return {f"cavity3d{n}_mg2": cavity3d(n=n, poisson="mg:2", compute_metrics=compute_metrics,
+                                        device=device),
+            f"cavity3d_mac{n}_dct": cavity3d_mac(n=n, compute_metrics=compute_metrics,
+                                                 device=device)}
 
 
 def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
@@ -335,13 +365,14 @@ def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
             **_chunk_facts(chunk)}
 
 
-def run_paths(n=1024, short=20, long=60, device="cuda"):
-    """ms per step of each of :func:`new_paths`, marginal between a short
-    and a long chunk from the initial state, through the captured chunk and
-    through the eager loop, in turns chunk, loop, loop, chunk."""
+def run_paths(n=1024, short=20, long=60, device="cuda", paths=None):
+    """ms per step of each of ``paths`` (default :func:`new_paths`),
+    marginal between a short and a long chunk from the initial state,
+    through the captured chunk and through the eager loop, in turns chunk,
+    loop, loop, chunk."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
-    for path, case in new_paths(n, device=device).items():
+    for path, case in (paths or new_paths(n, device=device)).items():
         row = {"metric": "ms_per_step", "path": path, "steps": [short, long], "card": card}
         for route, name in ((None, "chunk"), ("loop", "eager"), ("loop", "eager"),
                             (None, "chunk")):
@@ -428,8 +459,10 @@ def run_profile(n=1024, steps=50, device="cuda"):
     and through the eager loop: the main path fused and unfused, then the
     reference-parity cylinder through kernel A (600×180), the n² cavity
     with ``poisson="mg:2"`` (kernels A and B), :func:`new_paths` (the
-    implicit cavity, the LES cylinder, the transport cavity) and
-    :func:`mac_paths` (the staggered and stretched tiers)."""
+    implicit cavity, the LES cylinder, the transport cavity),
+    :func:`mac_paths` (the staggered and stretched tiers, the ghost-IBM
+    cylinders), :func:`boussinesq_paths` and :func:`threed_paths` (10-step
+    chunks)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -443,9 +476,13 @@ def run_profile(n=1024, steps=50, device="cuda"):
         yield profile_chunk(
             lid_cavity(n=n, Re=1000.0, poisson="mg:2", compute_metrics=False, device=device),
             steps, device, card, route, path=f"cavity{n}_mg2", n=n)
-        for path, case in {**new_paths(n, device=device), **mac_paths(n, device=device)}.items():
+        for path, case in {**new_paths(n, device=device), **mac_paths(n, device=device),
+                           **boussinesq_paths(n, device=device)}.items():
             yield profile_chunk(case, 20 if path.startswith("cylinder") else steps, device,
                                 card, route, path=path)
+        for path, case in threed_paths(device=device).items():
+            yield profile_chunk(case, 10, device, card, route, path=path)
+        torch.cuda.empty_cache()
 
 
 def _marginal(body, x, r1=20, r2=200):
@@ -475,8 +512,9 @@ def run_all(n=1024, device="cuda"):
     one row each: marginal streaming rbsor sweeps/s, RB-SOR kernel sweeps/s
     (``rbsor_pallas``: the blocked kernel above 512²), multigrid V-cycles/s
     with kernel and with plain smoothing, and DCT solves/s; then the device
-    ms of one Helmholtz (DST) solve beside the DCT solve's, and ms per step
-    of the implicit, LES and transport paths (:func:`run_paths`)."""
+    ms of one Helmholtz (DST) solve beside the DCT solve's, the MAC and
+    stretched cells/s, and ms per step of the implicit, LES and transport
+    paths, the heated cavities and the 3D cavities (:func:`run_paths`)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     h = 1.0 / (n - 1)
@@ -513,6 +551,8 @@ def run_all(n=1024, device="cuda"):
     yield {"metric": f"cell_updates_per_sec_cavity_stretched{ns}",
            **cells_per_sec(case, ns * ns), "card": card}
     yield from run_paths(n, device=device)
+    yield from run_paths(n, device=device, paths=boussinesq_paths(n, device=device))
+    yield from run_paths(n, short=5, long=15, device=device, paths=threed_paths(device=device))
 
 
 def run_roofline(n=1024, device="cuda"):

@@ -6,7 +6,9 @@ names. The collocated tier: ``"cavity"``, ``"channel"``, ``"cylinder"``,
 ``"transport"``; the staggered (MAC) tier: ``"cavity_mac"``,
 ``"cylinder_mac"``, ``"cylinder_oscillating"`` (uniform, or with
 ``stretched=True``); the stretched MAC tier: ``"cavity_stretched"``,
-``"cylinder_stretched"``.
+``"cylinder_stretched"``; Boussinesq convection: ``"heated_cavity"``,
+``"rayleigh_benard"``; the 3D tier: ``"cavity3d"`` (collocated, multigrid)
+and ``"cavity3d_mac"`` (staggered, exact 3D DCT).
 """
 
 from __future__ import annotations
@@ -47,10 +49,11 @@ class Case:
     extras: dict = dataclasses.field(default_factory=dict)
 
 
-def _poisson_spec(poisson):
-    """Accept a PoissonConfig or a CLI-friendly "method[:iters[:omega]]"
-    string (e.g. "mg:2", "rbsor:100:1.7", "dct")."""
-    if poisson is None or isinstance(poisson, PoissonConfig):
+def _poisson_spec(poisson, cls=PoissonConfig):
+    """Accept a ``cls`` (PoissonConfig, or the 3D tier's Poisson3DConfig) or
+    a CLI-friendly "method[:iters[:omega]]" string (e.g. "mg:2",
+    "rbsor:100:1.7", "dct")."""
+    if poisson is None or isinstance(poisson, cls):
         return poisson
     parts = str(poisson).split(":")
     kw = {"method": parts[0]}
@@ -58,7 +61,7 @@ def _poisson_spec(poisson):
         kw["iters"] = int(parts[1])
     if len(parts) > 2:
         kw["omega"] = float(parts[2])
-    return PoissonConfig(**kw)
+    return cls(**kw)
 
 
 def lid_cavity(
@@ -384,13 +387,10 @@ def cylinder_mac(
     """Flow past a cylinder on the staggered (MAC) grid: exact projection,
     TVD convection, face-sampled IBM masks (``ibm_profile="shell"``, the
     Gaussian shell, or ``"sharp"`` for quantitative forces).
-    ``ibm_scheme="ghost"`` (the ghost-cell IBM) is not ported yet."""
+    ``ibm_scheme="ghost"``: sharp-interface ghost-cell direct forcing
+    (``ibm_ghost.cylinder_ghost_ibm``), no-slip exactly on r = R."""
     from cfdsim_tpu_torch.models import mac
 
-    if ibm_scheme == "ghost":
-        raise NotImplementedError(mac.GHOST_IBM_NOT_PORTED)
-    if ibm_scheme != "penalize":
-        raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
     grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
     mask_u, mask_v = cylinder_masks_mac(grid, center, radius, profile=ibm_profile)
     pois = _poisson_spec(poisson) or PoissonConfig(method="dct")
@@ -411,8 +411,17 @@ def cylinder_mac(
         np.arange(ny, dtype=np.float32) + np.float32(0.5)) * np.float32(grid.dy)
     bcs = mac.external_flow_bcs(v_inf, y_face_centers, grid.y_max,
                                 perturb_ramp_steps=perturb_ramp_steps, device=device)
-    step = mac.make_step(cfg, bcs, ibm_mask_u=mask_u, ibm_mask_v=mask_v,
-                         ibm_ramp_steps=ibm_ramp_steps, device=device)
+    if ibm_scheme == "ghost":
+        from cfdsim_tpu_torch.ibm_ghost import cylinder_ghost_ibm
+
+        xf = grid.x_min + np.arange(nx + 1) * grid.dx
+        yf = grid.y_min + np.arange(ny + 1) * grid.dy
+        ibm_kwargs = dict(ibm_ghost=cylinder_ghost_ibm(xf, yf, center, radius, device=device))
+    elif ibm_scheme == "penalize":
+        ibm_kwargs = dict(ibm_mask_u=mask_u, ibm_mask_v=mask_v)
+    else:
+        raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
+    step = mac.make_step(cfg, bcs, ibm_ramp_steps=ibm_ramp_steps, device=device, **ibm_kwargs)
     u0, v0 = potential_flow_cylinder_mac(grid, center, radius, v_inf, mask_u, mask_v)
     state = mac.init_state(cfg, u0=u0, v0=v0, device=device)
     return Case("cylinder_mac", cfg, step, state, grid,
@@ -444,7 +453,9 @@ def cylinder_oscillating(
     U_max = 2πA/T; the sharp face masks are rebuilt on the device every
     stage; the metrics carry the fluid–body momentum exchange (fx, fy);
     free-slip far field. ``stretched=True`` clusters the grid around the
-    sweep. ``ibm_scheme="ghost"`` is not ported yet."""
+    sweep. ``ibm_scheme="ghost"``: moving ghost-cell forcing, the wall
+    condition u(r=R) = u_b(t) imposed exactly, classification and probe
+    stencils rebuilt on the device every stage."""
     from cfdsim_tpu_torch.models import mac
 
     if ibm_scheme not in ("penalize", "ghost"):
@@ -495,11 +506,133 @@ def cylinder_oscillating(
     return Case("cylinder_oscillating", cfg, step, state, grid, extras)
 
 
+def heated_cavity(
+    n: int = 64,
+    Ra: float = 1e4,
+    Pr: float = 0.71,
+    theta_scheme: str = "central",
+    poisson: Optional[PoissonConfig] = None,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Differentially heated square cavity (Boussinesq natural convection
+    on the MAC tier): hot wall θ=1 at x=0, cold at x=1, adiabatic top and
+    bottom; the de Vahl Davis (1983) benchmark (Nu = 1.118 at Ra=10³,
+    2.243 at Ra=10⁴)."""
+    from cfdsim_tpu_torch.models import boussinesq as bq
+
+    grid = Grid(nx=n, ny=n, centering="cell")
+    if poisson is not None:
+        cfg_overrides["poisson"] = _poisson_spec(poisson)
+    cfg = bq.BoussinesqConfig(grid=grid, rayleigh=Ra, prandtl=Pr, theta_scheme=theta_scheme,
+                              **cfg_overrides)
+    step = bq.make_step(cfg, device=device)
+    state = bq.init_state(cfg, device=device)
+    return Case("heated_cavity", cfg, step, state, grid, {"Ra": Ra, "Pr": Pr})
+
+
+def rayleigh_benard(
+    ny: int = 48,
+    aspect: float = 2.0,
+    Ra: float = 3000.0,
+    Pr: float = 0.71,
+    perturb: float = 1e-3,
+    seed: int = 0,
+    poisson: Optional[PoissonConfig] = None,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Rayleigh–Bénard convection: heated from below in an aspect-ratio box
+    with adiabatic side walls. The conducting state is stable below Ra_c =
+    1708 (rigid-rigid) and rolls grow above it; ``perturb`` seeds the
+    instability with a small random θ disturbance from
+    ``np.random.default_rng(seed)``, the JAX package's draw."""
+    from cfdsim_tpu_torch.models import boussinesq as bq
+
+    nx = int(round(ny * aspect))
+    grid = Grid(nx=nx, ny=ny, x_max=aspect, y_max=1.0, centering="cell")
+    if poisson is not None:
+        cfg_overrides["poisson"] = _poisson_spec(poisson)
+    cfg = bq.BoussinesqConfig(grid=grid, rayleigh=Ra, prandtl=Pr, heated_axis="y",
+                              **cfg_overrides)
+    step = bq.make_step(cfg, device=device)
+    rng = np.random.default_rng(seed)
+    yc = (np.arange(ny, dtype=np.float32) + 0.5) / ny
+    conducting = (1.0 - yc)[:, None] * np.ones((ny, nx), np.float32)
+    theta0 = conducting + perturb * rng.standard_normal((ny, nx)).astype(np.float32)
+    state = bq.init_state(cfg, theta0=theta0, device=device)
+    return Case("rayleigh_benard", cfg, step, state, grid, {"Ra": Ra, "Pr": Pr, "aspect": aspect})
+
+
+def cavity3d(
+    n: int = 64,
+    Re: float = 400.0,
+    lid_velocity: float = 1.0,
+    poisson=None,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """3D lid-driven cavity, collocated (BASELINE.json config 5: 256³,
+    multigrid Poisson, ``poisson="mg:2"`` by default)."""
+    from cfdsim_tpu_torch.grid import Grid3D
+    from cfdsim_tpu_torch.models import incompressible3d as m3
+    from cfdsim_tpu_torch.solvers.poisson3d import Poisson3DConfig
+
+    grid = Grid3D(nx=n, ny=n, nz=n)
+    cfg = m3.Incompressible3DConfig(
+        grid=grid,
+        nu=lid_velocity / Re,
+        poisson=_poisson_spec(poisson, Poisson3DConfig) or Poisson3DConfig(method="mg", iters=2),
+        max_velocity=5.0 * lid_velocity,
+        **cfg_overrides,
+    )
+    step = m3.make_step(cfg, m3.lid_cavity3d_bcs(lid_velocity), device=device)
+    state = m3.init_state(cfg, device=device)
+    return Case("cavity3d", cfg, step, state, grid)
+
+
+def cavity3d_mac(
+    n: int = 64,
+    Re: float = 400.0,
+    lid_velocity: float = 1.0,
+    poisson=None,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """3D lid-driven cavity on the staggered MAC grid: the exact 3D DCT
+    projection (divergence-free to float32 roundoff); the geometry of
+    ``cavity3d``, n cells per axis on [0, 1]³."""
+    from cfdsim_tpu_torch.grid import Grid3D
+    from cfdsim_tpu_torch.models import mac3d
+    from cfdsim_tpu_torch.solvers.poisson3d import Poisson3DConfig
+
+    grid = Grid3D(nx=n, ny=n, nz=n, centering="cell")
+    cfg = mac3d.MAC3DConfig(
+        grid=grid,
+        nu=lid_velocity / Re,
+        poisson=_poisson_spec(poisson, Poisson3DConfig) or Poisson3DConfig(method="dct"),
+        max_velocity=5.0 * lid_velocity,
+        **cfg_overrides,
+    )
+    bcs = mac3d.cavity3d_bcs(lid_velocity)
+    step = mac3d.make_step(cfg, bcs, device=device)
+    state = mac3d.init_state(cfg, device=device)
+    return Case("cavity3d_mac", cfg, step, state, grid, {"bcs": bcs})
+
+
 CASES: dict[str, Callable[..., Case]] = {
     "cavity": lid_cavity,
+    "cavity3d": cavity3d,
+    "cavity3d_mac": cavity3d_mac,
     "cavity_mac": lid_cavity_mac,
     "cavity_stretched": cavity_stretched,
     "channel": channel,
+    "heated_cavity": heated_cavity,
+    "rayleigh_benard": rayleigh_benard,
     "cylinder": cylinder,
     "cylinder_mac": cylinder_mac,
     "cylinder_oscillating": cylinder_oscillating,

@@ -1,4 +1,4 @@
-"""Structured uniform grids (the 2D ``Grid`` of ``cfdsim_tpu.grid``).
+"""Structured uniform grids (``Grid`` and ``Grid3D`` of ``cfdsim_tpu.grid``).
 
 A static, hashable description of the mesh: spacings are Python floats so
 they enter every stencil as compile-free scalar constants, and arrays are
@@ -94,3 +94,51 @@ class Grid:
     def scaled(self, factor: int) -> "Grid":
         """A grid with nx, ny multiplied by ``factor`` (same domain)."""
         return dataclasses.replace(self, nx=self.nx * factor, ny=self.ny * factor)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid3D:
+    """A uniform 3D structured grid, arrays laid out (nz, ny, nx) with x
+    along the contiguous axis; ``centering`` as :class:`Grid`'s ("node":
+    dx = L/(n−1); "cell": dx = L/n, the MAC tier's)."""
+
+    nx: int
+    ny: int
+    nz: int
+    x_min: float = 0.0
+    x_max: float = 1.0
+    y_min: float = 0.0
+    y_max: float = 1.0
+    z_min: float = 0.0
+    z_max: float = 1.0
+    centering: str = "node"
+
+    def __post_init__(self):
+        if self.centering not in ("node", "cell"):
+            raise ValueError(f"unknown centering {self.centering!r}")
+
+    def _spacing(self, n: int, lo: float, hi: float) -> float:
+        return (hi - lo) / (n - 1 if self.centering == "node" else n)
+
+    @cached_property
+    def dx(self) -> float:
+        return self._spacing(self.nx, self.x_min, self.x_max)
+
+    @cached_property
+    def dy(self) -> float:
+        return self._spacing(self.ny, self.y_min, self.y_max)
+
+    @cached_property
+    def dz(self) -> float:
+        return self._spacing(self.nz, self.z_min, self.z_max)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.nz, self.ny, self.nx)
+
+    @property
+    def n_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    def zeros(self, dtype=torch.float32, *, device) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=dtype, device=device)

@@ -574,8 +574,10 @@ def make_chunk(cfg, step_fn: Callable, n_steps: int, *, device=None,
     """``chunk(state, cfl_scale) -> (state, stacked StepMetrics)`` running
     ``n_steps`` steps: the JAX package's jitted ``lax.scan`` chunk. ``cfg``
     is the case's configuration (``IncompressibleConfig``, ``MACConfig``,
-    ``StretchedMACConfig``, or the transport pair); the chunk works on the
-    state's leaves whatever their shapes (a ``MACState`` has three). On a
+    ``StretchedMACConfig``, ``BoussinesqConfig``, ``Incompressible3DConfig``,
+    ``MAC3DConfig``, or the transport pair); the chunk works on the state's
+    leaves whatever their shapes and number (a ``MACState`` has three
+    shapes, a ``MAC3DState`` four), and on any metrics record. On a
     CUDA device, for a step that reads nothing on the host, the steps are
     one captured device program and cost the host a constant; else a Python
     loop of step calls (:func:`chunk_route`; see :class:`Chunk`). The route

@@ -21,9 +21,12 @@ clamped-edge operator of ``solvers/poisson.py``, so every Poisson method
 works unchanged; ``dct_variant="auto"`` is resolved when the step is
 built. Convection: "central", "upwind", "tvd" (MUSCL, van Leer).
 
-Not ported: ``storage="bf16"``, the ghost-cell IBM (``ibm_ghost=``) and the
-moving ghost scheme (``moving_scheme="ghost"``); they raise
-``NotImplementedError``.
+Immersed bodies: face-sampled penalization masks, the sharp-interface
+ghost-cell IBM of ``ibm_ghost.py`` (a static body's stencils as buffers, or
+a moving body's rebuilt on the device from ``center(t)`` with
+``moving_scheme="ghost"``), and the moving body's penalization masks.
+
+Not ported: ``storage="bf16"``, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,14 +42,12 @@ from torch import nn
 
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import ibm_ramp
+from cfdsim_tpu_torch.ibm_ghost import GhostForcing2D, moving_ghost_forcing_2d
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
 from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.solvers.autotune import resolve_poisson_config
 from cfdsim_tpu_torch.solvers.helmholtz import make_mac_helmholtz
 from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, PoissonSolver, poisson_residual
-
-GHOST_IBM_NOT_PORTED = ("the ghost-cell IBM (ibm_ghost.py) is not ported yet: ROADMAP.md "
-                        "queue 1, item 15")
 
 
 class MACState(NamedTuple):
@@ -382,12 +383,14 @@ def _add_interior(q, axis: int, delta):
     return q
 
 
-def check_mac_options(storage: str = "fp32", ibm_ghost=None, moving_scheme="penalize") -> None:
-    """Refuse the options of the MAC tiers that the port lacks."""
+def check_mac_options(storage: str = "fp32", ibm_ghost=None, ibm_mask_u=None,
+                      moving_scheme="penalize") -> None:
+    """Refuse the options of the MAC tiers that the JAX package refuses, and
+    ``storage="bf16"``, which the port lacks."""
+    if ibm_ghost is not None and ibm_mask_u is not None:
+        raise ValueError("ibm_ghost and ibm_mask_* are mutually exclusive")
     if moving_scheme not in ("penalize", "ghost"):
         raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
-    if ibm_ghost is not None or moving_scheme == "ghost":
-        raise NotImplementedError(GHOST_IBM_NOT_PORTED)
     if storage == "bf16":
         raise NotImplementedError(
             "storage='bf16' is not ported (only 'fp32'): the JAX package measured it as a "
@@ -426,7 +429,7 @@ class MACStep(nn.Module):
                  implicit_kit: Optional[MACImplicitKit] = None, ibm_ghost=None,
                  moving_scheme: str = "penalize", *, device):
         super().__init__()
-        check_mac_options(cfg.storage, ibm_ghost, moving_scheme)
+        check_mac_options(cfg.storage, ibm_ghost, ibm_mask_u, moving_scheme)
         if cfg.time_scheme not in ("euler", "rk2"):
             raise ValueError(f"unknown MAC time scheme {cfg.time_scheme!r}")
         if cfg.projection not in ("chorin", "incremental"):
@@ -453,6 +456,11 @@ class MACStep(nn.Module):
         self.device = torch.device(device)
         self.ibm_ramp_steps = ibm_ramp_steps
         self.moving_body = moving_body
+        self.moving_scheme = moving_scheme
+        self.ghost_u = self.ghost_v = None
+        if ibm_ghost is not None:
+            self.ghost_u = GhostForcing2D(ibm_ghost.u, device=device)
+            self.ghost_v = GhostForcing2D(ibm_ghost.v, device=device)
         self.poisson = PoissonSolver((g.ny, g.nx), g.dx, g.dy, cfg.poisson, device=device)
         self.reads_host = self.poisson.reads_host
         self.kit = implicit_kit
@@ -562,15 +570,32 @@ class MACStep(nn.Module):
                 # the force on the body: the penalization's momentum sink
                 fx = du_ibm.sum() * cell / dt
                 fy = dv_ibm.sum() * cell / dt
+        if self.ghost_u is not None:
+            strength = ibm_ramp(step, self.ibm_ramp_steps)
+            u_star, du_g = self.ghost_u(u_star, strength)
+            v_star, dv_g = self.ghost_v(v_star, strength)
+            if cfg.compute_metrics:
+                fx = du_g.sum() * cell / dt
+                fy = dv_g.sum() * cell / dt
         if self.moving_body is not None:
             ub, vb = self.moving_body.velocity(t_s)
             strength = ibm_ramp(step, self.ibm_ramp_steps)
-            m_u, m_v = moving_body_masks(self.moving_body, self.Xu, self.Yu, self.Xv, self.Yv,
-                                         self.hb, t_s)
-            du_mb = (u_star - ub) * (strength * m_u)
-            dv_mb = (v_star - vb) * (strength * m_v)
-            u_star = u_star - du_mb
-            v_star = v_star - dv_mb
+            if self.moving_scheme == "ghost":
+                ctr = self.moving_body.center(t_s)
+                r, delta = self.moving_body.radius, 1.5 * self.hb
+                u_star, du_mb = moving_ghost_forcing_2d(
+                    u_star, self.Xu, self.Yu, g.x_min, dx, g.y_min + 0.5 * dy, dy, ctr, r, delta,
+                    ub, strength)
+                v_star, dv_mb = moving_ghost_forcing_2d(
+                    v_star, self.Xv, self.Yv, g.x_min + 0.5 * dx, dx, g.y_min, dy, ctr, r, delta,
+                    vb, strength)
+            else:
+                m_u, m_v = moving_body_masks(self.moving_body, self.Xu, self.Yu, self.Xv,
+                                             self.Yv, self.hb, t_s)
+                du_mb = (u_star - ub) * (strength * m_u)
+                dv_mb = (v_star - vb) * (strength * m_v)
+                u_star = u_star - du_mb
+                v_star = v_star - dv_mb
             if cfg.compute_metrics:
                 fx = fx + du_mb.sum() * cell / dt
                 fy = fy + dv_mb.sum() * cell / dt
@@ -651,10 +676,13 @@ def make_step(cfg: MACConfig, bcs: MACBCs, ibm_mask_u=None, ibm_mask_v=None,
               moving_scheme: str = "penalize", *, device) -> MACStep:
     """Build the step module on ``device``: ``ibm_mask_u``/``ibm_mask_v``
     are face-sampled penalization masks; ``forcing`` an optional (fu, fv)
-    face-located body force; ``moving_body`` (``ibm.MovingBody``) the
-    moving-geometry IBM, its sharp face masks rebuilt on the device from
-    ``center(t)`` every stage and the fluid driven toward the body's
-    velocity, the exchanged momentum reported as (fx, fy); under rk2 the
-    second stage takes the BCs and the body at t + dt."""
+    face-located body force; ``ibm_ghost`` (``ibm_ghost.GhostIBM2D``) the
+    sharp-interface ghost-cell IBM of a static body (mutually exclusive
+    with the masks; the same momentum-exchange forces); ``moving_body``
+    (``ibm.MovingBody``) the moving-geometry IBM, its sharp face masks
+    (or, with ``moving_scheme="ghost"``, its ghost-cell stencils) rebuilt
+    on the device from ``center(t)`` every stage and the fluid driven
+    toward the body's velocity, the exchanged momentum reported as (fx,
+    fy); under rk2 the second stage takes the BCs and the body at t + dt."""
     return MACStep(cfg, bcs, ibm_mask_u, ibm_mask_v, ibm_ramp_steps, forcing, moving_body,
                    implicit_kit, ibm_ghost, moving_scheme, device=device)

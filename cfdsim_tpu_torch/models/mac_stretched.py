@@ -12,10 +12,10 @@ The layout is ``models/mac.py``'s (u on x-faces (ny, nx+1), v on y-faces
 (``MACBCs``): the wall-tangential ghost (ghost = 2·wall − first row, ghost
 gap = first cell width) reproduces the half-cell wall gradient exactly. The
 metric coefficients (cell widths, centre gaps, interpolation weights) are
-float32 buffers built once in float64 numpy.
-
-Not ported: the ghost-cell IBM (``ibm_ghost=``, ``moving_scheme="ghost"``),
-which raises ``NotImplementedError``.
+float32 buffers built once in float64 numpy. Immersed bodies: face-sampled
+penalization masks, the ghost-cell IBM of a static body (``ibm_ghost=``),
+and a moving body by penalization or, with ``moving_scheme="ghost"``, by
+ghost-cell stencils located on the device by ``searchsorted``.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cfdsim_tpu_torch.ibm import ibm_ramp
+from cfdsim_tpu_torch.ibm_ghost import GhostForcing2D, moving_ghost_forcing_2d_nonuniform
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
 from cfdsim_tpu_torch.models.mac import (
     MACBCs,
@@ -122,7 +123,7 @@ class StretchedMACStep(nn.Module):
                  ibm_mask_u=None, ibm_mask_v=None, ibm_ramp_steps: int = 0, moving_body=None,
                  ibm_ghost=None, moving_scheme: str = "penalize", *, device):
         super().__init__()
-        check_mac_options("fp32", ibm_ghost, moving_scheme)
+        check_mac_options("fp32", ibm_ghost, ibm_mask_u, moving_scheme)
         if cfg.time_scheme not in ("euler", "rk2"):
             raise ValueError(f"unknown time scheme {cfg.time_scheme!r}")
         if cfg.projection not in ("chorin", "incremental"):
@@ -137,6 +138,11 @@ class StretchedMACStep(nn.Module):
         self.device = torch.device(device)
         self.ibm_ramp_steps = ibm_ramp_steps
         self.moving_body = moving_body
+        self.moving_scheme = moving_scheme
+        self.ghost_u = self.ghost_v = None
+        if ibm_ghost is not None:
+            self.ghost_u = GhostForcing2D(ibm_ghost.u, device=device)
+            self.ghost_v = GhostForcing2D(ibm_ghost.v, device=device)
         self.h_min = float(min(mx.h.min(), my.h.min()))
         self.fdm = make_fdm_solver(mx.h, my.h, device=device)
         xf, yf = np.asarray(x_faces, np.float64), np.asarray(y_faces, np.float64)
@@ -185,6 +191,11 @@ class StretchedMACStep(nn.Module):
             for names, (a, b) in ((("Xu", "Yu"), (xf, my.xc)), (("Xv", "Yv"), (mx.xc, yf))):
                 for name, arr in zip(names, np.meshgrid(a, b, indexing="xy")):
                     buf(name, arr)
+            # the sample coordinates the moving ghost forcing searches, float32
+            buf("xs_u", xf)
+            buf("ys_u", my.xc)
+            buf("xs_v", mx.xc)
+            buf("ys_v", yf)
 
     def _adaptive_dt(self, u, v, step, cfl_scale):
         cfg = self.cfg
@@ -284,16 +295,31 @@ class StretchedMACStep(nn.Module):
                 # the momentum sink weighted by the face control volumes
                 fx = (du_ibm * self.area_u).sum() / dt
                 fy = (dv_ibm * self.area_v).sum() / dt
+        if self.ghost_u is not None:
+            strength = ibm_ramp(step, self.ibm_ramp_steps)
+            u_star, du_g = self.ghost_u(u_star, strength)
+            v_star, dv_g = self.ghost_v(v_star, strength)
+            if cfg.compute_metrics:
+                fx = (du_g * self.area_u).sum() / dt
+                fy = (dv_g * self.area_v).sum() / dt
         if self.moving_body is not None:
             ub, vb = self.moving_body.velocity(t_s)
             strength = ibm_ramp(step, self.ibm_ramp_steps)
-            # the taper is the smallest spacing (the body stays in the refined region)
-            m_u, m_v = moving_body_masks(self.moving_body, self.Xu, self.Yu, self.Xv, self.Yv,
-                                         self.h_min, t_s)
-            du_mb = (u_star - ub) * (strength * m_u)
-            dv_mb = (v_star - vb) * (strength * m_v)
-            u_star = u_star - du_mb
-            v_star = v_star - dv_mb
+            if self.moving_scheme == "ghost":
+                ctr = self.moving_body.center(t_s)
+                r, delta = self.moving_body.radius, 1.5 * self.h_min
+                u_star, du_mb = moving_ghost_forcing_2d_nonuniform(
+                    u_star, self.Xu, self.Yu, self.xs_u, self.ys_u, ctr, r, delta, ub, strength)
+                v_star, dv_mb = moving_ghost_forcing_2d_nonuniform(
+                    v_star, self.Xv, self.Yv, self.xs_v, self.ys_v, ctr, r, delta, vb, strength)
+            else:
+                # the taper is the smallest spacing (the body stays in the refined region)
+                m_u, m_v = moving_body_masks(self.moving_body, self.Xu, self.Yu, self.Xv,
+                                             self.Yv, self.h_min, t_s)
+                du_mb = (u_star - ub) * (strength * m_u)
+                dv_mb = (v_star - vb) * (strength * m_v)
+                u_star = u_star - du_mb
+                v_star = v_star - dv_mb
             if cfg.compute_metrics:
                 fx = fx + (du_mb * self.area_u).sum() / dt
                 fy = fy + (dv_mb * self.area_v).sum() / dt
@@ -356,7 +382,10 @@ def make_step(cfg: StretchedMACConfig, bcs: MACBCs, x_faces, y_faces, ibm_mask_u
     """Build the stretched step module on ``device`` (see
     :class:`StretchedMACStep`): ``ibm_mask_u``/``ibm_mask_v`` are
     face-sampled penalization masks (forces weighted by the face control
-    volumes); ``moving_body`` the moving-geometry IBM with a taper of the
-    smallest grid spacing."""
+    volumes); ``ibm_ghost`` (``ibm_ghost.GhostIBM2D``) the ghost-cell IBM of
+    a static body, mutually exclusive with the masks; ``moving_body`` the
+    moving-geometry IBM, by penalization masks with a taper of the smallest
+    grid spacing or, with ``moving_scheme="ghost"``, by ghost-cell stencils
+    rebuilt on the device every stage."""
     return StretchedMACStep(cfg, bcs, x_faces, y_faces, ibm_mask_u, ibm_mask_v,
                             ibm_ramp_steps, moving_body, ibm_ghost, moving_scheme, device=device)

@@ -290,8 +290,9 @@ def _dct2_fast(x, axis: int, tw, rfft=None):
     ``tw`` = exp(−iπk/2n), k ≤ n/2. ``rfft(v, axis)`` replaces
     ``torch.fft.rfft`` (the ``rfft_split`` variants' :class:`_HalfFFT`)."""
     n = x.shape[axis]
-    ev = x[::2] if axis == 0 else x[:, ::2]
-    od = x[1::2] if axis == 0 else x[:, 1::2]
+    lead = (slice(None),) * axis
+    ev = x[lead + (slice(0, None, 2),)]
+    od = x[lead + (slice(1, None, 2),)]
     v = torch.cat([ev, torch.flip(od, (axis,))], axis)
     W = torch.fft.rfft(v, dim=axis) if rfft is None else rfft(v, axis)
     # with B = e^{-iπk/2n}·W[k] (k ≤ n/2): X[k] = 2·Re(B[k]), X[n−k] = −2·Im(B[k])
@@ -357,23 +358,96 @@ def _idct2d_rfft2(X, w1c, w2c, scale=None):
 
 
 def _dct_fwd(x, axis: int):
-    """DCT-II along ``axis`` of a 2D array, any length (Makhoul's single
-    real FFT where the length is even), twiddles built on the call: the
-    functional form that ``solvers/helmholtz.py`` builds its DST-II on. A
-    solver that transforms repeatedly keeps its twiddles as buffers
-    (:class:`NeumannDCT`)."""
+    """DCT-II along ``axis`` of a 2D or 3D array, any length (Makhoul's
+    single real FFT where the length is even), twiddles built on the call:
+    the functional form that ``solvers/helmholtz.py`` builds its DST-II on,
+    and the 3D solve's per-axis path. A solver that transforms repeatedly
+    keeps its twiddles as buffers (:class:`NeumannDCT`)."""
     n = x.shape[axis]
     if n % 2 == 0:
-        return _dct2_fast(x, axis, _along(_twiddle(n, n // 2 + 1, -1, x.device), axis))
-    return _dct2(x, axis, _along(_twiddle(n, n, -1, x.device), axis))
+        return _dct2_fast(x, axis, _bcast(_twiddle(n, n // 2 + 1, -1, x.device), x.ndim, axis))
+    return _dct2(x, axis, _bcast(_twiddle(n, n, -1, x.device), x.ndim, axis))
 
 
 def _dct_inv(X, axis: int):
     """Exact inverse of :func:`_dct_fwd`."""
     n = X.shape[axis]
     if n % 2 == 0:
-        return _idct2_fast(X, axis, _along(_twiddle(n, n // 2 + 1, +1, X.device), axis))
-    return _idct2(X, axis, _along(_twiddle(n, n, +1, X.device), axis))
+        return _idct2_fast(X, axis, _bcast(_twiddle(n, n // 2 + 1, +1, X.device), X.ndim, axis))
+    return _idct2(X, axis, _bcast(_twiddle(n, n, +1, X.device), X.ndim, axis))
+
+
+def dct3d_twiddles(shape, sign: int, device) -> tuple:
+    """The three twiddles of :func:`_dct3d_rfftn` (``sign=-1``) or of
+    :func:`_idct3d_rfftn` (``sign=+1``): exp(sign·iπk/2n) per axis, the
+    last axis over its half spectrum, shaped to broadcast."""
+    n0, n1, n2 = shape
+    return (_bcast(_twiddle(n0, n0, sign, device), 3, 0),
+            _bcast(_twiddle(n1, n1, sign, device), 3, 1),
+            _bcast(_twiddle(n2, n2 // 2 + 1, sign, device), 3, 2))
+
+
+def _flip_mod(a, axis: int):
+    """a[(−k) % n] along ``axis``."""
+    return torch.roll(torch.flip(a, (axis,)), 1, axis)
+
+
+def _dct3d_rfftn(x, w=None):
+    """Full 3D DCT-II (2× scale per axis) of a real even³ array through ONE
+    ``torch.fft.rfftn`` (3D Makhoul). With v the per-axis permuted
+    sequence, V = rfftn(v) and Vf = V[(−k0)%n0, (−k1)%n1, k2], the two
+    k2-quadrant fields G1 = w₂V + w₂*·conj(Vf) (→ C[..., k2]) and G2 =
+    i(w₂V − w₂*·conj(Vf)) (→ C[..., n2−k2]) recombine over (±k0, ±k1) as
+    Cj = 2·Re{w₀(w₁Gj + w₁*·Gj[k0, (−k1)%n1, k2])}. ``w`` are
+    :func:`dct3d_twiddles` (sign −1), built on the call when omitted."""
+    n0, n1, n2 = x.shape
+    w0, w1, w2 = dct3d_twiddles(x.shape, -1, x.device) if w is None else w
+    v = torch.cat([x[::2], torch.flip(x[1::2], (0,))], 0)
+    v = torch.cat([v[:, ::2], torch.flip(v[:, 1::2], (1,))], 1)
+    v = torch.cat([v[:, :, ::2], torch.flip(v[:, :, 1::2], (2,))], 2)
+    V = torch.fft.rfftn(v)
+    Vf = _flip_mod(_flip_mod(V, 0), 1)
+    A, B = w2 * V, torch.conj(w2) * torch.conj(Vf)
+    out = []
+    for Gj in (A + B, 1j * (A - B)):
+        Qj = _flip_mod(Gj, 1)
+        out.append(2.0 * torch.real(w0 * (w1 * Gj + torch.conj(w1) * Qj)))
+    head, tail = out
+    return torch.cat([head, torch.flip(tail[:, :, 1 : n2 // 2], (2,))], 2)
+
+
+def _spectral_unfold(X, wconj, axis: int):
+    """One axis of the inverse Makhoul reconstruction, valid for complex
+    input: ½·wconj·(X − i·X[(n−k)%n]), the reversed term zero at k = 0;
+    ``wconj`` is the conjugate twiddle e^{+iπk/2n}."""
+    n = X.shape[axis]
+    zero = torch.zeros_like(X.narrow(axis, 0, 1))
+    rev = torch.flip(X.narrow(axis, 1, n - 1), (axis,))
+    Xr = torch.cat([zero, rev], axis)
+    return wconj * (0.5 * (X - 1j * Xr))
+
+
+def _idct3d_rfftn(X, scale=None, w=None):
+    """Exact inverse of :func:`_dct3d_rfftn` (even³), ONE
+    ``torch.fft.irfftn``: the axis-2 real-input reconstruction onto the k2
+    half spectrum, the complex-valid unfold along axes 1 and 0, then the
+    un-permute. ``scale`` folds a real spectral multiplier (the Poisson
+    1/λ) in; ``w`` are :func:`dct3d_twiddles` (sign +1)."""
+    n0, n1, n2 = X.shape
+    w0, w1, w2 = dct3d_twiddles(X.shape, +1, X.device) if w is None else w
+    if scale is not None:
+        X = X * scale
+    Xk = X[:, :, : n2 // 2 + 1]
+    Xnk = torch.cat([X.new_zeros((n0, n1, 1)), torch.flip(X[:, :, n2 // 2 + 1 :], (2,)),
+                     X[:, :, n2 // 2 : n2 // 2 + 1]], 2)
+    S = w2 * (0.5 * (Xk - 1j * Xnk))
+    S = _spectral_unfold(S, w1, 1)
+    V = _spectral_unfold(S, w0, 0)
+    v = torch.fft.irfftn(V, s=(n0, n1, n2))
+    v = torch.stack([v[: n0 // 2], torch.flip(v[n0 // 2 :], (0,))], 1).reshape(n0, n1, n2)
+    v = torch.stack([v[:, : n1 // 2], torch.flip(v[:, n1 // 2 :], (1,))], 2).reshape(n0, n1, n2)
+    return torch.stack([v[:, :, : n2 // 2], torch.flip(v[:, :, n2 // 2 :], (2,))],
+                       3).reshape(n0, n1, n2)
 
 
 def _inv_neumann_eigenvalues(m: int, n: int, dx: float, dy: float) -> np.ndarray:

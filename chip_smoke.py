@@ -38,8 +38,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    ``make_chunk``'s route on the card) against 20 eager step calls from
    the same state, metrics on, on the three paths below, on the
    implicit cavity (DST, and with LES the Jacobi back end), the LES
-   cylinder and the coupled transport cavity of phases 9-12, and on the
-   nine staggered cells of ``bench.mac_paths`` (phases 5c-5d); the same kernels
+   cylinder and the coupled transport cavity of phases 9-12, on the
+   twelve staggered cells of ``bench.mac_paths`` (phases 5c-5d, the three
+   ghost-IBM cylinders included), the two 1024² heated cavities and the
+   two 256³ cavities (5g-5h); the same kernels
    in the same order, so u, v, p, t, step (θ too) and every stacked metric
    must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
@@ -61,7 +63,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    chunks, 200 steps: the 1024² Re=1000 MAC cavity (chorin, incremental,
    implicit), ``cylinder_mac`` at 720×240, ``cylinder_oscillating`` at
    480×240 uniform and stretched, ``cavity_stretched`` at 512² and
-   ``cylinder_stretched`` at 512×256: healthy, no kernel launched, and
+   ``cylinder_stretched`` at 512×256, and, with the ghost-cell IBM,
+   ``cylinder_mac`` at 720×240 (static stencils) and the oscillating
+   cylinder at 480×240, uniform and stretched (moving ghost forcing),
+   their body forces printed: healthy, no kernel launched, and
    ``div_post`` at float32 roundoff in every step: ≤ 1e-5·max|u|/h (max|u|
    over the run) for the DCT projection, 1e-4 for the stretched tier's
    four float32 matmuls
@@ -77,6 +82,22 @@ and the final ``{"ok": true, ...}`` line is not printed:
 5f. Botella–Peyret gate: the 128² Re=1000 MAC cavity to t = 200 in
    captured chunks of 2000 steps; the largest centreline-extremum error
    under 0.009 (tests/test_mac_accuracy_slow.py:25)
+5g. Boussinesq: the golden ``heated_cavity_32`` (300 steps, RTOL 2e-5);
+   the de Vahl Davis gate (48², Ra = 1e3, t = 0.6: Nu at the hot wall and
+   the mid-plane within 2% of 1.118, the largest velocity within 5% of
+   3.70); the onset bracket at ny = 32 (Ra = 1200 decays by t = 1, Ra =
+   3000 convects by t = 5; tests/test_boussinesq.py:97-125); the 1024²
+   heated cavity, Ra = 1e4, 100 steps through the DCT (no kernel,
+   ``div_post`` at roundoff: 1e-5 of the larger of max|u| and dt·max|p|/h,
+   over h, since from rest the projection subtracts the hydrostatic
+   pressure) and through ``mg:2`` (kernels A and B
+   launched as phase 8's cavity: the same pressure grid)
+5h. 3D: ``cavity3d`` at 256³ through ``mg:2`` and ``cavity3d_mac`` at
+   256³ through the ``rfftn`` DCT (BASELINE.json config 5's size), 100
+   steps each: healthy, no kernel launched, the MAC one's ``div_post`` at
+   roundoff (1e-5·max|u|/h); then ``run cavity3d_mac --n 128`` through the
+   command line with native snapshots, 50 steps, ``--resume`` to 100,
+   against one run of 100: bit-equal snapshots and restored states
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -185,6 +206,7 @@ from cfdsim_tpu_torch.bench import (
     CYLINDER_KERNEL_POISSON,
     EMPTY_SOURCE,
     POISSON,
+    boussinesq_paths,
     dct_solve_ms,
     mac_paths,
     new_paths,
@@ -198,6 +220,7 @@ from cfdsim_tpu_torch.bench import (
     run_cylinder,
     run_roofline,
     step_device_ms,
+    threed_paths,
 )
 from cfdsim_tpu_torch import __main__ as cli
 from cfdsim_tpu_torch.cases import build, lid_cavity, lid_cavity_mac
@@ -471,7 +494,7 @@ def _counts():
 def _run(case, steps, chunk, warmup_div_threshold=20.0):
     cfg = RunnerConfig(t_final=1e9, max_steps=steps, chunk_steps=chunk, health_check=True,
                        div_threshold=50.0, warmup_div_threshold=warmup_div_threshold,
-                       max_velocity=case.cfg.max_velocity, log_every_chunks=0)
+                       max_velocity=getattr(case.cfg, "max_velocity", 1e3), log_every_chunks=0)
     sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
     t0 = time.perf_counter()
     state, report = sim.run()
@@ -607,9 +630,12 @@ def phase_chunk_routes():
     """The captured chunk against the eager loop, 20 steps from one state."""
     steps = 20
     macs = mac_paths(1024, compute_metrics=True, device="cuda")
-    paths = {**_paths(), **new_paths(compute_metrics=True), **macs}
+    threed = threed_paths(256, compute_metrics=True, device="cuda")
+    paths = {**_paths(), **new_paths(compute_metrics=True), **macs,
+             **boussinesq_paths(1024, device="cuda"), **threed}
     # plain torch, cuFFT and cuBLAS only
     no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi",
+                 "heated_cavity1024_dct", *threed,
                  *(k for k in macs if not k.endswith("_mg2"))}
     for path, case in paths.items():
         graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
@@ -639,6 +665,8 @@ def phase_chunk_routes():
                                  f"{by_loop}")
         if apart or int(sg.step) != 2 * steps or mg.dt.shape != (steps,):
             raise AssertionError(f"{path}: the captured chunk and the eager loop differ in {apart}")
+        del graph, loop, sg, sl
+        torch.cuda.empty_cache()
     # the host-reading streaming solve takes the loop, by the decision made before it runs
     streaming = build("cylinder", ref_parity=True, scheme="supg", device="cuda")
     chunk = make_chunk(streaming.cfg, streaming.step, 2)
@@ -829,12 +857,14 @@ def golden_signature(case, steps: int) -> dict:
     s, _ = chunk(case.state, 1.0)
     _, m = make_chunk(case.cfg, case.step, 1)(s, 1.0)
     sig = {}
-    for name in ("u", "v", "p"):
+    for name in s._fields:  # u, v, p; θ too on the Boussinesq state
         f = getattr(s, name)
-        sig[f"l2_{name}"] = float(torch.sqrt(torch.mean(f * f)))
-        sig[f"max_{name}"] = float(f.abs().max())
+        if f.ndim >= 2:
+            sig[f"l2_{name}"] = float(torch.sqrt(torch.mean(f * f)))
+            sig[f"max_{name}"] = float(f.abs().max())
     for name in ("energy", "max_vel", "fx", "fy", "vort_max"):
-        sig[name] = float(getattr(m, name)[-1])
+        if hasattr(m, name):
+            sig[name] = float(getattr(m, name)[-1])
     return sig
 
 
@@ -1063,6 +1093,9 @@ MAC_PATH_RUNS = {
     "cylinder_oscillating480x240_stretched": (200, 3.0),
     "cavity_stretched512": (200, 1.5),
     "cylinder_stretched512x256": (200, 3.0),
+    "cylinder_mac720x240_ghost": (200, 3.0),
+    "cylinder_oscillating480x240_ghost": (200, 3.0),
+    "cylinder_oscillating480x240_stretched_ghost": (200, 3.0),
 }
 
 
@@ -1081,12 +1114,17 @@ def phase_mac_paths():
         div_post = max(r["div_post"] for r in sim.metrics_history)
         rtol = FDM_DIV_POST_RTOL if "x_faces" in case.extras else MAC_DIV_POST_RTOL
         bound = rtol * max(r["max_vel"] for r in sim.metrics_history) / h
+        # the body force of one more step (not counted)
+        _, m = case.step(state, torch.ones((), dtype=torch.float32, device="cuda"))
+        fx, fy = float(m.fx), float(m.fy)
         say("mac_path", path=path, steps=int(state.step), launches=launches, max_abs_u=got_u,
-            div_post_max=div_post, div_post_bound=bound, t=report["final_time"],
+            div_post_max=div_post, div_post_bound=bound, fx=fx, fy=fy, t=report["final_time"],
             last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim),
             device_peak_bytes=report.get("device_peak_bytes"))
         if any(launches.values()):
             raise AssertionError(f"{path} launched kernels: {launches}")
+        if not (math.isfinite(fx) and math.isfinite(fy)):
+            raise AssertionError(f"{path}: body force not finite: {fx}, {fy}")
         if not div_post <= bound:
             raise AssertionError(f"{path}: div_post {div_post} above roundoff {bound}")
     del cases
@@ -1173,6 +1211,158 @@ def phase_botella_peyret():
         raise AssertionError(f"Botella–Peyret at 128²: {errs} (tol {BP_TOL})")
 
 
+# the Boussinesq gates of tests/test_boussinesq.py:23 and :97: de Vahl Davis
+# (48², Ra = 1e3, t = 0.6: both Nusselt numbers within 2% of 1.118, the
+# largest velocity within 5% of 3.70) and the onset bracket at ny = 32
+# (Ra = 1200 decays to max|u| < 1e-3 by t = 1; Ra = 3000 grows past 5 by t = 5
+# with Nu > 1.3)
+DVD_NU, DVD_NU_RTOL, DVD_VEL, DVD_VEL_RTOL = 1.118, 0.02, 3.70, 0.05
+
+
+def _run_to(case, t_final, chunk_steps):
+    """``case`` to ``t_final`` through runner.Simulation's captured chunks;
+    the state and the metrics of one more step (not counted)."""
+    cfg = RunnerConfig(t_final=t_final, chunk_steps=chunk_steps, health_check=True,
+                       div_threshold=50.0, max_velocity=1e3, log_every_chunks=0)
+    sim = Simulation(case.step, case.state, cfg, case.grid.n_cells)
+    t0 = time.perf_counter()
+    state, report = sim.run()
+    wall = time.perf_counter() - t0
+    if report["stopped_reason"] or report["chunk_route"] != "graph":
+        raise AssertionError(f"{case.name} to t = {t_final}: {report}")
+    _, m = case.step(state, torch.ones((), dtype=torch.float32, device="cuda"))
+    return state, m, report, wall
+
+
+def phase_boussinesq():
+    """The heated_cavity_32 golden, the de Vahl Davis gate, the onset
+    bracket, and the 1024² heated cavity through the DCT and through mg:2
+    (kernels A and B)."""
+    name = "heated_cavity_32"
+    ref = json.loads((ROOT / "tests" / "goldens.json").read_text())[name]
+    atol = 1e-6 * max(abs(v) for v in ref.values())
+    sig = golden_signature(build("heated_cavity", n=32, Ra=1e4, device="cuda"), 300)
+    tols = {k: GOLDEN_RTOL * abs(w) if abs(w) > atol else atol for k, w in ref.items()}
+    rel = {k: abs(sig[k] - w) / max(abs(w), atol) for k, w in ref.items()}
+    say("boussinesq_golden", golden=name, rel_err=rel, rtol=GOLDEN_RTOL,
+        worst_share_of_tol=max(abs(sig[k] - w) / tols[k] for k, w in ref.items()))
+    for key, want in ref.items():
+        if not abs(sig[key] - want) <= tols[key]:
+            raise AssertionError(f"golden {name}.{key}: {sig[key]} vs {want}")
+
+    state, m, report, wall = _run_to(build("heated_cavity", n=48, Ra=1e3, device="cuda"),
+                                     0.6, 500)
+    nu_wall, nu_mid, vel = float(m.nu_hot_wall), float(m.nu_mid), float(m.max_vel)
+    say("de_vahl_davis_gate", n=48, Ra=1e3, t=report["final_time"], steps=report["final_step"],
+        nu_hot_wall=nu_wall, nu_mid=nu_mid, max_vel=vel, want_nu=DVD_NU, nu_rtol=DVD_NU_RTOL,
+        want_max_vel=DVD_VEL, max_vel_rtol=DVD_VEL_RTOL, wall_s=wall)
+    if not (abs(nu_wall - DVD_NU) <= DVD_NU_RTOL * DVD_NU
+            and abs(nu_mid - DVD_NU) <= DVD_NU_RTOL * DVD_NU
+            and abs(vel - DVD_VEL) <= DVD_VEL_RTOL * DVD_VEL):
+        raise AssertionError(f"de Vahl Davis: Nu {nu_wall}, {nu_mid}, max velocity {vel}")
+
+    bracket = {}
+    for ra, t_end in ((1200.0, 1.0), (3000.0, 5.0)):
+        _, m, report, wall = _run_to(build("rayleigh_benard", ny=32, aspect=2.0, Ra=ra,
+                                           device="cuda"), t_end, 1000)
+        bracket[ra] = dict(t=report["final_time"], steps=report["final_step"],
+                           max_vel=float(m.max_vel), nu_hot_wall=float(m.nu_hot_wall),
+                           nu_mid=float(m.nu_mid), wall_s=wall)
+    say("rayleigh_benard_bracket", ny=32, aspect=2.0, runs=bracket)
+    sub, sup = bracket[1200.0], bracket[3000.0]
+    if not (sub["max_vel"] < 1e-3 and abs(sub["nu_hot_wall"] - 1.0) <= 1e-3):
+        raise AssertionError(f"Ra = 1200 did not decay: {sub}")
+    if not (sup["max_vel"] > 5.0 and sup["nu_hot_wall"] > 1.3
+            and abs(sup["nu_hot_wall"] - sup["nu_mid"]) <= 0.02 * sup["nu_mid"]):
+        raise AssertionError(f"Ra = 3000 did not convect: {sup}")
+
+    steps = 100
+    launches = {}
+    for path, case in boussinesq_paths(1024, device="cuda").items():
+        _reset_counts()
+        sim, state, report, wall = _run(case, steps, 50)
+        launches[path] = _counts()
+        _, got_u = _healthy(path, state, report, steps, 100.0)
+        div_post = max(r["div_post"] for r in sim.metrics_history)
+        say("boussinesq_path", path=path, Ra=1e4, steps=int(state.step),
+            launches=launches[path], max_abs_u=got_u, div_post_max=div_post,
+            max_abs_p=float(state.p.abs().max()),
+            theta_min=float(state.theta.min()), theta_max=float(state.theta.max()),
+            t=report["final_time"], last_chunk=sim.metrics_history[-1], wall_s=wall,
+            **_chunk_facts(sim), device_peak_bytes=report.get("device_peak_bytes"))
+        ran = steps + sim.chunk.steps_per_graph
+        if path.endswith("_mg2"):  # the pressure grid of phase_mg_cavity
+            want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
+                    "rbsor_b": ran * 2 * 2}
+        else:
+            want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+            # the exact projection's roundoff scales with what it subtracts:
+            # from rest that is the hydrostatic pressure balancing the
+            # buoyancy (max|p| ~ Ra·Pr), of which u is a small remainder, so
+            # the MAC bound takes the larger of max|u| and dt·max|p|/h
+            h = case.grid.dx
+            scale = max(max(r["max_vel"] for r in sim.metrics_history),
+                        sim.metrics_history[-1]["dt"] * float(state.p.abs().max()) / h)
+            bound = MAC_DIV_POST_RTOL * scale / h
+            if not div_post <= bound:
+                raise AssertionError(f"{path}: div_post {div_post} above roundoff {bound}")
+        if launches[path] != want:
+            raise AssertionError(f"{path} launched {launches[path]}, expected {want}")
+    return launches["heated_cavity1024_mg2"]
+
+
+def phase_3d():
+    """Both 3D cavities at 256³ (BASELINE.json config 5), and a bit-exact
+    native-snapshot resume of the MAC one at 128³ through the command line."""
+    steps = 100
+    for path, case in threed_paths(256, compute_metrics=True, device="cuda").items():
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # from rest the collocated cavity's approximate projection leaves
+        # the lid's divergence, which scales with 1/h, for the MG to reduce
+        sim, state, report, wall = _run(case, steps, 50, warmup_div_threshold=1e4)
+        launches = _counts()
+        _, got_u = _healthy(path, state, report, steps, 1.5)
+        div_post = max(r["div_post"] for r in sim.metrics_history)
+        bound = MAC_DIV_POST_RTOL * max(r["max_vel"] for r in sim.metrics_history) * 256
+        say("threed_path", path=path, n=256, steps=int(state.step), launches=launches,
+            max_abs_u=got_u, min_u=float(state.u.min()), div_post_max=div_post,
+            div_post_bound=bound if "mac" in path else None, t=report["final_time"],
+            last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim),
+            device_peak_bytes=torch.cuda.max_memory_allocated())
+        if any(launches.values()):
+            raise AssertionError(f"{path} launched kernels: {launches}")
+        if "mac" in path and not div_post <= bound:
+            raise AssertionError(f"{path}: div_post {div_post} above roundoff {bound}")
+        del sim, state, case
+        torch.cuda.empty_cache()
+
+    out = SMOKE_OUT / "cavity3d_mac"
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["run", "cavity3d_mac", "--device", "cuda", "--n", "128", "--t-final", "1e9",
+              "--chunk-steps", "25", "--snapshot-interval", "50", "--io", SNAPSHOT_IO]
+    reports = [cli.main([*common, "--out", str(out / "split"), "--max-steps", "50"]),
+               cli.main([*common, "--out", str(out / "split"), "--max-steps", "100",
+                         "--resume"]),
+               cli.main([*common, "--out", str(out / "straight"), "--max-steps", "100"])]
+    if [r["final_step"] for r in reports] != [50, 100, 100] or any(
+            r["chunk_route"] != "graph" or r["stopped_reason"] for r in reports):
+        raise AssertionError(f"cavity3d_mac runs: {reports}")
+    a = csnap_steps(out / "split" / "snapshots.csnap")
+    b = csnap_steps(out / "straight" / "snapshots.csnap")
+    (fa, ta), (fb, tb) = a[100], b[100]
+    differ = [k for k in fb if not np.array_equal(fa[k], fb[k])]
+    template = build("cavity3d_mac", n=128, device="cuda")
+    sa = restore(template.state, out / "split" / "snapshots.csnap")
+    sb = restore(template.state, out / "straight" / "snapshots.csnap")
+    differ += [k for (k, x), y in zip(named_leaves(sa), leaves(sb)) if not torch.equal(x, y)]
+    say("threed_resume", case="cavity3d_mac", n=128, steps=100, snapshots=sorted(a),
+        fields={k: list(v.shape) for k, v in fb.items()}, bit_equal=not differ, differ=differ,
+        t_split=ta, t_straight=tb, io=SNAPSHOT_IO, reports=reports)
+    if differ or ta != tb or not sorted(a) == sorted(b) == [0, 50, 100] or int(sa.step) != 100:
+        raise AssertionError(f"3D resume is not bit-exact: {differ}, t {ta} vs {tb}")
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -1193,8 +1383,10 @@ def phase_timings(card):
     # three paths through the captured chunk and through the eager loop
     for route in (None, "loop"):
         for path, case in {**_paths(compute_metrics=False), **new_paths(),
-                           **mac_paths()}.items():
+                           **mac_paths(), **boussinesq_paths()}.items():
             say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
+        for path, case in threed_paths().items():
+            say("time_profile", **profile_chunk(case, 10, "cuda", card, route, path=path))
         torch.cuda.empty_cache()
     # per tier the flops and bytes of one step against the card's peaks
     for row in run_roofline(1024):
@@ -1301,6 +1493,8 @@ def main() -> int:
     mac_mg, mac_cyl = phase_mac_kernels()
     phase_mac_goldens()
     phase_botella_peyret()
+    bq_mg = phase_boussinesq()
+    phase_3d()
     pred_launches = phase_main_path()
     cyl_a, cyl_chunks_per_step = phase_cylinder()
     mg = phase_mg_cavity()
@@ -1320,10 +1514,13 @@ def main() -> int:
                   "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"],
                   "cavity_mac_1024_mg": mac_mg["rbsor_a"],
                   "cavity_mac_1024_mg_cooperative": mac_mg["rbsor_a_cooperative"],
-                  "cylinder_mac_720x240": mac_cyl["rbsor_a"]},
+                  "cylinder_mac_720x240": mac_cyl["rbsor_a"],
+                  "heated_cavity_1024_mg": bq_mg["rbsor_a"],
+                  "heated_cavity_1024_mg_cooperative": bq_mg["rbsor_a_cooperative"]},
         "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"],
                           "cavity_1024_implicit_mg": implicit_mg["rbsor_b"],
-                          "cavity_mac_1024_mg": mac_mg["rbsor_b"]},
+                          "cavity_mac_1024_mg": mac_mg["rbsor_b"],
+                          "heated_cavity_1024_mg": bq_mg["rbsor_b"]},
     }
     info = {
         "fused_predictor_central": ("cfdsim_tpu_torch/csrc/predictor.cu",

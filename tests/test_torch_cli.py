@@ -27,7 +27,8 @@ def test_list_cases(capsys):
     cli.main(["list"])
     out = capsys.readouterr().out
     for name in ("cavity", "channel", "cylinder", "transport", "cavity_mac", "cavity_stretched",
-                 "cylinder_mac", "cylinder_oscillating", "cylinder_stretched"):
+                 "cylinder_mac", "cylinder_oscillating", "cylinder_stretched", "heated_cavity",
+                 "rayleigh_benard", "cavity3d", "cavity3d_mac"):
         assert name in out
 
 
@@ -82,6 +83,10 @@ TINY = {
     "cylinder_mac": dict(nx=48, ny=16),
     "cylinder_oscillating": dict(nx=32, ny=16),
     "cylinder_stretched": dict(nx=32, ny=16),
+    "heated_cavity": dict(n=16),
+    "rayleigh_benard": dict(ny=8),
+    "cavity3d": dict(n=8),
+    "cavity3d_mac": dict(n=8),
 }
 # the options each tier has: the collocated cases take implicit diffusion
 # and LES together; on the MAC tiers the cavity takes each alone, the
@@ -90,7 +95,12 @@ VARIANTS = {name: [{}, dict(diffusion="implicit"), dict(use_les=True),
                    dict(use_les=True, diffusion="implicit")]
             for name in ("cavity", "channel", "cylinder", "transport")}
 VARIANTS.update(cavity_mac=[{}, dict(diffusion="implicit"), dict(use_les=True)],
-                cylinder_oscillating=[{}, dict(stretched=True)])
+                cylinder_mac=[{}, dict(ibm_scheme="ghost")],
+                cylinder_oscillating=[{}, dict(stretched=True), dict(ibm_scheme="ghost"),
+                                      dict(stretched=True, ibm_scheme="ghost")],
+                heated_cavity=[{}, dict(theta_scheme="upwind"), dict(poisson="mg:2")],
+                cavity3d=[{}, dict(poisson="dct")],
+                cavity3d_mac=[{}, dict(use_les=True, scheme="tvd", time_scheme="rk2")])
 
 
 def test_every_registered_case_builds_and_steps():

@@ -87,9 +87,15 @@ def test_faces_must_match_the_config():
     with pytest.raises(ValueError, match="faces"):
         ms.make_step(cfg, mac.cavity_bcs(), np.linspace(0, 1, 10), np.linspace(0, 1, 9),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ms.make_step(cfg, mac.cavity_bcs(), np.linspace(0, 1, 9), np.linspace(0, 1, 9),
-                     moving_scheme="ghost", device="cpu")
+    # ghost stencils and penalization masks are mutually exclusive
+    from cfdsim_tpu_torch.ibm_ghost import cylinder_ghost_ibm
+
+    xf = np.linspace(0, 1, 9)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ms.make_step(cfg, mac.cavity_bcs(), xf, xf, device="cpu",
+                     ibm_ghost=cylinder_ghost_ibm(xf, xf, (0.5, 0.5), 0.2, device="cpu"),
+                     ibm_mask_u=np.zeros((8, 9), np.float32),
+                     ibm_mask_v=np.zeros((9, 8), np.float32))
 
 
 def test_stretched_state_is_a_mac_state():
