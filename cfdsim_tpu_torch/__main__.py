@@ -18,6 +18,10 @@
     python -m cfdsim_tpu_torch run cylinder_mac --ibm-scheme ghost --device cuda
     python -m cfdsim_tpu_torch run heated_cavity --n 1024 --Ra 1e4 --poisson mg:2
     python -m cfdsim_tpu_torch run cavity3d_mac --n 256 --io native --device cuda
+    python -m cfdsim_tpu_torch run sphere --nx 192 --ibm-scheme ghost --device cuda
+    python -m cfdsim_tpu_torch run sphere_stretched --ibm-scheme ghost --use-les true \
+        --les-model dynamic --Re 3900 --device cuda
+    python -m cfdsim_tpu_torch run heated_cube --n 48 --io native --device cuda
     python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --roofline
                                       | --cylinder | --routes]
 
@@ -302,14 +306,17 @@ def main(argv=None):
     mode.add_argument("--profile", action="store_true",
                       help="device events, busy time and idle share per step: the --n "
                            "cavity (DCT, MG, implicit), the ref-parity cylinder (also with "
-                           "LES), the transport cavity and the MAC and stretched cells")
+                           "LES), the transport cavity, the MAC and stretched cells, the "
+                           "heated and 3D cavities and the 3D bodies")
     mode.add_argument("--all", action="store_true",
                       help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s, ms per "
-                           "Helmholtz solve, MAC and stretched cells/s and ms per step of "
-                           "the implicit, LES and transport paths at --n")
+                           "Helmholtz solve, MAC, stretched and sphere cells/s and ms per "
+                           "step of the implicit, LES, transport, heated, 3D and 3D-body "
+                           "paths at --n")
     mode.add_argument("--roofline", action="store_true",
-                      help="the card's peaks and, per tier (collocated, MAC, stretched), flops "
-                           "and bytes per cell, the bound and the share of the roof reached")
+                      help="the card's peaks and, per tier (collocated, MAC, stretched, "
+                           "sphere), flops and bytes per cell, the bound and the share of the "
+                           "roof reached")
     mode.add_argument("--cylinder", action="store_true",
                       help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
     mode.add_argument("--routes", action="store_true",

@@ -23,17 +23,19 @@ chunk's and the eager loop's cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
 busy time against the wall time, for both routes, on every path: the
 collocated ones, the staggered tiers' with their ghost-IBM cylinders
-(:func:`mac_paths`), the Boussinesq cavities and the 3D cavities. ``--all`` is
-the twin of the JAX bench's ``run_secondary``: marginal streaming rbsor
-sweeps/s, RB-SOR kernel sweeps/s, multigrid V-cycles/s (kernel and plain
-smoothing) and DCT solves/s at 1024², the device time of one Dirichlet
-Helmholtz (DST) solve, the MAC-1024² and stretched-512² cells/s, and ms
-per step of the implicit cavity, the LES cylinder, the transport cavity,
-the 1024² heated cavity (DCT and ``mg:2``) and the 256³ cavities
-(:func:`run_paths` over :func:`new_paths`, :func:`boussinesq_paths` and
-:func:`threed_paths`). ``--roofline`` is the twin of ``run_roofline``: the
-card's measured peaks and, per tier, flops and bytes per cell of one step
-(``utils/roofline.py``, pre-fusion counts) against them. ``--cylinder``
+(:func:`mac_paths`), the Boussinesq cavities, the 3D cavities and the 3D
+bodies (:func:`sphere_paths`). ``--all`` is the twin of the JAX bench's
+``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
+sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
+solves/s at 1024², the device time of one Dirichlet Helmholtz (DST) solve,
+the MAC-1024², stretched-512² and sphere-192×96×96 cells/s, and ms per step
+of the implicit cavity, the LES cylinder, the transport cavity, the 1024²
+heated cavity (DCT and ``mg:2``), the 256³ cavities and the 3D bodies
+(:func:`run_paths` over :func:`new_paths`, :func:`boussinesq_paths`,
+:func:`threed_paths` and :func:`sphere_paths`). ``--roofline`` is the twin
+of ``run_roofline``: the card's measured peaks and, per tier (the sphere
+included), flops and bytes per cell of one step (``utils/roofline.py``,
+pre-fusion counts) against them. ``--cylinder``
 times the reference-parity cylinder at 600×180 with its pressure solve
 through kernel A and through streaming rbsor. ``--routes`` times kernel
 A's cluster and cooperative routes side by side per grid and sweep count,
@@ -60,6 +62,7 @@ import numpy as np
 import torch
 
 from cfdsim_tpu_torch.cases import (
+    Case,
     build,
     cavity3d,
     cavity3d_mac,
@@ -352,17 +355,77 @@ def threed_paths(n=256, compute_metrics=False, device="cuda") -> dict:
                                                  device=device)}
 
 
+# the moving sphere's physics: cases.cylinder_oscillating's defaults (KC =
+# 5, Re = 100, D = 1, T = 5) on the sphere cases' (16D, 8D, 8D) box
+MOVING_SPHERE_GRID = (192, 96, 96)
+MOVING_SPHERE_DOMAIN = (16.0, 8.0, 8.0)
+MOVING_SPHERE_KC, MOVING_SPHERE_RE = 5.0, 100.0
+MOVING_SPHERE_RADIUS, MOVING_SPHERE_PERIOD = 0.5, 5.0
+
+
+def moving_sphere(compute_metrics=False, device="cuda") -> Case:
+    """An in-line oscillating sphere in fluid at rest on the uniform 3D MAC
+    grid, the 3D twin of ``cylinder_oscillating``: x_c(t) = x0 + A·sin(2πt/T),
+    KC = 2πA/D, Re = U_max·D/ν, free-slip box, TVD, the exact DCT
+    projection, ghost-cell forcing rebuilt on the device every stage (the
+    JAX package builds it through ``mac3d.make_step(moving_body=...)``; it
+    has no named case)."""
+    from cfdsim_tpu_torch.grid import Grid3D
+    from cfdsim_tpu_torch.ibm import oscillating_sphere
+    from cfdsim_tpu_torch.models import mac3d
+
+    (nx, ny, nz), domain = MOVING_SPHERE_GRID, MOVING_SPHERE_DOMAIN
+    radius, period = MOVING_SPHERE_RADIUS, MOVING_SPHERE_PERIOD
+    D = 2 * radius
+    A = MOVING_SPHERE_KC * D / (2 * np.pi)
+    u_max = 2 * np.pi * A / period
+    grid = Grid3D(nx=nx, ny=ny, nz=nz, x_max=domain[0], y_max=domain[1], z_max=domain[2],
+                  centering="cell")
+    center = tuple(0.5 * d for d in domain)
+    body = oscillating_sphere(center, radius, A, period)
+    cfg = mac3d.MAC3DConfig(grid=grid, nu=u_max * D / MOVING_SPHERE_RE, scheme="tvd",
+                            cfl_target=0.4, dt_max=0.4 * grid.dx / u_max, dt_min=1e-6,
+                            max_velocity=5.0 * u_max, compute_metrics=compute_metrics)
+    step = mac3d.make_step(cfg, mac3d.free_slip_bcs3d(), moving_body=body,
+                           moving_scheme="ghost", device=device)
+    return Case("moving_sphere", cfg, step, mac3d.init_state(cfg, device=device), grid,
+                {"body": body, "amplitude": A, "period": period, "u_max": u_max,
+                 "center": center, "radius": radius,
+                 "coeff_scale": 2.0 / (u_max**2 * np.pi * radius**2)})
+
+
+def sphere_paths(compute_metrics=False, device="cuda") -> dict:
+    """The 3D bodies at full width: ``sphere()`` at its default 192×96×96
+    (TVD, exact DCT; the JAX bench's ``sphere3d`` cell),
+    ``sphere_stretched`` with ghost stencils and dynamic LES at Re = 3900,
+    ``heated_sphere_stretched`` with ghost stencils for momentum and θ, the
+    128³ stretched cavity (FDM) and :func:`moving_sphere` (plain torch,
+    cuFFT and cuBLAS: the JAX package has no kernel here)."""
+    rest = dict(compute_metrics=compute_metrics, device=device)
+    return {
+        "sphere192x96x96": build("sphere", **rest),
+        "sphere_stretched192x96x96_ghost_dynamic_les": build(
+            "sphere_stretched", Re=3900.0, ibm_scheme="ghost", use_les=True,
+            les_model="dynamic", perturb=0.02, **rest),
+        "heated_sphere_stretched192x96x96_ghost": build(
+            "heated_sphere_stretched", ibm_scheme="ghost", **rest),
+        "cavity3d_stretched128": build("cavity3d_stretched", n=128, **rest),
+        "moving_sphere192x96x96_ghost": moving_sphere(**rest),
+    }
+
+
 def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
     """Cells/s of ``case`` through the captured chunk, marginal between a
     short and a long chunk from the initial state (the JAX bench's
-    ``_timed_chunk`` pair)."""
+    ``_timed_chunk`` pair), with both wall times: a cost that slows only
+    one of them moves the marginal."""
     t_short, _, _ = _timed_chunk(case, case.state, short)
     t_long, state, chunk = _timed_chunk(case, case.state, long)
     if not all(bool(torch.isfinite(x).all()) for x in leaves(state)):
         raise RuntimeError("non-finite state after the long chunk")
     return {"value": n_cells * (long - short) / (t_long - t_short), "unit": "cells/s",
             "ms_per_step": (t_long - t_short) / (long - short) * 1e3, "steps": [short, long],
-            **_chunk_facts(chunk)}
+            "t_short_s": t_short, "t_long_s": t_long, **_chunk_facts(chunk)}
 
 
 def run_paths(n=1024, short=20, long=60, device="cuda", paths=None):
@@ -461,8 +524,8 @@ def run_profile(n=1024, steps=50, device="cuda"):
     with ``poisson="mg:2"`` (kernels A and B), :func:`new_paths` (the
     implicit cavity, the LES cylinder, the transport cavity),
     :func:`mac_paths` (the staggered and stretched tiers, the ghost-IBM
-    cylinders), :func:`boussinesq_paths` and :func:`threed_paths` (10-step
-    chunks)."""
+    cylinders), :func:`boussinesq_paths`, and :func:`threed_paths` and
+    :func:`sphere_paths` (10-step chunks)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -480,7 +543,7 @@ def run_profile(n=1024, steps=50, device="cuda"):
                            **boussinesq_paths(n, device=device)}.items():
             yield profile_chunk(case, 20 if path.startswith("cylinder") else steps, device,
                                 card, route, path=path)
-        for path, case in threed_paths(device=device).items():
+        for path, case in {**threed_paths(device=device), **sphere_paths(device=device)}.items():
             yield profile_chunk(case, 10, device, card, route, path=path)
         torch.cuda.empty_cache()
 
@@ -514,7 +577,9 @@ def run_all(n=1024, device="cuda"):
     with kernel and with plain smoothing, and DCT solves/s; then the device
     ms of one Helmholtz (DST) solve beside the DCT solve's, the MAC and
     stretched cells/s, and ms per step of the implicit, LES and transport
-    paths, the heated cavities and the 3D cavities (:func:`run_paths`)."""
+    paths, the heated cavities, the 3D cavities and the 3D bodies
+    (:func:`run_paths`); and the sphere's cells/s at its default
+    192×96×96, marginal between 50 and 250 steps (``bench.py:151-162``)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     h = 1.0 / (n - 1)
@@ -553,6 +618,10 @@ def run_all(n=1024, device="cuda"):
     yield from run_paths(n, device=device)
     yield from run_paths(n, device=device, paths=boussinesq_paths(n, device=device))
     yield from run_paths(n, short=5, long=15, device=device, paths=threed_paths(device=device))
+    case = build("sphere", compute_metrics=False, device=device)
+    yield {"metric": "cell_updates_per_sec_sphere3d",
+           **cells_per_sec(case, case.grid.n_cells, short=50, long=250), "card": card}
+    yield from run_paths(n, short=5, long=15, device=device, paths=sphere_paths(device=device))
 
 
 def run_roofline(n=1024, device="cuda"):
@@ -562,7 +631,8 @@ def run_roofline(n=1024, device="cuda"):
     the (n/2)² stretched cavity the flops and bytes per cell of one eager
     step (``utils/roofline.py``: pre-fusion counts per aten op), the
     bound, the ceilings and the measured cells/s through the captured
-    chunk. The JAX bench's sphere3d row waits for the 3D tier."""
+    chunk; then the sphere at its default 192×96×96 (``sphere3d``, rates
+    marginal between 50 and 250 steps, as ``bench.py:218-220``)."""
     from cfdsim_tpu_torch.utils.roofline import measure_peaks, roofline
 
     device = _require_cuda(device)
@@ -571,6 +641,7 @@ def run_roofline(n=1024, device="cuda"):
     yield {"metric": "machine_peaks", "peak_flops": peaks["peak_flops"],
            "peak_bw_bytes_per_sec": peaks["peak_bw"], "card": card}
     ns = n // 2
+    sphere = build("sphere", compute_metrics=False, device=device)
     tiers = {
         f"collocated{n}": (lid_cavity(n=n, Re=1000.0, poisson=POISSON, compute_metrics=False,
                                       fused_predictor=n >= 2048, device=device), n * n),
@@ -578,12 +649,15 @@ def run_roofline(n=1024, device="cuda"):
                                    device=device), n * n),
         f"stretched{ns}": (cavity_stretched(n=ns, Re=1000.0, beta=1.5, compute_metrics=False,
                                             device=device), ns * ns),
+        "sphere3d": (sphere, sphere.grid.n_cells),
     }
     for name, (case, n_cells) in tiers.items():
-        rate = cells_per_sec(case, n_cells)["value"]
+        chunks = (50, 250) if name == "sphere3d" else (100, 600)
+        timed = cells_per_sec(case, n_cells, *chunks)
         cfl = torch.ones((), dtype=torch.float32, device=device)
-        row = roofline(case.step, case.state, n_cells, rate, peaks, cfl)
-        yield {"metric": f"roofline_{name}", **row, "card": card}
+        row = roofline(case.step, case.state, n_cells, timed["value"], peaks, cfl)
+        yield {"metric": f"roofline_{name}", **row, "t_short_s": timed["t_short_s"],
+               "t_long_s": timed["t_long_s"], "card": card}
 
 
 def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):

@@ -1,7 +1,7 @@
 """Carry a simulation state between numpy and the port.
 
 A CFD case has no weights: its state (u, v, p, t, step, and θ for the
-coupled transport state and the Boussinesq state; w too in 3D; on the
+coupled transport states and the Boussinesq states; w too in 3D; on the
 staggered tiers fields of several shapes) is what moves between the JAX
 package and this one. Pass the JAX arrays through
 ``np.asarray`` on the way in and build a JAX state from the numpy dict on
@@ -14,11 +14,13 @@ import numpy as np
 import torch
 
 from cfdsim_tpu_torch.models.boussinesq import BoussinesqState
+from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DState
 from cfdsim_tpu_torch.models.incompressible import IncompressibleState
 from cfdsim_tpu_torch.models.incompressible3d import Incompressible3DState
 from cfdsim_tpu_torch.models.mac import MACState
 from cfdsim_tpu_torch.models.mac3d import MAC3DState
 from cfdsim_tpu_torch.models.transport import CoupledState
+from cfdsim_tpu_torch.models.transport3d import Transport3DState
 
 
 def _fields(cls, t, step, device, **fields):
@@ -72,6 +74,20 @@ def mac3d_state_from_numpy(u, v, w, p, t, step, device) -> MAC3DState:
         raise ValueError(f"not a MAC 3D state: u {np.shape(u)}, v {np.shape(v)}, "
                          f"w {np.shape(w)}, p {(nz, ny, nx)}")
     return _fields(MAC3DState, t, step, device, u=u, v=v, w=w, p=p)
+
+
+def transport3d_state_from_numpy(u, v, w, p, theta, t, step, device) -> Transport3DState:
+    """A :class:`Transport3DState` on ``device`` (the MAC fields as
+    :func:`mac3d_state_from_numpy`, θ (nz, ny, nx) cast to float32)."""
+    mac3d_state_from_numpy(u, v, w, p, t, step, "cpu")  # the shape check
+    return _fields(Transport3DState, t, step, device, u=u, v=v, w=w, p=p, theta=theta)
+
+
+def boussinesq3d_state_from_numpy(u, v, w, p, theta, t, step, device) -> Boussinesq3DState:
+    """A :class:`Boussinesq3DState` on ``device``, as
+    :func:`transport3d_state_from_numpy`."""
+    mac3d_state_from_numpy(u, v, w, p, t, step, "cpu")
+    return _fields(Boussinesq3DState, t, step, device, u=u, v=v, w=w, p=p, theta=theta)
 
 
 def state_to_numpy(state) -> dict:

@@ -1,8 +1,13 @@
-"""Immersed-boundary geometry and forcing (``cfdsim_tpu.ibm``, 2D): the
+"""Immersed-boundary geometry and forcing (``cfdsim_tpu.ibm``): the
 collocated cylinder's ``cylinder_masks``, ``apply_ibm``, ``ibm_ramp`` and
 ``potential_flow_cylinder``; the staggered tiers' face-sampled
-``cylinder_masks_mac`` and ``potential_flow_cylinder_mac``; and the moving
-bodies (``MovingBody``, ``oscillating_cylinder``, ``translating_body``).
+``cylinder_masks_mac`` and ``potential_flow_cylinder_mac``; the moving
+bodies (``MovingBody``, ``oscillating_cylinder``, ``translating_body``);
+and in 3D the sphere's face-sampled and cell-centred masks
+(``sphere_masks_faces``, ``sphere_mask_cells``, ``sphere_masks_mac3d``),
+its potential-flow start (``potential_flow_sphere_faces``,
+``potential_flow_sphere_mac3d``) and the moving sphere (``MovingBody3D``,
+``oscillating_sphere``).
 
 The mask and initial-field builders are numpy, run once at set-up, and
 give the JAX package's arrays bit for bit; the step moves them to its
@@ -172,3 +177,139 @@ def translating_body(center0, velocity, radius: float) -> MovingBody:
         return (z + ub, z + vb)
 
     return MovingBody(center=c, velocity=vel, radius=radius)
+
+
+def _cell_centres(*faces):
+    """float64 face vectors and their cell centres, per axis."""
+    f = [np.asarray(a, np.float64) for a in faces]
+    return f, [0.5 * (a[:-1] + a[1:]) for a in f]
+
+
+def _min_spacing(faces) -> float:
+    return float(min(np.diff(a).min() for a in faces))
+
+
+def _mask_profile(profile: str, radius: float, width: float):
+    if profile == "sharp":
+        return lambda d: np.clip((radius + 0.5 * width - d) / width, 0.0, 1.0)
+    if profile == "shell":
+        return lambda d: _gaussian_shell(d, radius, width)
+    raise ValueError(f"unknown IBM mask profile {profile!r}")
+
+
+def sphere_masks_faces(x_faces, y_faces, z_faces, center, radius: float,
+                       profile: str = "sharp", width: float | None = None):
+    """Face-sampled IBM masks (float32 numpy) for the 3D staggered layout of
+    any tensor-product grid with face coordinates ``x_faces`` (nx+1,),
+    ``y_faces``, ``z_faces``: u faces (nz, ny, nx+1), v (nz, ny+1, nx), w
+    (nz+1, ny, nx). ``"sharp"``: 1 inside r < R with a linear taper of
+    ``width`` (default the smallest spacing), for quantitative forces;
+    ``"shell"``: the Gaussian shell of :func:`cylinder_masks`."""
+    (xf, yf, zf), (xc, yc, zc) = _cell_centres(x_faces, y_faces, z_faces)
+    if width is None:
+        width = _min_spacing((xf, yf, zf))
+    cx, cy, cz = center
+    shape = _mask_profile(profile, radius, width)
+
+    def dist(xs, ys, zs):
+        Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+        return np.sqrt((X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2)
+
+    return tuple(shape(dist(*s)).astype(np.float32)
+                 for s in ((xf, yc, zc), (xc, yf, zc), (xc, yc, zf)))
+
+
+def sphere_mask_cells(x_faces, y_faces, z_faces, center, radius: float,
+                      profile: str = "sharp", width: float | None = None):
+    """The cell-centred sphere mask (nz, ny, nx), float32 numpy: the θ
+    penalization mask of an isothermal body; the profiles of
+    :func:`sphere_masks_faces`."""
+    (xf, yf, zf), (xc, yc, zc) = _cell_centres(x_faces, y_faces, z_faces)
+    if width is None:
+        width = _min_spacing((xf, yf, zf))
+    Z, Y, X = np.meshgrid(zc, yc, xc, indexing="ij")
+    d = np.sqrt((X - center[0]) ** 2 + (Y - center[1]) ** 2 + (Z - center[2]) ** 2)
+    return _mask_profile(profile, radius, width)(d).astype(np.float32)
+
+
+def _uniform_faces(grid):
+    """The face coordinates of a uniform cell-centred ``Grid3D``."""
+    return (grid.x_min + np.arange(grid.nx + 1) * grid.dx,
+            grid.y_min + np.arange(grid.ny + 1) * grid.dy,
+            grid.z_min + np.arange(grid.nz + 1) * grid.dz)
+
+
+def sphere_masks_mac3d(grid, center, radius: float, profile: str = "sharp"):
+    """:func:`sphere_masks_faces` on a uniform cell-centred ``Grid3D``."""
+    return sphere_masks_faces(*_uniform_faces(grid), center, radius, profile=profile,
+                              width=grid.dx)
+
+
+def potential_flow_sphere_faces(x_faces, y_faces, z_faces, center, radius: float,
+                                v_inf: float, mask_u, mask_v, mask_w,
+                                width: float | None = None):
+    """Potential flow around a sphere on the 3D MAC faces of any
+    tensor-product grid, float32 numpy: φ = V·x·(1 + R³/2r³), blended to
+    rest within 4·``width`` of the surface and zeroed inside the masks."""
+    (xf, yf, zf), (xc, yc, zc) = _cell_centres(x_faces, y_faces, z_faces)
+    if width is None:
+        width = _min_spacing((xf, yf, zf))
+    cx, cy, cz = center
+
+    def fields(xs, ys, zs):
+        Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+        X, Y, Z = X - cx, Y - cy, Z - cz
+        r = np.maximum(np.sqrt(X**2 + Y**2 + Z**2), 1e-10)
+        fac = radius**3 / (2.0 * r**3)
+        u = v_inf * (1.0 + fac - 3.0 * fac * X * X / r**2)
+        v = -3.0 * v_inf * fac * X * Y / r**2
+        w = -3.0 * v_inf * fac * X * Z / r**2
+        blend = np.minimum(1.0, ((r - radius) / (4.0 * width)) ** 2)
+        near = r <= radius + 4.0 * width
+        return (np.where(near, v_inf * blend, u), np.where(near, 0.0, v),
+                np.where(near, 0.0, w))
+
+    u0 = fields(xf, yc, zc)[0] * (1.0 - np.asarray(mask_u))
+    v0 = fields(xc, yf, zc)[1] * (1.0 - np.asarray(mask_v))
+    w0 = fields(xc, yc, zf)[2] * (1.0 - np.asarray(mask_w))
+    return u0.astype(np.float32), v0.astype(np.float32), w0.astype(np.float32)
+
+
+def potential_flow_sphere_mac3d(grid, center, radius: float, v_inf: float, mask_u, mask_v,
+                                mask_w):
+    """:func:`potential_flow_sphere_faces` on a uniform cell-centred
+    ``Grid3D``."""
+    return potential_flow_sphere_faces(*_uniform_faces(grid), center, radius, v_inf, mask_u,
+                                       mask_v, mask_w, width=grid.dx)
+
+
+class MovingBody3D(NamedTuple):
+    """A rigid sphere in motion for the 3D MAC tiers: ``center(t) -> (cx,
+    cy, cz)`` and ``velocity(t) -> (ub, vb, wb)`` are torch functions of the
+    simulated time ``t`` (a 0-dim device tensor)."""
+
+    center: Callable
+    velocity: Callable
+    radius: float
+
+
+def oscillating_sphere(center, radius: float, amplitude: float, period: float,
+                       axis: int = 0) -> MovingBody3D:
+    """Harmonic oscillation along one axis (0, 1, 2 for x, y, z):
+    x_c(t) = x0 + A·sin(2πt/T)."""
+    c0 = tuple(float(c) for c in center)
+    om = 2.0 * math.pi / period
+
+    def c(t):
+        out = list(c0)
+        out[axis] = c0[axis] + amplitude * torch.sin(om * t)
+        return tuple(out)
+
+    def vel(t):
+        s = amplitude * om * torch.cos(om * t)
+        z = torch.zeros_like(s)
+        out = [z, z, z]
+        out[axis] = s
+        return tuple(out)
+
+    return MovingBody3D(center=c, velocity=vel, radius=radius)

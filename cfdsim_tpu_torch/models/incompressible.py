@@ -575,9 +575,12 @@ def make_chunk(cfg, step_fn: Callable, n_steps: int, *, device=None,
     ``n_steps`` steps: the JAX package's jitted ``lax.scan`` chunk. ``cfg``
     is the case's configuration (``IncompressibleConfig``, ``MACConfig``,
     ``StretchedMACConfig``, ``BoussinesqConfig``, ``Incompressible3DConfig``,
-    ``MAC3DConfig``, or the transport pair); the chunk works on the state's
-    leaves whatever their shapes and number (a ``MACState`` has three
-    shapes, a ``MAC3DState`` four), and on any metrics record. On a
+    ``MAC3DConfig``, ``StretchedMAC3DConfig``, ``Transport3DConfig``,
+    ``Boussinesq3DConfig``, or the transport pair); the chunk works on the
+    state's leaves whatever their shapes and number (a ``MACState`` has three
+    shapes, a ``MAC3DState`` four), and on any metrics record. A moving
+    body's stencils are rebuilt inside each step from the device-side t, so
+    its step captures like any other. On a
     CUDA device, for a step that reads nothing on the host, the steps are
     one captured device program and cost the host a constant; else a Python
     loop of step calls (:func:`chunk_route`; see :class:`Chunk`). The route

@@ -7,21 +7,24 @@ the exact 3D DCT projection (``solvers/poisson3d.py``, ``method="dct"``):
 divergence-free to float32 roundoff. Conservative advection in divergence
 form (central, upwind, or TVD: MUSCL with van Leer slopes), the six
 edge-centred flux interpolants shared pairwise between the momentum
-equations; static Smagorinsky LES with flux-form variable-ν diffusion;
-``chorin`` or ``incremental`` projection, ``euler`` or ``rk2`` (Heun)
-time stepping; face-sampled penalization masks (``ibm_mask_{u,v,w}``). The
-cavity's lid is at z_hi moving in +x (the ``cavity3d`` convention).
+equations; LES with flux-form variable-ν diffusion, static Smagorinsky or
+dynamic Germano–Lilly (``les_model="dynamic"``, ``ops/les_dynamic.py``: one
+volume-averaged coefficient per evaluation, IBM body cells left out of its
+contraction); ``chorin`` or ``incremental`` projection, ``euler`` or
+``rk2`` (Heun) time stepping. Immersed bodies: face-sampled penalization
+masks (``ibm_mask_{u,v,w}``), the ghost-cell IBM of a static body
+(``ibm_ghost=``, ``ibm_ghost.py``), and a moving body (``moving_body=``)
+by sharp masks rebuilt on the device every stage or, with
+``moving_scheme="ghost"``, by ghost-cell stencils rebuilt on the device;
+the body force is the momentum each removes. The cavity's lid is at z_hi
+moving in +x (the ``cavity3d`` convention).
 
 ``MAC3DBCs.set_normal`` writes the boundary faces in place: the step hands
 it only tensors it allocated itself (the state's fields are copied once),
 so nothing the caller holds changes. ``ghosts`` returns new arrays. The
-step reads nothing on the host, so a chunk of steps captures into one CUDA
+step reads nothing on the host (a moving body's position is a torch
+function of the device-side t), so a chunk of steps captures into one CUDA
 graph.
-
-Not ported (ROADMAP.md queue 1, item 17; they raise
-``NotImplementedError``): ``les_model="dynamic"`` (``ops/les_dynamic.py``),
-the 3D ghost-cell IBM (``ibm_ghost=``), the moving body (``moving_body=``)
-and ``moving_scheme="ghost"``.
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ from torch import nn
 
 from cfdsim_tpu_torch.grid import Grid3D
 from cfdsim_tpu_torch.ibm import ibm_ramp
+from cfdsim_tpu_torch.ibm_ghost import GhostForcing3D, moving_ghost_forcing_3d
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
 from cfdsim_tpu_torch.models.mac import _face_value
+from cfdsim_tpu_torch.ops.les_dynamic import dynamic_cs2_3d, ibm_fluid_mask_centers
 from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.solvers.poisson3d import Poisson3DConfig, Poisson3DSolver, pad_edge_3d
-
-ITEM_17 = "ROADMAP.md queue 1, item 17"
 
 
 class MAC3DState(NamedTuple):
@@ -55,8 +58,7 @@ class MAC3DState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class MAC3DConfig:
-    """Static configuration (the JAX package's fields and defaults).
-    ``les_model="dynamic"`` is accepted here and refused by the step."""
+    """Static configuration (the JAX package's fields and defaults)."""
 
     grid: Grid3D
     nu: float
@@ -79,7 +81,13 @@ class MAC3DConfig:
 def init_state(cfg: MAC3DConfig, u0=None, v0=None, w0=None, p0=None, *, device) -> MAC3DState:
     """A zero state (or the given fields) on ``device``."""
     g = cfg.grid
-    nz, ny, nx = g.nz, g.ny, g.nx
+    return mac3d_state(g.nx, g.ny, g.nz, u0, v0, w0, p0, device=device)
+
+
+def mac3d_state(nx: int, ny: int, nz: int, u0=None, v0=None, w0=None, p0=None, *,
+                device) -> MAC3DState:
+    """A :class:`MAC3DState` of nx×ny×nz cells on ``device``: zeros, or the
+    given fields (numpy or tensors, copied as float32)."""
 
     def field(x, shape):
         if x is None:
@@ -189,24 +197,34 @@ def _to_centres(e, ax1: int, ax2: int):
     return 0.5 * (s.narrow(ax2, 0, s.shape[ax2] - 1) + s.narrow(ax2, 1, s.shape[ax2] - 1))
 
 
-def strain_magnitude_mac3d(u, v, w, ghosts, dx: float, dy: float, dz: float):
-    """|S| = √(2 S_ij S_ij) at cell centres: the normal strains at centres,
-    each shear sum 2S_ij on its edge set averaged back to centres."""
+def strain_magnitude_metric(u, v, w, ghosts, inv_h, inv_df):
+    """|S| = √(2 S_ij S_ij) at cell centres on any tensor-product grid: the
+    normal strains on the cell widths (``inv_h``, per axis x, y, z their
+    inverses), each shear sum 2S_ij on its edge set on the ghost-extended
+    centre gaps (``inv_df``), averaged back to the centres. On a uniform
+    grid both are 1/h."""
     u_gy, u_gz, v_gx, v_gz, w_gx, w_gy = ghosts
-    sxx = (u[:, :, 1:] - u[:, :, :-1]) * (1.0 / dx)
-    syy = (v[:, 1:, :] - v[:, :-1, :]) * (1.0 / dy)
-    szz = (w[1:] - w[:-1]) * (1.0 / dz)
-    sh_xy = (u_gy[:, 1:, :] - u_gy[:, :-1, :]) * (1.0 / dy) + (
-        v_gx[:, :, 1:] - v_gx[:, :, :-1]) * (1.0 / dx)  # z-edges (nz, ny+1, nx+1)
-    sh_xz = (u_gz[1:] - u_gz[:-1]) * (1.0 / dz) + (
-        w_gx[:, :, 1:] - w_gx[:, :, :-1]) * (1.0 / dx)  # y-edges (nz+1, ny, nx+1)
-    sh_yz = (v_gz[1:] - v_gz[:-1]) * (1.0 / dz) + (
-        w_gy[:, 1:, :] - w_gy[:, :-1, :]) * (1.0 / dy)  # x-edges (nz+1, ny+1, nx)
+    (hx, hy, hz), (fx, fy, fz) = inv_h, inv_df
+    sxx = (u[:, :, 1:] - u[:, :, :-1]) * hx
+    syy = (v[:, 1:, :] - v[:, :-1, :]) * hy
+    szz = (w[1:] - w[:-1]) * hz
+    sh_xy = (u_gy[:, 1:, :] - u_gy[:, :-1, :]) * fy + (
+        v_gx[:, :, 1:] - v_gx[:, :, :-1]) * fx  # z-edges (nz, ny+1, nx+1)
+    sh_xz = (u_gz[1:] - u_gz[:-1]) * fz + (
+        w_gx[:, :, 1:] - w_gx[:, :, :-1]) * fx  # y-edges (nz+1, ny, nx+1)
+    sh_yz = (v_gz[1:] - v_gz[:-1]) * fz + (
+        w_gy[:, 1:, :] - w_gy[:, :-1, :]) * fy  # x-edges (nz+1, ny+1, nx)
     s2 = (2.0 * (sxx * sxx + syy * syy + szz * szz)
           + _to_centres(sh_xy * sh_xy, 1, 2)
           + _to_centres(sh_xz * sh_xz, 0, 2)
           + _to_centres(sh_yz * sh_yz, 0, 1))
     return torch.sqrt(s2)
+
+
+def strain_magnitude_mac3d(u, v, w, ghosts, dx: float, dy: float, dz: float):
+    """:func:`strain_magnitude_metric` on a uniform grid."""
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    return strain_magnitude_metric(u, v, w, ghosts, inv, inv)
 
 
 def smagorinsky_viscosity_mac3d(u, v, w, ghosts, dx: float, dy: float, dz: float, cs: float):
@@ -215,11 +233,79 @@ def smagorinsky_viscosity_mac3d(u, v, w, ghosts, dx: float, dy: float, dz: float
     return (cs * delta) ** 2 * strain_magnitude_mac3d(u, v, w, ghosts, dx, dy, dz)
 
 
-def _diffuse_les3d(u, v, w, ghosts, nu_eff_c, dx: float, dy: float, dz: float):
-    """Flux-form ∇·(ν_eff ∇·) on the interior u/v/w faces; ν_eff at cell
-    centres, edge-averaged (edge-clamped) for the cross fluxes. With a
-    constant ν it is ν·:func:`diffuse3d`."""
+def face_coords_3d(xs_f, ys_f, zs_f, xs_c, ys_c, zs_c):
+    """The float32 coordinate grids (X, Y, Z), each (nz', ny', nx'), of the
+    u, v and w faces, from each axis' face coordinates ``*_f`` and cell
+    centres ``*_c`` (numpy)."""
+
+    def grids(xs, ys, zs):
+        Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+        return tuple(a.astype(np.float32) for a in (X, Y, Z))
+
+    return (grids(xs_f, ys_c, zs_c), grids(xs_c, ys_f, zs_c), grids(xs_c, ys_c, zs_f))
+
+
+def moving_body_masks_3d(body, coords, taper: float, t):
+    """The moving sphere's sharp face masks at time ``t`` (a device tensor)
+    on the face coordinate grids ``coords`` ((X, Y, Z) per component): 1
+    inside with a linear taper of width ``taper``, rebuilt on the device."""
+    cx, cy, cz = body.center(t)
+    r = body.radius
+
+    def mask(X, Y, Z):
+        d = torch.sqrt((X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2)
+        return ((r + 0.5 * taper - d) / taper).clamp(0.0, 1.0)
+
+    return tuple(mask(*c) for c in coords)
+
+
+class _BodyCoords(nn.Module):
+    """A moving body's face coordinate grids as buffers (``XU`` … ``ZW``)."""
+
+    def __init__(self, coords, *, device):
+        super().__init__()
+        for comp, grids in zip("UVW", coords):
+            for axis, a in zip("XYZ", grids):
+                self.register_buffer(axis + comp, torch.as_tensor(a, device=device))
+
+    def component(self, comp: str):
+        return tuple(getattr(self, axis + comp) for axis in "XYZ")
+
+    def all(self):
+        return tuple(self.component(c) for c in "UVW")
+
+
+def check_mac3d_options(cfg, ibm_ghost, ibm_mask_u, moving_body, moving_scheme):
+    """The JAX package's refusals of the 3D MAC tiers (``ValueError``)."""
+    if ibm_ghost is not None and ibm_mask_u is not None:
+        raise ValueError("ibm_ghost and ibm_mask_* are mutually exclusive")
+    if moving_scheme not in ("penalize", "ghost"):
+        raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
+    if cfg.scheme not in ("central", "upwind", "tvd"):
+        raise ValueError(f"unknown MAC3D scheme {cfg.scheme!r}")
+    if cfg.time_scheme not in ("euler", "rk2"):
+        raise ValueError(f"unknown MAC3D time scheme {cfg.time_scheme!r}")
+    if cfg.projection not in ("chorin", "incremental"):
+        raise ValueError(f"unknown MAC3D projection {cfg.projection!r}")
+    if cfg.les_model not in ("smagorinsky", "dynamic"):
+        raise ValueError(f"unknown les_model {cfg.les_model!r}")
+    if cfg.use_les and cfg.les_model == "dynamic" and moving_body is not None:
+        # the Germano contraction would need the moving body masked per step
+        raise ValueError(
+            "les_model='dynamic' does not support moving_body yet (the Germano "
+            "contraction needs the body masked per step); use les_model='smagorinsky'")
+
+
+def diffuse_les_metric(u, v, w, ghosts, nu_eff_c, inv_h, inv_dc, inv_df):
+    """Flux-form ∇·(ν_eff ∇·) on the interior u/v/w faces of any
+    tensor-product grid: ν_eff at cell centres, the four-point edge average
+    of its edge-clamped padding for the cross fluxes; per axis (x, y, z)
+    ``inv_h`` are the inverse cell widths, ``inv_dc`` the inverse interior
+    centre gaps and ``inv_df`` the inverse ghost-extended centre gaps (all
+    1/h on a uniform grid). With a constant ν it is ν times the face
+    Laplacian."""
     u_gy, u_gz, v_gx, v_gz, w_gx, w_gy = ghosts
+    (hx, hy, hz), (cx, cy, cz), (fx, fy, fz) = inv_h, inv_dc, inv_df
     nu_e = pad_edge_3d(nu_eff_c)
     nu_xy = 0.25 * (nu_e[1:-1, :-1, :-1] + nu_e[1:-1, :-1, 1:]
                     + nu_e[1:-1, 1:, :-1] + nu_e[1:-1, 1:, 1:])  # (nz, ny+1, nx+1)
@@ -227,27 +313,33 @@ def _diffuse_les3d(u, v, w, ghosts, nu_eff_c, dx: float, dy: float, dz: float):
                     + nu_e[1:, 1:-1, :-1] + nu_e[1:, 1:-1, 1:])  # (nz+1, ny, nx+1)
     nu_yz = 0.25 * (nu_e[:-1, :-1, 1:-1] + nu_e[:-1, 1:, 1:-1]
                     + nu_e[1:, :-1, 1:-1] + nu_e[1:, 1:, 1:-1])  # (nz+1, ny+1, nx)
-    ax, ay, az = 1.0 / dx, 1.0 / dy, 1.0 / dz
 
-    fux = nu_eff_c * (u[:, :, 1:] - u[:, :, :-1]) * ax
-    fuy = nu_xy * (u_gy[:, 1:, :] - u_gy[:, :-1, :]) * ay
-    fuz = nu_xz * (u_gz[1:] - u_gz[:-1]) * az
-    lap_u = ((fux[:, :, 1:] - fux[:, :, :-1]) * ax
-             + (fuy[:, 1:, 1:-1] - fuy[:, :-1, 1:-1]) * ay
-             + (fuz[1:, :, 1:-1] - fuz[:-1, :, 1:-1]) * az)
-    fvy = nu_eff_c * (v[:, 1:, :] - v[:, :-1, :]) * ay
-    fvx = nu_xy * (v_gx[:, :, 1:] - v_gx[:, :, :-1]) * ax
-    fvz = nu_yz * (v_gz[1:] - v_gz[:-1]) * az
-    lap_v = ((fvx[:, 1:-1, 1:] - fvx[:, 1:-1, :-1]) * ax
-             + (fvy[:, 1:, :] - fvy[:, :-1, :]) * ay
-             + (fvz[1:, 1:-1, :] - fvz[:-1, 1:-1, :]) * az)
-    fwz = nu_eff_c * (w[1:] - w[:-1]) * az
-    fwx = nu_xz * (w_gx[:, :, 1:] - w_gx[:, :, :-1]) * ax
-    fwy = nu_yz * (w_gy[:, 1:, :] - w_gy[:, :-1, :]) * ay
-    lap_w = ((fwx[1:-1, :, 1:] - fwx[1:-1, :, :-1]) * ax
-             + (fwy[1:-1, 1:, :] - fwy[1:-1, :-1, :]) * ay
-             + (fwz[1:] - fwz[:-1]) * az)
+    fux = nu_eff_c * (u[:, :, 1:] - u[:, :, :-1]) * hx
+    fuy = nu_xy * (u_gy[:, 1:, :] - u_gy[:, :-1, :]) * fy
+    fuz = nu_xz * (u_gz[1:] - u_gz[:-1]) * fz
+    lap_u = ((fux[:, :, 1:] - fux[:, :, :-1]) * cx
+             + (fuy[:, 1:, 1:-1] - fuy[:, :-1, 1:-1]) * hy
+             + (fuz[1:, :, 1:-1] - fuz[:-1, :, 1:-1]) * hz)
+    fvy = nu_eff_c * (v[:, 1:, :] - v[:, :-1, :]) * hy
+    fvx = nu_xy * (v_gx[:, :, 1:] - v_gx[:, :, :-1]) * fx
+    fvz = nu_yz * (v_gz[1:] - v_gz[:-1]) * fz
+    lap_v = ((fvx[:, 1:-1, 1:] - fvx[:, 1:-1, :-1]) * hx
+             + (fvy[:, 1:, :] - fvy[:, :-1, :]) * cy
+             + (fvz[1:, 1:-1, :] - fvz[:-1, 1:-1, :]) * hz)
+    fwz = nu_eff_c * (w[1:] - w[:-1]) * hz
+    fwx = nu_xz * (w_gx[:, :, 1:] - w_gx[:, :, :-1]) * fx
+    fwy = nu_yz * (w_gy[:, 1:, :] - w_gy[:, :-1, :]) * fy
+    lap_w = ((fwx[1:-1, :, 1:] - fwx[1:-1, :, :-1]) * hx
+             + (fwy[1:-1, 1:, :] - fwy[1:-1, :-1, :]) * hy
+             + (fwz[1:] - fwz[:-1]) * cz)
     return lap_u, lap_v, lap_w
+
+
+def _diffuse_les3d(u, v, w, ghosts, nu_eff_c, dx: float, dy: float, dz: float):
+    """:func:`diffuse_les_metric` on a uniform grid; with a constant ν it is
+    ν·:func:`diffuse3d`."""
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    return diffuse_les_metric(u, v, w, ghosts, nu_eff_c, inv, inv, inv)
 
 
 def divergence_mac3d(u, v, w, dx: float, dy: float, dz: float):
@@ -341,8 +433,9 @@ def diffuse3d(u, v, w, ghosts, dx: float, dy: float, dz: float):
 
 class MAC3DStep(nn.Module):
     """``step(state, cfl_scale) -> (state, StepMetrics)`` on the 3D MAC
-    grid; the Poisson solver's tables and the IBM masks are buffers on
-    ``device``."""
+    grid; the Poisson solver's tables, the IBM masks, the ghost stencils,
+    the dynamic model's fluid indicator and a moving body's face
+    coordinates are buffers on ``device``."""
 
     reads_host = False
 
@@ -350,42 +443,85 @@ class MAC3DStep(nn.Module):
                  ibm_mask_w=None, ibm_ramp_steps: int = 0, moving_body=None, ibm_ghost=None,
                  moving_scheme: str = "penalize", *, device):
         super().__init__()
-        if ibm_ghost is not None and ibm_mask_u is not None:
-            raise ValueError("ibm_ghost and ibm_mask_* are mutually exclusive")
-        if moving_scheme not in ("penalize", "ghost"):
-            raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
-        if cfg.scheme not in ("central", "upwind", "tvd"):
-            raise ValueError(f"unknown MAC3D scheme {cfg.scheme!r}")
-        if cfg.time_scheme not in ("euler", "rk2"):
-            raise ValueError(f"unknown MAC3D time scheme {cfg.time_scheme!r}")
-        if cfg.projection not in ("chorin", "incremental"):
-            raise ValueError(f"unknown MAC3D projection {cfg.projection!r}")
-        if cfg.les_model not in ("smagorinsky", "dynamic"):
-            raise ValueError(f"unknown les_model {cfg.les_model!r}")
-        if cfg.use_les and cfg.les_model == "dynamic":
-            raise NotImplementedError(
-                f"les_model='dynamic' (ops/les_dynamic.py) is not ported yet: {ITEM_17}")
-        if ibm_ghost is not None or moving_scheme == "ghost":
-            raise NotImplementedError(f"the 3D ghost-cell IBM is not ported yet: {ITEM_17}")
-        if moving_body is not None:
-            raise NotImplementedError(f"the 3D moving body is not ported yet: {ITEM_17}")
+        check_mac3d_options(cfg, ibm_ghost, ibm_mask_u, moving_body, moving_scheme)
         g = cfg.grid
         self.cfg = cfg
         self.bcs = bcs
         self.device = torch.device(device)
         self.ibm_ramp_steps = ibm_ramp_steps
+        self.moving_body = moving_body
+        self.moving_scheme = moving_scheme
         self.poisson = Poisson3DSolver(g.shape, g.dx, g.dy, g.dz, cfg.poisson, device=device)
         for name, m in (("mask_u", ibm_mask_u), ("mask_v", ibm_mask_v), ("mask_w", ibm_mask_w)):
             self.register_buffer(name, None if m is None else torch.as_tensor(
                 np.asarray(m) if not torch.is_tensor(m) else m, dtype=torch.float32,
                 device=device))
+        self.ghost = None
+        if ibm_ghost is not None:
+            self.ghost = nn.ModuleList(GhostForcing3D(gs, device=device) for gs in ibm_ghost)
+        # the dynamic contraction's bool fluid indicator, built once
+        fluid = None
+        if cfg.use_les and cfg.les_model == "dynamic":
+            fluid = ibm_fluid_mask_centers(self.mask_u, self.mask_v, self.mask_w, ibm_ghost)
+        self.register_buffer("les_fluid_mask", None if fluid is None else fluid.to(device))
+        self.body = None
+        if moving_body is not None:
+            dx, dy, dz = g.dx, g.dy, g.dz
+            xf = g.x_min + np.arange(g.nx + 1) * dx
+            yf = g.y_min + np.arange(g.ny + 1) * dy
+            zf = g.z_min + np.arange(g.nz + 1) * dz
+            xc = g.x_min + (np.arange(g.nx) + 0.5) * dx
+            yc = g.y_min + (np.arange(g.ny) + 0.5) * dy
+            zc = g.z_min + (np.arange(g.nz) + 0.5) * dz
+            self.body = _BodyCoords(face_coords_3d(xf, yf, zf, xc, yc, zc), device=device)
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=device))
         self.register_buffer("zero", torch.zeros((), dtype=torch.float32, device=device))
 
-    def _stage(self, state, u, v, w, ghosts, nu_t, p_warm, dt):
-        """One projected Euler stage from BC-consistent (u, v, w); leaves u,
-        v, w and p_warm as they were."""
+    def _nu_t(self, u, v, w, ghosts):
+        """ν_t at cell centres by ``les_model``: static Smagorinsky, or the
+        dynamic Germano–Lilly C_s² (a device scalar, the body's cells left
+        out of its contraction) times Δ² and the staggered strain
+        magnitude."""
+        cfg = self.cfg
+        dx, dy, dz = cfg.grid.dx, cfg.grid.dy, cfg.grid.dz
+        if cfg.les_model == "dynamic":
+            uc, vc, wc = center_velocities_3d(u, v, w)
+            delta_sq = (dx * dy * dz) ** (2.0 / 3.0)
+            cs2 = dynamic_cs2_3d(uc, vc, wc, 0.5 / dx, 0.5 / dy, 0.5 / dz, delta_sq,
+                                 mask=self.les_fluid_mask)
+            return (cs2 * delta_sq) * strain_magnitude_mac3d(u, v, w, ghosts, dx, dy, dz)
+        return smagorinsky_viscosity_mac3d(u, v, w, ghosts, dx, dy, dz, cfg.smagorinsky_constant)
+
+    def _moving_body(self, u_star, v_star, w_star, t_s, strength):
+        """The moving body's forcing at time ``t_s``: (u, v, w, du, dv, dw)."""
+        g = self.cfg.grid
+        dx, dy, dz = g.dx, g.dy, g.dz
+        h = min(dx, dy, dz)
+        body = self.moving_body
+        ub, vb, wb = body.velocity(t_s)
+        if self.moving_scheme == "ghost":
+            ctr = body.center(t_s)
+            sp = (dx, dy, dz)
+            origins = ((g.x_min, g.y_min + 0.5 * dy, g.z_min + 0.5 * dz),
+                       (g.x_min + 0.5 * dx, g.y_min, g.z_min + 0.5 * dz),
+                       (g.x_min + 0.5 * dx, g.y_min + 0.5 * dy, g.z_min))
+            out = [moving_ghost_forcing_3d(f, *self.body.component(c), o, sp, ctr, body.radius,
+                                           1.5 * h, b, strength)
+                   for f, c, o, b in zip((u_star, v_star, w_star), "UVW", origins,
+                                         (ub, vb, wb))]
+            (u_star, du), (v_star, dv), (w_star, dw) = out
+        else:
+            m_u, m_v, m_w = moving_body_masks_3d(body, self.body.all(), h, t_s)
+            du = (u_star - ub) * (strength * m_u)
+            dv = (v_star - vb) * (strength * m_v)
+            dw = (w_star - wb) * (strength * m_w)
+            u_star, v_star, w_star = u_star - du, v_star - dv, w_star - dw
+        return u_star, v_star, w_star, du, dv, dw
+
+    def _stage(self, state, u, v, w, ghosts, nu_t, p_warm, dt, t_s):
+        """One projected Euler stage from BC-consistent (u, v, w) at time
+        ``t_s``; leaves u, v, w and p_warm as they were."""
         cfg = self.cfg
         g = cfg.grid
         dx, dy, dz = g.dx, g.dy, g.dz
@@ -418,6 +554,26 @@ class MAC3DStep(nn.Module):
                 fx = du_ibm.sum() * cell / dt
                 fy = dv_ibm.sum() * cell / dt
                 fz = dw_ibm.sum() * cell / dt
+        if self.ghost is not None:
+            strength = ibm_ramp(state.step, self.ibm_ramp_steps)
+            gu, gv, gw = self.ghost
+            u_star, du_g = gu(u_star, strength)
+            v_star, dv_g = gv(v_star, strength)
+            w_star, dw_g = gw(w_star, strength)
+            if cfg.compute_metrics:
+                cell = dx * dy * dz
+                fx = du_g.sum() * cell / dt
+                fy = dv_g.sum() * cell / dt
+                fz = dw_g.sum() * cell / dt
+        if self.moving_body is not None:
+            strength = ibm_ramp(state.step, self.ibm_ramp_steps)
+            u_star, v_star, w_star, du_mb, dv_mb, dw_mb = self._moving_body(
+                u_star, v_star, w_star, t_s, strength)
+            if cfg.compute_metrics:
+                cell = dx * dy * dz
+                fx = fx + du_mb.sum() * cell / dt
+                fy = fy + dv_mb.sum() * cell / dt
+                fz = fz + dw_mb.sum() * cell / dt
 
         # exact projection
         div_star = divergence_mac3d(u_star, v_star, w_star, dx, dy, dz)
@@ -449,8 +605,7 @@ class MAC3DStep(nn.Module):
         ghosts = bcs.ghosts(u, v, w)
         nu_t = None
         if cfg.use_les:
-            nu_t = smagorinsky_viscosity_mac3d(u, v, w, ghosts, dx, dy, dz,
-                                               cfg.smagorinsky_constant)
+            nu_t = self._nu_t(u, v, w, ghosts)
         if cfg.adaptive_dt:
             vel_max = torch.maximum(torch.maximum(u.abs().amax(), v.abs().amax()),
                                     w.abs().amax().clamp(min=1e-10))
@@ -465,16 +620,15 @@ class MAC3DStep(nn.Module):
             dt = self.dt_base
 
         u_new, v_new, w_new, phi, (fx, fy, fz, div_star) = self._stage(
-            state, u, v, w, ghosts, nu_t, state.p, dt)
+            state, u, v, w, ghosts, nu_t, state.p, dt, state.t)
         if cfg.time_scheme == "rk2":
             # Heun: the average with a second projected stage (both solenoidal,
             # so is the average); ν_t refreshed from stage 1
             ghosts1 = bcs.ghosts(u_new, v_new, w_new)
             if cfg.use_les:
-                nu_t = smagorinsky_viscosity_mac3d(u_new, v_new, w_new, ghosts1, dx, dy, dz,
-                                                   cfg.smagorinsky_constant)
+                nu_t = self._nu_t(u_new, v_new, w_new, ghosts1)
             u2, v2, w2, phi2, (fx2, fy2, fz2, div_star) = self._stage(
-                state, u_new, v_new, w_new, ghosts1, nu_t, phi, dt)
+                state, u_new, v_new, w_new, ghosts1, nu_t, phi, dt, state.t + dt)
             u_new, v_new, w_new = bcs.set_normal(0.5 * (u + u2), 0.5 * (v + v2), 0.5 * (w + w2))
             phi = 0.5 * (phi + phi2)
             fx, fy, fz = 0.5 * (fx + fx2), 0.5 * (fy + fy2), 0.5 * (fz + fz2)
@@ -511,6 +665,11 @@ def make_step(cfg: MAC3DConfig, bcs: MAC3DBCs, ibm_mask_u=None, ibm_mask_v=None,
               moving_scheme: str = "penalize", *, device) -> MAC3DStep:
     """Build the step module on ``device``. ``ibm_mask_{u,v,w}`` are
     face-sampled penalization masks, the momentum each removes reported as
-    the body force (fx, fy, fz)."""
+    the body force (fx, fy, fz); ``ibm_ghost`` (``ibm_ghost.GhostIBM3D``)
+    the ghost-cell IBM of a static body, mutually exclusive with the masks;
+    ``moving_body`` (``ibm.MovingBody3D``) a moving sphere, by sharp masks
+    (a taper of one cell) or, with ``moving_scheme="ghost"``, by ghost-cell
+    stencils rebuilt on the device every stage, forced toward the body's
+    velocity."""
     return MAC3DStep(cfg, bcs, ibm_mask_u, ibm_mask_v, ibm_mask_w, ibm_ramp_steps, moving_body,
                      ibm_ghost, moving_scheme, device=device)

@@ -40,8 +40,9 @@ and the final ``{"ok": true, ...}`` line is not printed:
    implicit cavity (DST, and with LES the Jacobi back end), the LES
    cylinder and the coupled transport cavity of phases 9-12, on the
    twelve staggered cells of ``bench.mac_paths`` (phases 5c-5d, the three
-   ghost-IBM cylinders included), the two 1024² heated cavities and the
-   two 256³ cavities (5g-5h); the same kernels
+   ghost-IBM cylinders included), the two 1024² heated cavities, the
+   two 256³ cavities (5g-5h) and the five full-width 3D bodies of 5i;
+   the same kernels
    in the same order, so u, v, p, t, step (θ too) and every stacked metric
    must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
@@ -98,6 +99,23 @@ and the final ``{"ok": true, ...}`` line is not printed:
    roundoff (1e-5·max|u|/h); then ``run cavity3d_mac --n 128`` through the
    command line with native snapshots, 50 steps, ``--resume`` to 100,
    against one run of 100: bit-equal snapshots and restored states
+5i. 3D bodies: the goldens ``sphere_ghost_ibm`` (``sphere_stretched``
+   with ghost stencils, 60 steps at 36×20×20) and ``heated_sphere_nu``
+   (``heated_sphere``, 60 steps at 32×16×16) through the captured chunk by
+   the rule of tests/test_goldens.py; the drag gate:
+   ``sphere_stretched(ibm_scheme="ghost")`` at its default 192×96×96
+   (~30 cells/D near the body), Re = 100, to t = 40: Cd =
+   ``coeff_scale``·fx within 2% of Schiller–Naumann's 1.092, |fy| and |fz|
+   under 2% of fx; the heat gate: ``heated_cube(n=48, Ra=1e4)`` to t =
+   0.4: the hot-wall Nu within 1% of Tric et al.'s 2.054, the wall and
+   mid-plane Nu within 0.5% of each other, θ within [−1e-3, 1 + 1e-3];
+   then each full-width body (``bench.sphere_paths``: ``sphere()`` at
+   192×96×96, ``sphere_stretched`` with ghost stencils and dynamic LES at
+   Re = 3900 (100 steps, its C_s² printed), ``heated_sphere_stretched`` with
+   ghost stencils, ``cavity3d_stretched(n=128)`` and a moving ghost
+   sphere) from its start through runner.Simulation: healthy, no kernel
+   launched, its busy and wall ms per step, events per step, idle share,
+   graph nodes and peak memory
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -162,11 +180,13 @@ and the final ``{"ok": true, ...}`` line is not printed:
    against its plain version; ``bench --all`` (marginal rbsor sweeps/s, MG
    V-cycles/s, DCT solves/s at 1024², ms per Helmholtz solve beside the
    DCT solve's, MAC-1024² and stretched-512² cells/s, and ms per step,
-   chunk and eager, of the implicit cavity, the LES cylinder and the
-   transport cavity), ``bench --roofline`` (the card's peaks, and flops,
-   bytes per cell and bound of the collocated, MAC and stretched tiers),
-   the profile of every path, staggered ones included, and ``bench --cylinder`` (steps/s
-   through kernel A, captured and eager, and through streaming rbsor)
+   chunk and eager, of the implicit cavity, the LES cylinder, the
+   transport cavity, the heated and 3D cavities and the 3D bodies, and the
+   sphere's cells/s), ``bench --roofline`` (the card's peaks, and flops,
+   bytes per cell and bound of the collocated, MAC, stretched and sphere
+   tiers), the profile of every path, staggered and 3D ones included, and
+   ``bench --cylinder`` (steps/s through kernel A, captured and eager, and
+   through streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``).
    "Device" times replay the calls from a CUDA graph, so they exclude the
    host's dispatch; "eager" times include it. The predictor's, the DCT
@@ -219,6 +239,7 @@ from cfdsim_tpu_torch.bench import (
     run_bench,
     run_cylinder,
     run_roofline,
+    sphere_paths,
     step_device_ms,
     threed_paths,
 )
@@ -234,6 +255,7 @@ from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
 from cfdsim_tpu_torch.ops.les import smagorinsky_viscosity
+from cfdsim_tpu_torch.ops.les_dynamic import dynamic_cs2_3d
 from cfdsim_tpu_torch.ops.stencil import laplacian
 from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
 from cfdsim_tpu_torch.solvers import autotune, fdm
@@ -246,7 +268,11 @@ from cfdsim_tpu_torch.solvers.poisson import (
 )
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
 from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
-from cfdsim_tpu_torch.validation import botella_peyret_errors, ghia_error
+from cfdsim_tpu_torch.validation import (
+    botella_peyret_errors,
+    ghia_error,
+    sphere_drag_schiller_naumann,
+)
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
@@ -312,6 +338,28 @@ BP_TOL = 0.009  # tests/test_mac_accuracy_slow.py:25: 128², Re=1000, t=200
 # needs h5py, which the card's machine was found not to have. ``restore``
 # reads the .csnap container directly.
 SNAPSHOT_IO = "native"
+# the 3D bodies: the goldens of tests/test_goldens.py:42-54 (RTOL 2e-5 and
+# its noise floor); the Re = 100 ghost-sphere drag within 2% of
+# Schiller–Naumann's 1.092, run to t = 40 (examples/sphere_wake.py's run
+# length: a steady wake), its lateral forces under 2% of the drag; the
+# heated cube's hot-wall Nu at 48³, t = 0.4, within 1% of Tric et al.'s
+# 2.054, the wall and mid-plane Nu within 0.5% of each other
+# (tests/test_boussinesq.py:144-156), θ within the wall temperatures ± 1e-3
+BODY_GOLDENS = {
+    "sphere_ghost_ibm": (("sphere_stretched", dict(
+        nx=36, ny=20, nz=20, Re=100.0, domain=(8.0, 4.0, 4.0), center=(2.0, 2.0, 2.0),
+        refine_strength=2.0, refine_width=1.0, ibm_scheme="ghost", ibm_ramp_steps=4)), 60),
+    "heated_sphere_nu": (("heated_sphere", dict(
+        nx=32, ny=16, nz=16, Re=100.0, domain=(8.0, 4.0, 4.0), center=(2.0, 2.0, 2.0),
+        ibm_ramp_steps=4)), 60),
+}
+DRAG_RTOL, DRAG_T_FINAL, LATERAL_RTOL = 0.02, 40.0, 0.02
+CUBE_NU, CUBE_NU_RTOL, CUBE_BALANCE_RTOL, CUBE_T_FINAL = 2.054, 0.01, 5e-3, 0.4
+# the full-width 3D body cells: steps through runner.Simulation (the
+# dynamic-LES sphere's run is longer, so its coefficient has settled) and
+# the largest |u| a healthy run has
+BODY_PATH_STEPS, DYNAMIC_LES_STEPS = 50, 100
+BODY_PATH_MAX_U = 3.0
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -631,11 +679,12 @@ def phase_chunk_routes():
     steps = 20
     macs = mac_paths(1024, compute_metrics=True, device="cuda")
     threed = threed_paths(256, compute_metrics=True, device="cuda")
+    bodies = sphere_paths(compute_metrics=True, device="cuda")
     paths = {**_paths(), **new_paths(compute_metrics=True), **macs,
-             **boussinesq_paths(1024, device="cuda"), **threed}
+             **boussinesq_paths(1024, device="cuda"), **threed, **bodies}
     # plain torch, cuFFT and cuBLAS only
     no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi",
-                 "heated_cavity1024_dct", *threed,
+                 "heated_cavity1024_dct", *threed, *bodies,
                  *(k for k in macs if not k.endswith("_mg2"))}
     for path, case in paths.items():
         graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
@@ -862,28 +911,35 @@ def golden_signature(case, steps: int) -> dict:
         if f.ndim >= 2:
             sig[f"l2_{name}"] = float(torch.sqrt(torch.mean(f * f)))
             sig[f"max_{name}"] = float(f.abs().max())
-    for name in ("energy", "max_vel", "fx", "fy", "vort_max"):
+    for name in ("energy", "max_vel", "fx", "fy", "nusselt", "q_body", "vort_max"):
         if hasattr(m, name):
             sig[name] = float(getattr(m, name)[-1])
     return sig
 
 
+def golden_check(sig, ref, tols=None) -> dict:
+    """The golden rule of tests/test_goldens.py:112-124 on ``sig``: RTOL
+    2e-5 of each key, and 1e-6 of the largest key below that noise floor
+    (``tols`` sets some keys' tolerances apart). Returns each key's |Δ|
+    over its tolerance, and raises if one is beyond it."""
+    atol = 1e-6 * max(abs(v) for v in ref.values())
+    tol = {k: GOLDEN_RTOL * abs(w) if abs(w) > atol else atol for k, w in ref.items()}
+    tol.update(tols or {})
+    share = {k: abs(sig[k] - w) / tol[k] for k, w in ref.items()}
+    beyond = {k: (sig[k], ref[k]) for k, v in share.items() if not v <= 1.0}
+    if beyond:
+        raise AssertionError(f"golden keys beyond the rule (got, want): {beyond}")
+    return share
+
+
 def phase_golden():
     ref = json.loads((ROOT / "tests" / "goldens.json").read_text())["cavity_collocated_48"]
-    scale = max(abs(v) for v in ref.values())
-    atol = 1e-6 * scale  # the noise floor of tests/test_goldens.py:119-124
     for fused in (False, True):
         sig = golden_signature(build("cavity", n=48, Re=100.0, fused_predictor=fused,
                                      device="cuda"), 300)
-        worst = 0.0
-        for key, want in ref.items():
-            tol = GOLDEN_RTOL * abs(want) if abs(want) > atol else atol
-            diff = abs(sig[key] - want)
-            if not diff <= tol:
-                raise AssertionError(f"golden {key} (fused={fused}): {sig[key]} vs {want}")
-            worst = max(worst, diff / max(abs(want), atol))
-        say("golden", fused_predictor=fused, keys=len(ref), worst_rel_err=worst,
-            rtol=GOLDEN_RTOL)
+        share = golden_check(sig, ref)
+        say("golden", fused_predictor=fused, keys=len(ref),
+            worst_share_of_tol=max(share.values()), rtol=GOLDEN_RTOL)
 
 
 def phase_main_path():
@@ -1176,18 +1232,14 @@ def phase_mac_kernels():
 def phase_mac_goldens():
     for name, ((case_name, kw), steps) in MAC_GOLDENS.items():
         ref = json.loads((ROOT / "tests" / "goldens.json").read_text())[name]
-        atol = 1e-6 * max(abs(v) for v in ref.values())
         sig = golden_signature(build(case_name, device="cuda", **kw), steps)
-        tols = {k: max(GOLDEN_RTOL * abs(w), atol) for k, w in ref.items()}
+        tols = {}
         if name == "cylinder_mac_forces":
             tols["fy"] = GOLDEN_RTOL * max(abs(ref["fx"]), abs(ref["fy"]))
             tols["max_p"] = GOLDEN_P_RTOL * abs(ref["max_p"])
-        rel = {k: abs(sig[k] - w) / max(abs(w), atol) for k, w in ref.items()}
-        say("mac_golden", golden=name, rel_err=rel, rtol=GOLDEN_RTOL,
-            worst_share_of_tol=max(abs(sig[k] - w) / tols[k] for k, w in ref.items()))
-        for key, want in ref.items():
-            if not abs(sig[key] - want) <= tols[key]:
-                raise AssertionError(f"golden {name}.{key}: {sig[key]} vs {want}")
+        share = golden_check(sig, ref, tols)
+        say("mac_golden", golden=name, share_of_tol=share, rtol=GOLDEN_RTOL,
+            worst_share_of_tol=max(share.values()))
 
 
 def phase_botella_peyret():
@@ -1240,15 +1292,10 @@ def phase_boussinesq():
     (kernels A and B)."""
     name = "heated_cavity_32"
     ref = json.loads((ROOT / "tests" / "goldens.json").read_text())[name]
-    atol = 1e-6 * max(abs(v) for v in ref.values())
     sig = golden_signature(build("heated_cavity", n=32, Ra=1e4, device="cuda"), 300)
-    tols = {k: GOLDEN_RTOL * abs(w) if abs(w) > atol else atol for k, w in ref.items()}
-    rel = {k: abs(sig[k] - w) / max(abs(w), atol) for k, w in ref.items()}
-    say("boussinesq_golden", golden=name, rel_err=rel, rtol=GOLDEN_RTOL,
-        worst_share_of_tol=max(abs(sig[k] - w) / tols[k] for k, w in ref.items()))
-    for key, want in ref.items():
-        if not abs(sig[key] - want) <= tols[key]:
-            raise AssertionError(f"golden {name}.{key}: {sig[key]} vs {want}")
+    share = golden_check(sig, ref)
+    say("boussinesq_golden", golden=name, share_of_tol=share, rtol=GOLDEN_RTOL,
+        worst_share_of_tol=max(share.values()))
 
     state, m, report, wall = _run_to(build("heated_cavity", n=48, Ra=1e3, device="cuda"),
                                      0.6, 500)
@@ -1363,6 +1410,90 @@ def phase_3d():
         raise AssertionError(f"3D resume is not bit-exact: {differ}, t {ta} vs {tb}")
 
 
+def phase_3d_bodies(card):
+    """The 3D bodies: both goldens; the Re = 100 ghost-sphere drag gate at
+    192×96×96; the heated cube's Nusselt gate at 48³; each full-width body
+    path from its start through runner.Simulation (healthy, no kernel
+    launched; the dynamic coefficient printed), with its profile and peak
+    memory."""
+    ref_all = json.loads((ROOT / "tests" / "goldens.json").read_text())
+    for name, ((case_name, kw), steps) in BODY_GOLDENS.items():
+        sig = golden_signature(build(case_name, device="cuda", **kw), steps)
+        share = golden_check(sig, ref_all[name])
+        say("body_golden", golden=name, steps=steps, share_of_tol=share,
+            worst_share_of_tol=max(share.values()), rtol=GOLDEN_RTOL, signature=sig)
+
+    # the drag gate: a steady Re = 100 wake behind the ghost-cell sphere
+    case = build("sphere_stretched", Re=100.0, ibm_scheme="ghost", ibm_ramp_steps=100,
+                 device="cuda")
+    _reset_counts()
+    state, m, report, wall = _run_to(case, DRAG_T_FINAL, 100)
+    cs = case.extras["coeff_scale"]
+    cd, fx, fy, fz = cs * float(m.fx), float(m.fx), float(m.fy), float(m.fz)
+    cd_sn = sphere_drag_schiller_naumann(100.0)
+    say("sphere_drag_gate", nx=192, ny=96, nz=96, Re=100.0, t=report["final_time"],
+        steps=report["final_step"], cd=cd, cd_schiller_naumann=cd_sn, rel_err=cd / cd_sn - 1,
+        rtol=DRAG_RTOL, fx=fx, fy=fy, fz=fz, cells_per_d=1.0 / case.extras["h_min"],
+        launches=_counts(), wall_s=wall, card=card)
+    if not (abs(cd - cd_sn) <= DRAG_RTOL * cd_sn and abs(fy) < LATERAL_RTOL * fx
+            and abs(fz) < LATERAL_RTOL * fx):
+        raise AssertionError(f"sphere drag gate: Cd {cd} (Schiller–Naumann {cd_sn}), "
+                             f"fy {fy}, fz {fz}")
+    del case, state
+    torch.cuda.empty_cache()
+
+    # the heat gate: the differentially heated cube at Ra = 1e4
+    state, m, report, wall = _run_to(build("heated_cube", n=48, Ra=1e4, device="cuda"),
+                                     CUBE_T_FINAL, 500)
+    nu_wall, nu_mid = float(m.nu_hot_wall), float(m.nu_mid)
+    th_lo, th_hi = float(m.theta_min), float(m.theta_max)
+    say("heated_cube_gate", n=48, Ra=1e4, t=report["final_time"], steps=report["final_step"],
+        nu_hot_wall=nu_wall, nu_mid=nu_mid, want_nu=CUBE_NU, nu_rtol=CUBE_NU_RTOL,
+        theta_min=th_lo, theta_max=th_hi, div_post=float(m.div_post), wall_s=wall, card=card)
+    if not (abs(nu_wall - CUBE_NU) <= CUBE_NU_RTOL * CUBE_NU
+            and abs(nu_wall - nu_mid) <= CUBE_BALANCE_RTOL * nu_mid
+            and th_lo > -1e-3 and th_hi < 1.0 + 1e-3):
+        raise AssertionError(f"heated cube: Nu {nu_wall}, {nu_mid}, θ in [{th_lo}, {th_hi}]")
+
+    # the full-width cells: healthy from their start, then their profile
+    for path, case in sphere_paths(compute_metrics=True, device="cuda").items():
+        dynamic = getattr(case.step.cfg, "les_model", None) == "dynamic"
+        steps = DYNAMIC_LES_STEPS if dynamic else BODY_PATH_STEPS
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sim, state, report, wall = _run(case, steps, 50)
+        peak = torch.cuda.max_memory_allocated()
+        launches = _counts()
+        _, got_u = _healthy(path, state, report, steps, BODY_PATH_MAX_U)
+        extra = {}
+        step = case.step
+        if dynamic:
+            u, v, w = state.u, state.v, state.w
+            cs2 = dynamic_cs2_3d(0.5 * (u[:, :, 1:] + u[:, :, :-1]),
+                                 0.5 * (v[:, 1:, :] + v[:, :-1, :]), 0.5 * (w[1:] + w[:-1]),
+                                 step.inv_g2x, step.inv_g2y, step.inv_g2z, step.delta2,
+                                 mask=step.les_fluid_mask)
+            extra["dynamic_cs2"] = float(cs2)
+            extra["dynamic_cs"] = math.sqrt(float(cs2))
+        _, m = case.step(state, torch.ones((), dtype=torch.float32, device="cuda"))
+        for f in ("fx", "fy", "fz", "nusselt"):
+            if hasattr(m, f):
+                extra[f] = float(getattr(m, f))
+        profile = profile_chunk(case, 10, "cuda", card, None, path=path)
+        say("body_path", path=path, steps=int(state.step), launches=launches, max_abs_u=got_u,
+            t=report["final_time"], last_chunk=sim.metrics_history[-1], wall_s=wall,
+            device_peak_bytes=peak, **extra, **_chunk_facts(sim),
+            profile={k: profile[k] for k in ("device_events_per_step",
+                                             "device_busy_ms_per_step", "wall_ms_per_step",
+                                             "device_idle_share", "nodes")}, card=card)
+        if any(launches.values()):
+            raise AssertionError(f"{path} launched kernels: {launches}")
+        if not all(math.isfinite(v) for v in extra.values()):
+            raise AssertionError(f"{path}: non-finite diagnostics {extra}")
+        del sim, state, case
+        torch.cuda.empty_cache()
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -1385,7 +1516,7 @@ def phase_timings(card):
         for path, case in {**_paths(compute_metrics=False), **new_paths(),
                            **mac_paths(), **boussinesq_paths()}.items():
             say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
-        for path, case in threed_paths().items():
+        for path, case in {**threed_paths(), **sphere_paths()}.items():
             say("time_profile", **profile_chunk(case, 10, "cuda", card, route, path=path))
         torch.cuda.empty_cache()
     # per tier the flops and bytes of one step against the card's peaks
@@ -1495,6 +1626,7 @@ def main() -> int:
     phase_botella_peyret()
     bq_mg = phase_boussinesq()
     phase_3d()
+    phase_3d_bodies(card)
     pred_launches = phase_main_path()
     cyl_a, cyl_chunks_per_step = phase_cylinder()
     mg = phase_mg_cavity()

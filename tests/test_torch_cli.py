@@ -28,7 +28,8 @@ def test_list_cases(capsys):
     out = capsys.readouterr().out
     for name in ("cavity", "channel", "cylinder", "transport", "cavity_mac", "cavity_stretched",
                  "cylinder_mac", "cylinder_oscillating", "cylinder_stretched", "heated_cavity",
-                 "rayleigh_benard", "cavity3d", "cavity3d_mac"):
+                 "rayleigh_benard", "cavity3d", "cavity3d_mac", "cavity3d_stretched", "sphere",
+                 "sphere_stretched", "heated_sphere", "heated_sphere_stretched", "heated_cube"):
         assert name in out
 
 
@@ -73,6 +74,7 @@ def test_unknown_case_errors(tmp_path):
         cli.main(["run", "definitely_not_a_case", "--device", "cpu", "--out", str(tmp_path)])
 
 
+SPHERE = dict(nx=16, ny=8, nz=8, domain=(4.0, 2.0, 2.0), center=(1.0, 1.0, 1.0))
 TINY = {
     "cavity": dict(n=16),
     "channel": dict(nx=32, ny=16),
@@ -87,6 +89,12 @@ TINY = {
     "rayleigh_benard": dict(ny=8),
     "cavity3d": dict(n=8),
     "cavity3d_mac": dict(n=8),
+    "cavity3d_stretched": dict(n=8),
+    "sphere": SPHERE,
+    "sphere_stretched": SPHERE,
+    "heated_sphere": SPHERE,
+    "heated_sphere_stretched": SPHERE,
+    "heated_cube": dict(n=8),
 }
 # the options each tier has: the collocated cases take implicit diffusion
 # and LES together; on the MAC tiers the cavity takes each alone, the
@@ -100,7 +108,16 @@ VARIANTS.update(cavity_mac=[{}, dict(diffusion="implicit"), dict(use_les=True)],
                                       dict(stretched=True, ibm_scheme="ghost")],
                 heated_cavity=[{}, dict(theta_scheme="upwind"), dict(poisson="mg:2")],
                 cavity3d=[{}, dict(poisson="dct")],
-                cavity3d_mac=[{}, dict(use_les=True, scheme="tvd", time_scheme="rk2")])
+                cavity3d_mac=[{}, dict(use_les=True, scheme="tvd", time_scheme="rk2"),
+                              dict(use_les=True, les_model="dynamic")],
+                cavity3d_stretched=[{}, dict(use_les=True, les_model="dynamic")],
+                sphere=[{}, dict(ibm_scheme="ghost"), dict(use_les=True, les_model="dynamic"),
+                        dict(perturb=0.05)],
+                sphere_stretched=[{}, dict(ibm_scheme="ghost", use_les=True,
+                                           les_model="dynamic")],
+                heated_sphere=[{}, dict(ibm_scheme="ghost", theta_scheme="tvd")],
+                heated_sphere_stretched=[{}, dict(ibm_scheme="ghost", theta_scheme="tvd")],
+                heated_cube=[{}, dict(theta_scheme="upwind")])
 
 
 def test_every_registered_case_builds_and_steps():

@@ -305,13 +305,20 @@ def test_refused_options_raise(kw, error):
 
 
 def test_ghost_ibm_is_not_ported():
-    """Of the ghost-cell IBM only the 3D half is not ported (ROADMAP.md item
-    17): the 2D cases build and step with it, the 3D step refuses it."""
+    """The ghost-cell IBM is ported in both halves: the 2D cases and the 3D
+    sphere build and step with it (``sphere`` on the uniform 3D MAC grid,
+    ``sphere_stretched`` on the stretched one), and stencils beside
+    penalization masks are refused as in the JAX package."""
     for name, kw in (("cylinder_mac", dict(nx=48, ny=16)),
-                     ("cylinder_oscillating", dict(nx=32, ny=16))):
+                     ("cylinder_oscillating", dict(nx=32, ny=16)),
+                     ("sphere", dict(nx=16, ny=8, nz=8, domain=(4.0, 2.0, 2.0),
+                                     center=(1.0, 1.0, 1.0))),
+                     ("sphere_stretched", dict(nx=16, ny=8, nz=8, domain=(4.0, 2.0, 2.0),
+                                               center=(1.0, 1.0, 1.0)))):
         case = build(name, ibm_scheme="ghost", device="cpu", **kw)
         state, _ = case.step(case.state, 1.0)
         assert bool(torch.isfinite(state.u).all()), name
     cube = build("cavity3d_mac", n=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        type(cube.step)(cube.cfg, cube.extras["bcs"], ibm_ghost=object(), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        type(cube.step)(cube.cfg, cube.extras["bcs"], ibm_mask_u=np.zeros((8, 8, 9)),
+                        ibm_ghost=object(), device="cpu")

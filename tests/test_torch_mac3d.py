@@ -2,8 +2,9 @@
 ``cavity3d_mac``) against the JAX package's ``cfdsim_tpu.models.mac3d``:
 five steps from a developed state over {chorin, incremental} × {euler,
 rk2} × {central, upwind, tvd} and static Smagorinsky LES; the free-slip
-and external-flow BCs; the exact divergence/gradient adjoint; the options
-that wait for ROADMAP.md item 17.
+and external-flow BCs; the exact divergence/gradient adjoint; dynamic LES,
+the 3D ghost IBM and the moving body building and stepping, and the JAX
+package's refusals.
 
 Tolerances (five steps at 16³ from the state after 20 jitted JAX steps):
 u, v, w within 1e-6 of max|u, v, w| (observed ≤ 6e-7); p within 1e-5 of
@@ -44,11 +45,13 @@ def _to_port(js):
     return mac3d_state_from_numpy(*(np.asarray(getattr(js, k)) for k in FIELDS), device="cpu")
 
 
-def compare_mac3d_steps(j_step, t_step, j_state, h, pre=20, steps=5, exact_div=True):
+def compare_mac3d_steps(j_step, t_step, j_state, h, pre=20, steps=5, exact_div=True,
+                        div_floor=0.0):
     """``pre`` jitted JAX steps, then ``steps`` steps on both sides; asserts
     the bands of the module docstring (``exact_div=False``: BCs that rewrite
     faces after the projection, whose ``div_post`` is compared like any
-    metric)."""
+    metric, plus ``div_floor``·max|u|/h where that divergence is itself a
+    difference of O(max|u|) faces)."""
     j_step = jax.jit(j_step)
     for _ in range(pre):
         j_state, _ = j_step(j_state, jnp.float32(1.0))
@@ -70,6 +73,8 @@ def compare_mac3d_steps(j_step, t_step, j_state, h, pre=20, steps=5, exact_div=T
         a, b = float(getattr(jm, name)), float(getattr(tm, name))
         if name == "div_post" and exact_div:
             assert a <= DIV_POST_RTOL * vel / h and b <= DIV_POST_RTOL * vel / h, (a, b)
+        elif name == "div_post":
+            assert abs(a - b) <= METRIC_RTOL * a + div_floor * vel / h, (a, b)
         elif name == "div_pre":
             assert abs(a - b) <= METRIC_RTOL * a + 1e-6 * vel / h, (a, b)
         elif name in ("fx", "fy", "fz"):  # the port's force rule: of the largest component
@@ -213,20 +218,35 @@ def test_les_with_constant_nu_is_the_laplacian():
 
 
 def test_item_17_options_raise():
+    """Dynamic LES, the 3D ghost IBM and the moving body (by penalization
+    and by ghost forcing) build and step; the JAX package's ``ValueError``s
+    stay."""
+    from cfdsim_tpu_torch.ibm import oscillating_sphere
+    from cfdsim_tpu_torch.ibm_ghost import sphere_ghost_ibm
+
     n = 8
     case = build("cavity3d_mac", n=n, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build("cavity3d_mac", n=n, use_les=True, les_model="dynamic", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tm3.make_step(case.cfg, tm3.cavity3d_bcs(), ibm_ghost=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tm3.make_step(case.cfg, tm3.cavity3d_bcs(), moving_body=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tm3.make_step(case.cfg, tm3.cavity3d_bcs(), moving_scheme="ghost", device="cpu")
+    faces = np.linspace(0.0, 1.0, n + 1)
+    body = oscillating_sphere((0.5, 0.5, 0.5), 0.2, 0.05, 1.0)
+    steps = [build("cavity3d_mac", n=n, use_les=True, les_model="dynamic", device="cpu").step,
+             tm3.make_step(case.cfg, tm3.cavity3d_bcs(), device="cpu",
+                           ibm_ghost=sphere_ghost_ibm(faces, faces, faces, (0.5, 0.5, 0.5), 0.2,
+                                                      device="cpu")),
+             tm3.make_step(case.cfg, tm3.cavity3d_bcs(), moving_body=body, device="cpu"),
+             tm3.make_step(case.cfg, tm3.cavity3d_bcs(), moving_body=body,
+                           moving_scheme="ghost", device="cpu")]
+    for step in steps:
+        state, m = step(case.state, 1.0)
+        assert all(bool(torch.isfinite(getattr(state, k)).all()) for k in "uvwp")
+        assert float(m.dt) > 0 and step.reads_host is False
     with pytest.raises(ValueError, match="mutually exclusive"):
         tm3.make_step(case.cfg, tm3.cavity3d_bcs(), ibm_mask_u=np.zeros((n, n, n + 1)),
                       ibm_ghost=object(), device="cpu")
+    with pytest.raises(ValueError, match="moving_body"):
+        tm3.make_step(steps[0].cfg, tm3.cavity3d_bcs(), moving_body=body, device="cpu")
     for bad in (dict(scheme="quick"), dict(time_scheme="rk3"), dict(projection="p"),
                 dict(les_model="wale")):
         with pytest.raises(ValueError):
             build("cavity3d_mac", n=n, device="cpu", **bad)
+    with pytest.raises(ValueError, match="moving_scheme"):
+        tm3.make_step(case.cfg, tm3.cavity3d_bcs(), moving_scheme="immersed", device="cpu")
