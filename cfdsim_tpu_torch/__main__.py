@@ -22,6 +22,12 @@
     python -m cfdsim_tpu_torch run sphere_stretched --ibm-scheme ghost --use-les true \
         --les-model dynamic --Re 3900 --device cuda
     python -m cfdsim_tpu_torch run heated_cube --n 48 --io native --device cuda
+    python -m cfdsim_tpu_torch run wedge --frame wedge_aligned --reconstruction muscl \
+        --t-final 2.5 --io native --device cuda
+    python -m cfdsim_tpu_torch run cavity_supersonic --real-geometry true --device cuda
+    python -m cfdsim_tpu_torch run blast3d --n 128 --t-final 0.1 --device cuda
+    python -m cfdsim_tpu_torch run kolmogorov --advection bfecc --t-final 7.5 --device cuda
+    python -m cfdsim_tpu_torch run kolmogorov_ps --ny 1024 --noise 0.1 --io native --device cuda
     python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --roofline
                                       | --cylinder | --routes]
 
@@ -166,6 +172,13 @@ def cmd_run(args, extra):
         def snapshot_fn(state, step, t):
             writer.save(step, t, **_snapshot_fields(state))
 
+    health_fn = None
+    if args.case in ("wedge", "cavity_supersonic"):
+        from cfdsim_tpu_torch.monitor import check_compressible
+
+        def health_fn(m, step):
+            return check_compressible(m)
+
     cfg = RunnerConfig(
         t_final=args.t_final,
         max_steps=args.max_steps,
@@ -179,7 +192,7 @@ def cmd_run(args, extra):
         else 1e3,
     )
     sim = Simulation(case.step, state, cfg, case.grid.n_cells, snapshot_fn=snapshot_fn,
-                     logger=log)
+                     logger=log, health_fn=health_fn)
     try:
         _, report = sim.run()
     finally:
@@ -307,12 +320,13 @@ def main(argv=None):
                       help="device events, busy time and idle share per step: the --n "
                            "cavity (DCT, MG, implicit), the ref-parity cylinder (also with "
                            "LES), the transport cavity, the MAC and stretched cells, the "
-                           "heated and 3D cavities and the 3D bodies")
+                           "heated and 3D cavities, the 3D bodies and the compressible "
+                           "and spectral cells")
     mode.add_argument("--all", action="store_true",
                       help="marginal rbsor sweeps/s, MG V-cycles/s, DCT solves/s, ms per "
                            "Helmholtz solve, MAC, stretched and sphere cells/s and ms per "
-                           "step of the implicit, LES, transport, heated, 3D and 3D-body "
-                           "paths at --n")
+                           "step of the implicit, LES, transport, heated, 3D, 3D-body, "
+                           "compressible and spectral paths at --n")
     mode.add_argument("--roofline", action="store_true",
                       help="the card's peaks and, per tier (collocated, MAC, stretched, "
                            "sphere), flops and bytes per cell, the bound and the share of the "

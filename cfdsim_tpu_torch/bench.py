@@ -23,16 +23,18 @@ chunk's and the eager loop's cells/s. ``--profile`` counts the device
 events of a chunk of steps under ``torch.profiler`` and sets the device's
 busy time against the wall time, for both routes, on every path: the
 collocated ones, the staggered tiers' with their ghost-IBM cylinders
-(:func:`mac_paths`), the Boussinesq cavities, the 3D cavities and the 3D
-bodies (:func:`sphere_paths`). ``--all`` is the twin of the JAX bench's
+(:func:`mac_paths`), the Boussinesq cavities, the 3D cavities, the 3D
+bodies (:func:`sphere_paths`) and the compressible and spectral cells. ``--all`` is the twin of the JAX bench's
 ``run_secondary``: marginal streaming rbsor sweeps/s, RB-SOR kernel
 sweeps/s, multigrid V-cycles/s (kernel and plain smoothing) and DCT
 solves/s at 1024², the device time of one Dirichlet Helmholtz (DST) solve,
 the MAC-1024², stretched-512² and sphere-192×96×96 cells/s, and ms per step
 of the implicit cavity, the LES cylinder, the transport cavity, the 1024²
-heated cavity (DCT and ``mg:2``), the 256³ cavities and the 3D bodies
-(:func:`run_paths` over :func:`new_paths`, :func:`boussinesq_paths`,
-:func:`threed_paths` and :func:`sphere_paths`). ``--roofline`` is the twin
+heated cavity (DCT and ``mg:2``), the 256³ cavities, the 3D bodies and
+the compressible and spectral cells (:func:`run_paths` over
+:func:`new_paths`, :func:`boussinesq_paths`, :func:`threed_paths`,
+:func:`sphere_paths`, :func:`compressible_paths` and
+:func:`spectral_paths`). ``--roofline`` is the twin
 of ``run_roofline``: the card's measured peaks and, per tier (the sphere
 included), flops and bytes per cell of one step (``utils/roofline.py``,
 pre-fusion counts) against them. ``--cylinder``
@@ -414,6 +416,40 @@ def sphere_paths(compute_metrics=False, device="cuda") -> dict:
     }
 
 
+def compressible_paths(compute_metrics=False, device="cuda") -> dict:
+    """The compressible cells at the reference's sizes: the 400×200 wedge
+    (v1_shock.py:41-42) in its three modes (lab frame with the
+    zero-momentum solid, first order as the reference; lab frame with the
+    slip-wall ghost cells and the wedge-aligned frame, HLLC + MUSCL), the
+    600×180 supersonic cavity with 2 ghost layers (BASELINE.md:13), pinned
+    and with the real plate, and the 256³ blast (HLLC + MUSCL);
+    plain torch: the JAX package has no kernel here."""
+    rest = dict(compute_metrics=compute_metrics, device=device)
+    muscl = dict(flux="hllc", reconstruction="muscl")
+    return {
+        "wedge400x200_zero_momentum": build("wedge", **rest),
+        "wedge400x200_ghost_muscl": build("wedge", wall_treatment="ghost", **muscl, **rest),
+        "wedge400x200_aligned_muscl": build("wedge", frame="wedge_aligned", **muscl, **rest),
+        "cavity_supersonic600x180_pinned": build("cavity_supersonic", **rest),
+        "cavity_supersonic600x180_real": build("cavity_supersonic", real_geometry=True, **rest),
+        "blast3d256_hllc_muscl": build("blast3d", n=256, **rest),
+    }
+
+
+def spectral_paths(compute_metrics=False, device="cuda") -> dict:
+    """The spectral cells: stable fluids at the reference's 640×360
+    (BASELINE.md:20, dt = 0.01) with the semi-Lagrangian and the BFECC
+    trace, and the pseudo-spectral step at 512² (its default) and 1024²
+    (cuFFT and plain torch)."""
+    rest = dict(compute_metrics=compute_metrics, device=device)
+    return {
+        "kolmogorov640x360_sl": build("kolmogorov", **rest),
+        "kolmogorov640x360_bfecc": build("kolmogorov", advection="bfecc", **rest),
+        "kolmogorov_ps512": build("kolmogorov_ps", ny=512, noise=0.1, **rest),
+        "kolmogorov_ps1024": build("kolmogorov_ps", ny=1024, noise=0.1, **rest),
+    }
+
+
 def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
     """Cells/s of ``case`` through the captured chunk, marginal between a
     short and a long chunk from the initial state (the JAX bench's
@@ -428,7 +464,7 @@ def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
             "t_short_s": t_short, "t_long_s": t_long, **_chunk_facts(chunk)}
 
 
-def run_paths(n=1024, short=20, long=60, device="cuda", paths=None):
+def run_paths(n=1024, short=10, long=30, device="cuda", paths=None):
     """ms per step of each of ``paths`` (default :func:`new_paths`),
     marginal between a short and a long chunk from the initial state,
     through the captured chunk and through the eager loop, in turns chunk,
@@ -525,7 +561,8 @@ def run_profile(n=1024, steps=50, device="cuda"):
     implicit cavity, the LES cylinder, the transport cavity),
     :func:`mac_paths` (the staggered and stretched tiers, the ghost-IBM
     cylinders), :func:`boussinesq_paths`, and :func:`threed_paths` and
-    :func:`sphere_paths` (10-step chunks)."""
+    :func:`sphere_paths` (10-step chunks), :func:`compressible_paths` and
+    :func:`spectral_paths` (10-step chunks, the blast 5)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -545,6 +582,11 @@ def run_profile(n=1024, steps=50, device="cuda"):
                                 card, route, path=path)
         for path, case in {**threed_paths(device=device), **sphere_paths(device=device)}.items():
             yield profile_chunk(case, 10, device, card, route, path=path)
+        torch.cuda.empty_cache()
+        for path, case in {**compressible_paths(device=device),
+                           **spectral_paths(device=device)}.items():
+            yield profile_chunk(case, 5 if "3d" in path else 10, device, card, route,
+                                path=path)
         torch.cuda.empty_cache()
 
 
@@ -577,9 +619,12 @@ def run_all(n=1024, device="cuda"):
     with kernel and with plain smoothing, and DCT solves/s; then the device
     ms of one Helmholtz (DST) solve beside the DCT solve's, the MAC and
     stretched cells/s, and ms per step of the implicit, LES and transport
-    paths, the heated cavities, the 3D cavities and the 3D bodies
-    (:func:`run_paths`); and the sphere's cells/s at its default
-    192×96×96, marginal between 50 and 250 steps (``bench.py:151-162``)."""
+    paths and the heated cavities (:func:`run_paths`, marginal between 10
+    and 30 steps), the 3D cavities and the 3D bodies (between 3 and 9); the
+    sphere's cells/s at its default 192×96×96, marginal between 50 and 250
+    steps (``bench.py:151-162``); then ms per step of the compressible and
+    spectral cells (:func:`compressible_paths`, :func:`spectral_paths`;
+    the blast between 3 and 9 steps)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     h = 1.0 / (n - 1)
@@ -617,11 +662,15 @@ def run_all(n=1024, device="cuda"):
            **cells_per_sec(case, ns * ns), "card": card}
     yield from run_paths(n, device=device)
     yield from run_paths(n, device=device, paths=boussinesq_paths(n, device=device))
-    yield from run_paths(n, short=5, long=15, device=device, paths=threed_paths(device=device))
+    yield from run_paths(n, short=3, long=9, device=device, paths=threed_paths(device=device))
     case = build("sphere", compute_metrics=False, device=device)
     yield {"metric": "cell_updates_per_sec_sphere3d",
            **cells_per_sec(case, case.grid.n_cells, short=50, long=250), "card": card}
-    yield from run_paths(n, short=5, long=15, device=device, paths=sphere_paths(device=device))
+    yield from run_paths(n, short=3, long=9, device=device, paths=sphere_paths(device=device))
+    paths = compressible_paths(device=device)
+    blast = {k: paths.pop(k) for k in list(paths) if k.startswith("blast3d")}
+    yield from run_paths(n, device=device, paths={**paths, **spectral_paths(device=device)})
+    yield from run_paths(n, short=3, long=9, device=device, paths=blast)
 
 
 def run_roofline(n=1024, device="cuda"):
@@ -679,7 +728,7 @@ def run_cylinder(nx=600, ny=180, short=10, long=40, device="cuda"):
                         compute_metrics=False, device=device)
         # the streaming solve reads its residual on the host per 50 sweeps:
         # ~100× slower, so it gets shorter chunks
-        n1, n2 = (short, long) if method == "rbsor_pallas" else (2, 6)
+        n1, n2 = (short, long) if method == "rbsor_pallas" else (1, 3)
         t_short, _, _ = _timed_chunk(case, case.state, n1, route)
         chunks = case.step.poisson.chunks_run
         chunks.zero_()

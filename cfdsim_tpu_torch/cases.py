@@ -12,7 +12,12 @@ names. The collocated tier: ``"cavity"``, ``"channel"``, ``"cylinder"``,
 (stretched, exact 3D FDM), the immersed sphere ``"sphere"`` and
 ``"sphere_stretched"`` (penalization or ghost-cell IBM), the heated sphere
 ``"heated_sphere"`` and ``"heated_sphere_stretched"`` (θ transport,
-Nusselt number) and the heated cube ``"heated_cube"`` (3D Boussinesq).
+Nusselt number) and the heated cube ``"heated_cube"`` (3D Boussinesq); the
+compressible tier: the oblique-shock ``"wedge"`` (three modes), the
+supersonic open cavity ``"cavity_supersonic"`` (pinned or real geometry)
+and the 3D ``"blast3d"``; the spectral tier: Kolmogorov flow on stable fluids
+``"kolmogorov"`` and on the pseudo-spectral vorticity solver
+``"kolmogorov_ps"``.
 """
 
 from __future__ import annotations
@@ -975,6 +980,283 @@ def heated_cube(
     return Case("heated_cube", cfg, step, state, grid, {"Ra": Ra, "Pr": Pr})
 
 
+def wedge(
+    nx: int = 400,
+    ny: int = 200,
+    mach: float = 2.0,
+    wedge_angle_deg: float = 10.0,
+    wedge_start_x: float = 0.5,
+    domain: tuple[float, float] = (2.0, 1.0),
+    flux: str = "hllc",
+    cfl: float = 0.4,
+    reconstruction: str = "none",
+    wall_treatment: str = "zero_momentum",
+    frame: str = "lab",
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Supersonic flow over a wedge, the oblique-shock benchmark (reference
+    ``ShockwaveSolver`` v1_shock.py:225-328: M = 2, 10° wedge).
+
+    ``frame="lab"``: the embedded wedge under horizontal inflow, its solid
+    by ``wall_treatment`` ``"zero_momentum"`` (reference parity,
+    v1_shock.py:312-313) or ``"ghost"`` (the mirror-ghost slip wall of
+    ``ibm.wedge_slip_ghost_map``). ``frame="wedge_aligned"``: the frame
+    rotated by the wedge angle, so the wedge surface is the flat bottom
+    grid line (slip wall from ``wedge_start_x`` on, pass-through before it)
+    and the freestream enters at −θ; extras carry ``frame_angle`` (β =
+    atan(slope) + θ)."""
+    from cfdsim_tpu_torch import ibm
+    from cfdsim_tpu_torch.models import compressible as comp
+
+    grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
+    cfg = comp.CompressibleConfig(grid=grid, flux=flux, cfl=cfl, reconstruction=reconstruction,
+                                  **cfg_overrides)
+    theta = np.deg2rad(wedge_angle_deg)
+    # the v sign flip of a reflecting wall, per component
+    flip_v = torch.tensor([1.0, 1.0, -1.0, 1.0], device=device)[:, None]
+
+    if frame == "wedge_aligned":
+        a0 = (cfg.gamma * 1.0 / 1.0) ** 0.5
+        uu = mach * a0 * np.cos(theta)
+        vv = -mach * a0 * np.sin(theta)
+        E = 1.0 / (1.0 * (cfg.gamma - 1.0)) + 0.5 * (uu * uu + vv * vv)
+        U_inf = np.asarray([1.0, uu, vv, E], np.float32)
+        u_inf = torch.as_tensor(U_inf, device=device)[:, None]
+        xs_idx = int(np.searchsorted(grid.x_coords(), wedge_start_x))
+        keep_wall = torch.as_tensor((np.arange(grid.nx) >= xs_idx)[None, :], device=device).to(
+            torch.float32)
+
+        def bc(U, step, t):
+            U = U.clone()
+            # freestream in from the left and the top (flow points down-right)
+            U[:, :, 0] = u_inf
+            U[:, -1, :] = u_inf
+            U[:, :, -1] = U[:, :, -2]  # outflow at x_hi
+            # bottom: pass-through before the wedge tip, reflecting slip wall
+            # from the tip on (the switch anchors the shock at wedge_start_x)
+            row = U[:, 1, :]
+            U[:, 0, :] = (row * flip_v) * keep_wall + row * (1.0 - keep_wall)
+            return U
+
+        step = comp.make_step(cfg, bc, device=device)
+        state = comp.init_state(cfg, U_inf, device=device)
+        return Case("wedge", cfg, step, state, grid,
+                    {"U_inf": U_inf, "mach": mach, "wedge_angle_deg": wedge_angle_deg,
+                     "wedge_start_x": wedge_start_x, "frame_angle": wedge_angle_deg})
+    if frame != "lab":
+        raise ValueError(f"unknown frame {frame!r}")
+
+    U_inf = comp.freestream(cfg, mach)
+    u_inf = torch.as_tensor(U_inf, device=device)[:, None]
+    solid = ibm.wedge_mask(grid, theta, wedge_start_x)
+    ghost_map = None
+    if wall_treatment == "ghost":
+        ghost_map = ibm.ghost_map_to(ibm.wedge_slip_ghost_map(grid, theta, wedge_start_x),
+                                     device)
+    elif wall_treatment != "zero_momentum":
+        raise ValueError(f"unknown wall_treatment {wall_treatment!r}")
+
+    def bc(U, step, t):
+        U = U.clone()
+        U[:, :, 0] = u_inf  # supersonic inflow at x_lo (v1_shock.py:279-283)
+        U[:, :, -1] = U[:, :, -2]  # extrapolation outflow at x_hi (:284)
+        # reflecting bottom wall (v sign flip), extrapolating top (:285-289)
+        U[:, 0, :] = U[:, 1, :] * flip_v
+        U[:, -1, :] = U[:, -2, :]
+        if ghost_map is not None:
+            U = ibm.apply_slip_wall_ghosts(U, ghost_map, cfg.gamma, cfg.eps, cfg.max_val)
+        return U
+
+    step = comp.make_step(cfg, bc, zero_momentum_mask=solid, device=device)
+    state = comp.init_state(cfg, U_inf, device=device)
+    return Case("wedge", cfg, step, state, grid,
+                {"wedge_mask": solid, "U_inf": U_inf, "mach": mach,
+                 "wedge_angle_deg": wedge_angle_deg, "wedge_start_x": wedge_start_x})
+
+
+def cavity_supersonic(
+    nx: int = 600,
+    ny: int = 180,
+    ng: int = 2,
+    mach: float = 2.5,
+    domain: tuple[float, float] = (2.0, 1.0),
+    cavity_x: float = 0.5,
+    cavity_length: float = 0.5,
+    l_over_d: float = 2.0,
+    flux: str = "rusanov",
+    cfl: float = 0.3,
+    artificial_viscosity: float = 1e-3,
+    reconstruction: str = "muscl",
+    real_geometry: bool = False,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Mach-2.5 flow over an open cavity (reference ``CavityFlowSolver``
+    cavity_flow_v1.py:248-308: ng = 2 ghost cells, Rusanov fluxes, minmod
+    limiting, artificial viscosity, the cavity block pinned to quiescent
+    fluid each step, cavity_flow_v1.py:165-170). ``real_geometry=True``
+    puts the actual solid there instead: a plate at y ≤ depth with the
+    cavity cut out (zero-momentum solid), so the recirculating cavity flow
+    develops."""
+    from cfdsim_tpu_torch import ibm
+    from cfdsim_tpu_torch.models import compressible as comp
+
+    grid = Grid(nx=nx, ny=ny, ng=ng, x_max=domain[0], y_max=domain[1], centering="node")
+    cfg = comp.CompressibleConfig(grid=grid, flux=flux, cfl=cfl, reconstruction=reconstruction,
+                                  artificial_viscosity=artificial_viscosity, max_val=100.0,
+                                  **cfg_overrides)
+    U_inf = comp.freestream(cfg, mach)
+    u_inf = torch.as_tensor(U_inf, device=device)[:, None, None]
+    # the quiescent ρ_inf, p_inf block (cavity_flow_v1.py:166-170)
+    pin_state = np.asarray([1.0, 0.0, 0.0, 1.0 / (cfg.gamma - 1.0)], np.float32)
+    mask = ibm.cavity_mask(grid, cavity_x, cavity_length, cavity_length / l_over_d)
+    pin = mask > 0.5
+
+    def bc(U, step, t):
+        U = U.clone()
+        # inflow ghosts at x_lo, extrapolation at x_hi (cavity_flow_v1.py:154-157)
+        U[:, :, :ng] = u_inf
+        U[:, :, -ng:] = U[:, :, -ng - 1:-ng]
+        # freestream top ghosts, reflecting bottom wall rows (:158-162)
+        U[:, -ng:, :] = u_inf
+        for k in range(ng):
+            src = 2 * ng - 1 - k
+            U[0, k, :] = U[0, src, :]
+            U[1, k, :] = U[1, src, :]
+            U[2, k, :] = -U[2, src, :]
+            U[3, k, :] = U[3, src, :]
+        return U
+
+    if real_geometry:
+        # the solid plate with the cavity cut out
+        X, Y = grid.meshgrid()
+        depth = cavity_length / l_over_d
+        solid = (Y <= depth) & ~((X >= cavity_x) & (X <= cavity_x + cavity_length))
+        keep = torch.as_tensor(1.0 - solid.astype(np.float32), device=device)
+
+        def bc_real(U, step_i, t):
+            # the ghosts, then momentum killed inside the plate (the inflow
+            # ghost writes otherwise inject freestream below the lip)
+            U = bc(U, step_i, t)
+            U[1] *= keep
+            U[2] *= keep
+            return U
+
+        step = comp.make_step(cfg, bc_real, zero_momentum_mask=solid, device=device)
+        extras = {"solid_mask": solid, "U_inf": U_inf}
+    else:
+        step = comp.make_step(cfg, bc, pin_mask=pin, pin_state=pin_state, device=device)
+        extras = {"cavity_mask": mask, "U_inf": U_inf, "pin_state": pin_state}
+    state = comp.init_state(cfg, U_inf, device=device)
+    state = state._replace(U=bc(state.U, state.step, state.t))
+    return Case("cavity_supersonic", cfg, step, state, grid, extras)
+
+
+def blast3d(
+    n: int = 64,
+    gamma: float = 1.4,
+    p_ratio: float = 10.0,
+    r0: float = 0.15,
+    flux: str = "hllc",
+    reconstruction: str = "muscl",
+    cfl: float = 0.3,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """3D spherical blast in a closed reflective box: a high-pressure sphere
+    of radius ``r0`` at the box centre drives an expanding spherical shock;
+    the three axis profiles through the centre test the axis-isotropy of
+    the dimension-split solver."""
+    from cfdsim_tpu_torch.grid import Grid3D
+    from cfdsim_tpu_torch.models import compressible3d as c3
+
+    grid = Grid3D(nx=n, ny=n, nz=n)
+    cfg = c3.Compressible3DConfig(grid=grid, gamma=gamma, flux=flux,
+                                  reconstruction=reconstruction, cfl=cfl, **cfg_overrides)
+    h = 1.0 / n
+    c = (np.arange(n) + 0.5) * h
+    Z, Y, X = np.meshgrid(c, c, c, indexing="ij")
+    r = np.sqrt((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2)
+    p0 = torch.as_tensor(np.where(r <= r0, p_ratio, 1.0).astype(np.float32), device=device)
+    zero = torch.zeros_like(p0)
+    U0 = c3.prim_to_cons_3d(torch.ones_like(p0), zero, zero, zero, p0, gamma)
+
+    def bc(U, step, t):
+        # reflective on all six faces, z, then y, then x, each on what the
+        # previous axis wrote: the adjacent interior layer, normal momentum
+        # flipped
+        U = U.clone()
+        for arr_axis, mom in ((1, 3), (2, 2), (3, 1)):  # z, y, x → ρw, ρv, ρu
+            n_ax = U.shape[arr_axis]
+            for dst, src in ((0, 1), (n_ax - 1, n_ax - 2)):
+                U.select(arr_axis, dst).copy_(U.select(arr_axis, src))
+                U[mom].select(arr_axis - 1, dst).neg_()
+        return U
+
+    step = c3.make_step(cfg, bc, device=device)
+    state = c3.init_state(cfg, U0, device=device)
+    return Case("blast3d", cfg, step, state, grid, {"r0": r0, "p_ratio": p_ratio})
+
+
+def kolmogorov(
+    ny: int = 360,
+    aspect: float = 16.0 / 9.0,
+    nu: float = 1e-3,
+    dt: float = 0.01,
+    forcing_wavenumber: int = 8,
+    forcing_scale: float = 0.1,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Periodic Kolmogorov-forced turbulence on the spectral stable-fluids
+    solver (reference plot.jl:14-24 defaults: 640×360, ν = 1e-3, dt =
+    0.01, sin(8πy) forcing)."""
+    from cfdsim_tpu_torch.models import spectral as spec
+
+    cfg = spec.SpectralConfig(ny=ny, aspect=aspect, nu=nu, dt=dt,
+                              forcing_wavenumber=forcing_wavenumber,
+                              forcing_scale=forcing_scale, **cfg_overrides)
+    step = spec.make_step(cfg, device=device)
+    state = spec.init_state(cfg, device=device)
+    grid = Grid(nx=cfg.nx, ny=cfg.ny, x_max=cfg.lx, y_max=1.0, centering="cell")
+    return Case("kolmogorov", cfg, step, state, grid)
+
+
+def kolmogorov_ps(
+    ny: int = 512,
+    aspect: float = 1.0,
+    nu: float = 1e-5,
+    dt: float = 2e-3,
+    forcing_wavenumber: int = 8,
+    forcing_scale: float = 0.1,
+    noise: float = 0.0,
+    seed: int = 0,
+    *,
+    device,
+    **cfg_overrides,
+) -> Case:
+    """Kolmogorov flow on the pseudo-spectral vorticity solver
+    (``models/spectral_ps.py``): the same physics as ``kolmogorov`` with no
+    advection dissipation, the forcing per unit time; ``noise`` seeds the
+    instability (``default_rng(seed)``). ``extras["velocities"]`` maps a
+    state to (u, v)."""
+    from cfdsim_tpu_torch.models import spectral_ps as ps
+
+    cfg = ps.PseudoSpectralConfig(ny=ny, aspect=aspect, nu=nu, dt=dt,
+                                  forcing_wavenumber=forcing_wavenumber,
+                                  forcing_scale=forcing_scale, **cfg_overrides)
+    step = ps.make_step(cfg, device=device)
+    state = ps.init_state(cfg, noise=noise, seed=seed, device=device)
+    grid = Grid(nx=cfg.nx, ny=cfg.ny, x_max=cfg.lx, y_max=1.0, centering="cell")
+    return Case("kolmogorov_ps", cfg, step, state, grid,
+                {"velocities": lambda s: ps.velocities(cfg, s)})
+
+
 CASES: dict[str, Callable[..., Case]] = {
     "cavity": lid_cavity,
     "cavity3d": cavity3d,
@@ -995,6 +1277,11 @@ CASES: dict[str, Callable[..., Case]] = {
     "cylinder_oscillating": cylinder_oscillating,
     "cylinder_stretched": cylinder_stretched,
     "transport": transport,
+    "wedge": wedge,
+    "cavity_supersonic": cavity_supersonic,
+    "blast3d": blast3d,
+    "kolmogorov": kolmogorov,
+    "kolmogorov_ps": kolmogorov_ps,
 }
 
 

@@ -2,7 +2,9 @@
 
 A CFD case has no weights: its state (u, v, p, t, step, and θ for the
 coupled transport states and the Boussinesq states; w too in 3D; on the
-staggered tiers fields of several shapes) is what moves between the JAX
+staggered tiers fields of several shapes; the conserved U of the
+compressible tiers; ω̂ of the pseudo-spectral tier, complex64 here and float32
+re/im planes in the JAX package) is what moves between the JAX
 package and this one. Pass the JAX arrays through
 ``np.asarray`` on the way in and build a JAX state from the numpy dict on
 the way out.
@@ -15,10 +17,14 @@ import torch
 
 from cfdsim_tpu_torch.models.boussinesq import BoussinesqState
 from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DState
+from cfdsim_tpu_torch.models.compressible import CompressibleState
+from cfdsim_tpu_torch.models.compressible3d import Compressible3DState
 from cfdsim_tpu_torch.models.incompressible import IncompressibleState
 from cfdsim_tpu_torch.models.incompressible3d import Incompressible3DState
 from cfdsim_tpu_torch.models.mac import MACState
 from cfdsim_tpu_torch.models.mac3d import MAC3DState
+from cfdsim_tpu_torch.models.spectral import SpectralState
+from cfdsim_tpu_torch.models.spectral_ps import PSState
 from cfdsim_tpu_torch.models.transport import CoupledState
 from cfdsim_tpu_torch.models.transport3d import Transport3DState
 
@@ -115,3 +121,59 @@ def coupled_state_to_numpy(state: CoupledState) -> dict:
     out = state_to_numpy(state.flow)
     out["theta"] = state.theta.detach().cpu().numpy()
     return out
+
+
+def compressible_state_from_numpy(U, t, step, device) -> CompressibleState:
+    """A :class:`CompressibleState` on ``device``: U (4, ny, nx) cast to
+    float32."""
+    if np.ndim(U) != 3 or np.shape(U)[0] != 4:
+        raise ValueError(f"not a 2D compressible state: U {np.shape(U)}")
+    return _fields(CompressibleState, t, step, device, U=U)
+
+
+def compressible_state_to_numpy(state: CompressibleState) -> dict:
+    """``{"U", "t", "step"}`` of a :class:`CompressibleState`."""
+    return state_to_numpy(state)
+
+
+def compressible3d_state_from_numpy(U, t, step, device) -> Compressible3DState:
+    """A :class:`Compressible3DState` on ``device``: U (5, nz, ny, nx) cast
+    to float32."""
+    if np.ndim(U) != 4 or np.shape(U)[0] != 5:
+        raise ValueError(f"not a 3D compressible state: U {np.shape(U)}")
+    return _fields(Compressible3DState, t, step, device, U=U)
+
+
+def compressible3d_state_to_numpy(state: Compressible3DState) -> dict:
+    """``{"U", "t", "step"}`` of a :class:`Compressible3DState`."""
+    return state_to_numpy(state)
+
+
+def spectral_state_from_numpy(u, v, t, step, device) -> SpectralState:
+    """A stable-fluids :class:`SpectralState` on ``device``: u, v (ny, nx)
+    cast to float32."""
+    return _fields(SpectralState, t, step, device, u=u, v=v)
+
+
+def spectral_state_to_numpy(state: SpectralState) -> dict:
+    """``{"u", "v", "t", "step"}`` of a :class:`SpectralState`."""
+    return state_to_numpy(state)
+
+
+def ps_state_from_numpy(w_hat, t, step, device) -> PSState:
+    """A :class:`PSState` on ``device`` from the JAX package's ω̂: float32
+    re/im planes (2, ny, nx//2+1), made one complex64 tensor."""
+    w_hat = np.asarray(w_hat, dtype=np.float32)
+    if w_hat.ndim != 3 or w_hat.shape[0] != 2:
+        raise ValueError(f"not re/im planes of a spectrum: {w_hat.shape}")
+    re, im = (torch.tensor(a, device=device) for a in w_hat)
+    return PSState(w_hat=torch.complex(re, im), t=torch.tensor(np.float32(t), device=device),
+                   step=torch.tensor(np.int32(step), device=device))
+
+
+def ps_state_to_numpy(state: PSState) -> dict:
+    """``{"w_hat", "t", "step"}`` of a :class:`PSState`, ω̂ as the JAX
+    package's float32 re/im planes (2, ny, nx//2+1)."""
+    w = state.w_hat.detach().cpu()
+    return {"w_hat": torch.stack([w.real, w.imag]).numpy(),
+            "t": np.float32(state.t.item()), "step": np.int32(state.step.item())}

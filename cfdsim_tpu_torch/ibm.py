@@ -7,7 +7,10 @@ and in 3D the sphere's face-sampled and cell-centred masks
 (``sphere_masks_faces``, ``sphere_mask_cells``, ``sphere_masks_mac3d``),
 its potential-flow start (``potential_flow_sphere_faces``,
 ``potential_flow_sphere_mac3d``) and the moving sphere (``MovingBody3D``,
-``oscillating_sphere``).
+``oscillating_sphere``); and the compressible tier's wedge
+(``wedge_mask``, its slip-wall ghost map ``wedge_slip_ghost_map`` on
+``slip_wall_ghost_map``, applied by ``apply_slip_wall_ghosts``) and open
+cavity (``cavity_mask``).
 
 The mask and initial-field builders are numpy, run once at set-up, and
 give the JAX package's arrays bit for bit; the step moves them to its
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from cfdsim_tpu_torch.grid import Grid
+from cfdsim_tpu_torch.solvers.riemann import cons_to_prim, prim_to_cons
 
 
 def cylinder_masks(grid: Grid, center: tuple[float, float], radius: float):
@@ -313,3 +317,134 @@ def oscillating_sphere(center, radius: float, amplitude: float, period: float,
         return tuple(out)
 
     return MovingBody3D(center=c, velocity=vel, radius=radius)
+
+
+# ---------------------------------------------------------------------------
+# the compressible tier's geometry: the wedge, its slip-wall ghost map and
+# the open cavity
+# ---------------------------------------------------------------------------
+
+def wedge_mask(grid: Grid, wedge_angle: float, wedge_start_x: float) -> np.ndarray:
+    """Boolean (ny, nx) mask of a wedge rising at ``wedge_angle`` from
+    ``wedge_start_x`` along the bottom wall (reference v1_shock.py:240-248)."""
+    X, Y = grid.meshgrid()
+    wedge_y = np.tan(wedge_angle) * (X - wedge_start_x)
+    return (X >= wedge_start_x) & (Y <= wedge_y)
+
+
+def slip_wall_ghost_map(grid: Grid, depth, normal_x, normal_y, solid_mask=None,
+                        band: float = 2.5) -> dict:
+    """A mirror-ghost interpolation map for a slip wall (ghost-cell
+    immersed boundary, Forrer & Jeltsch style), host numpy, built once.
+
+    ``depth`` is the penetration depth into the solid (> 0 inside),
+    ``normal_x/y`` the unit surface normal pointing into the fluid, all
+    (ny, nx) numpy arrays. Ghost cells are solid cells within ``band``·h of
+    the surface; each gets the state at its mirror point, sampled
+    bilinearly from the fluid (stencil corners inside the solid get no
+    weight), with the normal velocity reflected
+    (:func:`apply_slip_wall_ghosts`). Flat indices are int32, weights and
+    normals float32, as the JAX package builds them; :func:`ghost_map_to`
+    puts the map on a device."""
+    X, Y = grid.meshgrid()
+    ny, nx = X.shape
+    h = min(grid.dx, grid.dy)
+    inside = depth > 0.0 if solid_mask is None else np.asarray(solid_mask)
+    ghost = inside & (depth <= band * h)
+    gi, gj = np.nonzero(ghost)
+    d = depth[gi, gj]
+    nxg = normal_x[gi, gj]
+    nyg = normal_y[gi, gj]
+    # image point at least 0.75h into the fluid, so the bilinear stencil is
+    # dominated by true fluid cells
+    d_img = np.maximum(d, 0.75 * h)
+    xm = X[gi, gj] + (d + d_img) * nxg
+    ym = Y[gi, gj] + (d + d_img) * nyg
+
+    xc = grid.x_coords()
+    yc = grid.y_coords()
+    j0 = np.clip(np.searchsorted(xc, xm) - 1, 0, nx - 2)
+    i0 = np.clip(np.searchsorted(yc, ym) - 1, 0, ny - 2)
+    wx = np.clip((xm - xc[j0]) / (xc[j0 + 1] - xc[j0]), 0.0, 1.0)
+    wy = np.clip((ym - yc[i0]) / (yc[i0 + 1] - yc[i0]), 0.0, 1.0)
+
+    # zero the weights of corners inside the solid and renormalise; where
+    # all four are solid keep plain bilinear
+    bilinear = np.stack([(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx])
+    corners = np.stack([inside[i0, j0], inside[i0, j0 + 1],
+                        inside[i0 + 1, j0], inside[i0 + 1, j0 + 1]])
+    w = np.where(corners, 0.0, bilinear)
+    degenerate = w.sum(axis=0) <= 1e-12
+    if np.any(degenerate):
+        w[:, degenerate] = bilinear[:, degenerate]
+    w = w / w.sum(axis=0)
+
+    def flat(i, j):
+        return (i * nx + j).astype(np.int32)
+
+    return {
+        "gi": gi.astype(np.int32), "gj": gj.astype(np.int32),
+        "idx00": flat(i0, j0), "idx01": flat(i0, j0 + 1),
+        "idx10": flat(i0 + 1, j0), "idx11": flat(i0 + 1, j0 + 1),
+        "w00": w[0].astype(np.float32), "w01": w[1].astype(np.float32),
+        "w10": w[2].astype(np.float32), "w11": w[3].astype(np.float32),
+        "nx": nxg.astype(np.float32), "ny": nyg.astype(np.float32),
+    }
+
+
+def ghost_map_to(gm: dict, device) -> dict:
+    """A ghost map's arrays as tensors on ``device`` (indices as int64)."""
+    return {k: torch.as_tensor(v, dtype=torch.int64 if v.dtype.kind == "i" else torch.float32,
+                               device=device) for k, v in gm.items()}
+
+
+def apply_slip_wall_ghosts(U, gm: dict, gamma: float, eps: float = 1e-8,
+                           max_val: float = 1e3):
+    """A copy of the conserved state U (4, ny, nx) with mirror-ghost states in
+    the near-surface solid cells: (ρ, u, v, p) sampled at each ghost's mirror
+    point (four ``take``s on the flattened field), the velocity reflected
+    across the wall (v → v − 2(v·n̂)n̂, slip), ρ and p copied, written with
+    one ``index_put_``. ``gm`` is :func:`ghost_map_to`'s."""
+    rho, u, v, p = cons_to_prim(U, gamma, eps, max_val)
+
+    def samp(q):
+        qf = q.reshape(-1)
+        return (gm["w00"] * qf.take(gm["idx00"]) + gm["w01"] * qf.take(gm["idx01"])
+                + gm["w10"] * qf.take(gm["idx10"]) + gm["w11"] * qf.take(gm["idx11"]))
+
+    rm, um, vm, pm = samp(rho), samp(u), samp(v), samp(p)
+    vn = um * gm["nx"] + vm * gm["ny"]
+    ur = um - 2.0 * vn * gm["nx"]
+    vr = vm - 2.0 * vn * gm["ny"]
+    Ug = prim_to_cons(rm, ur, vr, pm, gamma)
+    out = U.clone()
+    out[:, gm["gi"], gm["gj"]] = Ug
+    return out
+
+
+def wedge_slip_ghost_map(grid: Grid, wedge_angle: float, wedge_start_x: float,
+                         band: float = 2.5) -> dict:
+    """Slip-wall ghost map for the planar wedge surface y = (x − x0)·tanθ,
+    x ≥ x0 (the geometry of v1_shock.py:240-248)."""
+    X, Y = grid.meshgrid()
+    s, c = np.sin(wedge_angle), np.cos(wedge_angle)
+    depth = (X - wedge_start_x) * s - Y * c  # > 0 inside the wedge
+    solid = wedge_mask(grid, wedge_angle, wedge_start_x)
+    return slip_wall_ghost_map(grid, depth, np.full_like(X, -s), np.full_like(X, c),
+                               solid_mask=solid, band=band)
+
+
+def cavity_mask(grid: Grid, x_start: float, length: float, depth: float) -> np.ndarray:
+    """Smoothed float32 mask of the open-cavity geometry: 1 inside the
+    cavity below the shear layer, a Gaussian-smoothed edge above it (σ =
+    3dx), parity with reference cavity_flow_v1.py:264-273. In the
+    supersonic cavity it marks cells pinned to quiescent fluid each step."""
+    X, Y = grid.meshgrid()
+    inside = (X >= x_start) & (X <= x_start + length) & (Y <= depth)
+    mask = inside.astype(np.float64)
+    sigma = 3.0 * grid.dx
+    above = (~inside) & (X >= x_start) & (X <= x_start + length) & (Y > depth)
+    dist_y = Y - depth
+    shell = np.exp(-((dist_y / sigma) ** 2))
+    mask = np.where(above & (dist_y < 3.0 * sigma), shell, mask)
+    return mask.astype(np.float32)

@@ -19,10 +19,25 @@ import torch
 
 
 def to_host(value) -> np.ndarray:
-    """A field as a numpy array (a tensor is copied off its device)."""
-    if torch.is_tensor(value):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
+    """A field as a numpy array (a tensor is copied off its device). A
+    complex field (the pseudo-spectral tier's ω̂) becomes the JAX package's
+    schema: float32 re/im planes stacked on a new leading axis, (2, ...)."""
+    arr = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+    if np.iscomplexobj(arr):
+        return np.stack([arr.real, arr.imag]).astype(np.float32)
+    return arr
+
+
+def _field_like(arr, like: torch.Tensor) -> torch.Tensor:
+    """A snapshot array as a tensor of ``like``'s dtype, shape and device; a
+    complex field is read from its (2, ...) float re/im planes."""
+    arr = np.asarray(arr)
+    if like.is_complex() and arr.shape == (2, *like.shape) and not np.iscomplexobj(arr):
+        arr = arr[0] + 1j * arr[1].astype(np.float64)
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"snapshot field of shape {arr.shape} for a state field of shape "
+                         f"{tuple(like.shape)}")
+    return torch.tensor(arr, dtype=like.dtype, device=like.device)
 
 
 class SnapshotWriter:
@@ -97,8 +112,9 @@ def restore(state, path):
     a ``.csnap`` container read directly): every field whose name matches a
     snapshot dataset is replaced by it (recursing into nested NamedTuple
     states like transport's CoupledState), on the device of the field it
-    replaces; ``t`` (float32) and ``step`` (int32) are taken from the
-    snapshot's metadata."""
+    replaces (a complex field from its re/im planes, :func:`to_host`); ``t``
+    (float32) and ``step`` (int32) are taken from the snapshot's metadata.
+    A field whose shape differs from the state's raises ``ValueError``."""
     fields, step, t = load_latest(path)
 
     def fill(st):
@@ -111,8 +127,7 @@ def restore(state, path):
                 updates[name] = sub
                 matched += n
             elif name in fields:
-                updates[name] = torch.tensor(np.asarray(fields[name]), dtype=v.dtype,
-                                             device=v.device)
+                updates[name] = _field_like(fields[name], v)
                 matched += 1
         if "t" in st._fields:
             updates["t"] = torch.tensor(np.float32(t), device=st.t.device)

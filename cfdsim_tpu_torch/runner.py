@@ -130,14 +130,17 @@ class Simulation:
                 pbar.update(min(t_now, cfg.t_final) - pbar.n)
 
             # host-side control: health, back-off, snapshots, logging
-            self.metrics_history.append({
+            hist = {
                 "step": step,
                 "t": t_now,
                 "dt": float(m_host.dt[-1]),
                 "energy": float(m_host.energy[-1]),
                 "max_vel": float(np.max(m_host.max_vel)),
-                "div_post": float(np.max(m_host.div_post)),
-            })
+            }
+            # the compressible and spectral metrics have no divergence
+            if hasattr(m_host, "div_post"):
+                hist["div_post"] = float(np.max(m_host.div_post))
+            self.metrics_history.append(hist)
             if cfg.health_check:
                 if self.health_fn is not None:
                     report = self.health_fn(m_host, step)
@@ -182,7 +185,7 @@ class Simulation:
                     step,
                     h["t"],
                     h["dt"],
-                    h["div_post"],
+                    h.get("div_post", float("nan")),
                     h["energy"],
                     self.perf.steps_per_sec,
                 )

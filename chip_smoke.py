@@ -41,8 +41,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    cylinder and the coupled transport cavity of phases 9-12, on the
    twelve staggered cells of ``bench.mac_paths`` (phases 5c-5d, the three
    ghost-IBM cylinders included), the two 1024² heated cavities, the
-   two 256³ cavities (5g-5h) and the five full-width 3D bodies of 5i;
-   the same kernels
+   two 256³ cavities (5g-5h), the five full-width 3D bodies of 5i, the
+   five 2D compressible cells and the 256³ blast of 5j and the four
+   spectral cells of 5k (``bench.compressible_paths``,
+   ``bench.spectral_paths``; the complex ω̂ included); the same kernels
    in the same order, so u, v, p, t, step (θ too) and every stacked metric
    must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
@@ -116,6 +118,29 @@ and the final ``{"ok": true, ...}`` line is not printed:
    sphere) from its start through runner.Simulation: healthy, no kernel
    launched, its busy and wall ms per step, events per step, idle share,
    graph nodes and peak memory
+5j. compressible: the goldens ``wedge_shock``, ``cavity_supersonic_pin``
+   and ``cavity_supersonic_real`` (150 steps, RTOL 2e-5); the Sod star
+   states at nx = 400, t = 0.2 within 3%; the θ-β-M gate: the wedge-aligned
+   400×200 wedge, HLLC + MUSCL, to t = 2.5: β within 0.5° of 39.31°, ρ₂ and
+   p₂ within 1% of 1.458 and 1.707, |v| < 0.01; the five 2D cells at the
+   reference's sizes (the 400×200 wedge in its three modes, the 600×180
+   cavity with 2 ghost layers, pinned and real), 300 steps each through
+   runner.Simulation with the compressible health check, no kernel
+   launched, then steps/s through the captured chunk (marginal 50-250
+   steps; the cavity beside the reference's >100 steps/s); the blast's
+   gates at 64³ (80 steps: mass and energy to 1e-4, the three axis
+   profiles within 0.02), then its 256³ cell's steps/s and peak memory
+5k. spectral: ``kolmogorov`` at 640×360, sl and bfecc, the reference's 750
+   steps through runner.Simulation, and ``kolmogorov_ps`` at 512² and
+   1024² (500 steps), each then timed (marginal 50-250 steps); the
+   pseudo-spectral gates: the inviscid Taylor–Green energy at 96² over 500
+   steps to 1e-4, the forced laminar profile at 64² (8000 steps, t = 16)
+   within 5e-3 of fs/(νk²+α) with |v| under 1e-4 of it
+5l. new tiers, snapshots and resume through the command line: ``run
+   wedge --frame wedge_aligned`` (400×200) and ``run kolmogorov_ps --ny
+   1024`` with native snapshots, 100 steps, ``--resume`` to 200, against
+   one run of 200: bit-equal records and restored states; ω̂ is stored as
+   the JAX package's float32 planes (2, 1024, 513)
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -181,10 +206,12 @@ and the final ``{"ok": true, ...}`` line is not printed:
    V-cycles/s, DCT solves/s at 1024², ms per Helmholtz solve beside the
    DCT solve's, MAC-1024² and stretched-512² cells/s, and ms per step,
    chunk and eager, of the implicit cavity, the LES cylinder, the
-   transport cavity, the heated and 3D cavities and the 3D bodies, and the
-   sphere's cells/s), ``bench --roofline`` (the card's peaks, and flops,
+   transport cavity, the heated and 3D cavities, the 3D bodies and the
+   compressible and spectral cells, and the sphere's cells/s), ``bench
+   --roofline`` (the card's peaks, and flops,
    bytes per cell and bound of the collocated, MAC, stretched and sphere
-   tiers), the profile of every path, staggered and 3D ones included, and
+   tiers), the profile of every path, staggered, 3D, compressible and
+   spectral ones included, and
    ``bench --cylinder`` (steps/s through kernel A, captured and eager, and
    through streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``).
@@ -195,7 +222,9 @@ and the final ``{"ok": true, ...}`` line is not printed:
    problem is read once per call and then stays on chip, as it does in the
    cylinder's solve
 
-Before the last line it prints the card and a ``{"kernels": [...]}`` line:
+Each phase's seconds are printed after it (``phase_seconds``) and all of them
+on the ``smoke_seconds`` line. Before the last line it prints the card and a
+``{"kernels": [...]}`` line:
 per kernel its launches on the paths above (as the kernels counted them on
 the device, warm-up included), the worst kernel-vs-plain
 |Δ|, its device ms and its plain version's, and its bound: the larger of
@@ -227,6 +256,8 @@ from cfdsim_tpu_torch.bench import (
     EMPTY_SOURCE,
     POISSON,
     boussinesq_paths,
+    cells_per_sec,
+    compressible_paths,
     dct_solve_ms,
     mac_paths,
     new_paths,
@@ -240,6 +271,7 @@ from cfdsim_tpu_torch.bench import (
     run_cylinder,
     run_roofline,
     sphere_paths,
+    spectral_paths,
     step_device_ms,
     threed_paths,
 )
@@ -249,8 +281,11 @@ from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.io_ import restore
 from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter, csnap_steps
+from cfdsim_tpu_torch.models import compressible as comp
 from cfdsim_tpu_torch.models import mac_stretched
+from cfdsim_tpu_torch.models import spectral_ps as ps
 from cfdsim_tpu_torch.models.incompressible import make_chunk
+from cfdsim_tpu_torch.monitor import check_compressible
 from cfdsim_tpu_torch.ops.kernels import cuda_build
 from cfdsim_tpu_torch.ops.kernels import poisson_rb as rb
 from cfdsim_tpu_torch.ops.kernels import predictor as pred
@@ -266,6 +301,7 @@ from cfdsim_tpu_torch.solvers.poisson import (
     PoissonSolver,
     poisson_residual,
 )
+from cfdsim_tpu_torch.solvers.riemann import cons_to_prim
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
 from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
 from cfdsim_tpu_torch.validation import (
@@ -275,6 +311,7 @@ from cfdsim_tpu_torch.validation import (
 )
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 KERNEL_ATOL = 1e-6  # tests/test_pallas.py:127-128; see csrc/predictor.cu on FMA
 STEP_ATOL = 1e-5  # tests/test_pallas.py:144-145
 GOLDEN_RTOL = 2e-5  # tests/test_goldens.py:28
@@ -360,6 +397,34 @@ CUBE_NU, CUBE_NU_RTOL, CUBE_BALANCE_RTOL, CUBE_T_FINAL = 2.054, 0.01, 5e-3, 0.4
 # the largest |u| a healthy run has
 BODY_PATH_STEPS, DYNAMIC_LES_STEPS = 50, 100
 BODY_PATH_MAX_U = 3.0
+# the compressible tier: the goldens of tests/test_goldens.py:38, :57-61; the
+# Sod star states at t = 0.2 within 3% (tests/test_compressible.py:62-89,
+# nx = 400, 50-step chunks); the θ-β-M gate of :232-263 at the reference's
+# 400×200 (wedge-aligned frame, HLLC + MUSCL, t = 2.5): β within 0.5° of
+# 39.31°, ρ₂ and p₂ within 1% of 1.458 and 1.707, |v| < 0.01; the blast's
+# gates at 64³ (mass and energy to 1e-4, the three axis profiles within
+# 0.02, tests/test_compressible3d.py:119-148, its 40 steps at 32³ doubled);
+# the reference cavity's target speed (BASELINE.md:13)
+COMPRESSIBLE_GOLDENS = {
+    "wedge_shock": (("wedge", dict(nx=120, ny=60)), 150),
+    "cavity_supersonic_pin": (("cavity_supersonic", dict(nx=150, ny=45)), 150),
+    "cavity_supersonic_real": (("cavity_supersonic", dict(nx=150, ny=45,
+                                                          real_geometry=True)), 150),
+}
+SOD_STAR = {"rho_left": 0.42632, "rho_right": 0.26557, "p": 0.30313, "u": 0.92745}
+SOD_RTOL = 0.03
+BETA_DEG, BETA_TOL_DEG, RHO2, P2, JUMP_RTOL, V_MAX = 39.31, 0.5, 1.458, 1.707, 0.01, 0.01
+BLAST_GATE_N, BLAST_GATE_STEPS, BLAST_RTOL, BLAST_AXIS_TOL = 64, 80, 1e-4, 0.02
+CAVITY_TARGET_STEPS_PER_S = 100.0
+COMPRESSIBLE_PATH_STEPS = 300
+# the spectral tier: the reference's Kolmogorov run (BASELINE.md:20: 640×360,
+# dt = 0.01, 750 steps); the pseudo-spectral gates of
+# tests/test_spectral_ps.py:51-82: the inviscid Taylor–Green energy at 96²
+# over 500 steps to 1e-4, the forced laminar profile at 64² (t = 16) within
+# 5e-3 of fs/(νk²+α) with |v| under 1e-4 of it
+KOLMOGOROV_STEPS = 750
+TG_N, TG_STEPS, TG_RTOL = 96, 500, 1e-4
+FIXED_N, FIXED_STEPS, FIXED_RTOL, FIXED_V = 64, 8000, 5e-3, 1e-4
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -368,7 +433,10 @@ RBSOR_FLOPS_PER_UPDATE = rb.FLOPS_PER_UPDATE
 
 
 def say(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and the seconds since the
+    smoke started (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def machine_has() -> dict:
@@ -680,11 +748,14 @@ def phase_chunk_routes():
     macs = mac_paths(1024, compute_metrics=True, device="cuda")
     threed = threed_paths(256, compute_metrics=True, device="cuda")
     bodies = sphere_paths(compute_metrics=True, device="cuda")
+    compressible = compressible_paths(compute_metrics=True, device="cuda")
+    spectral = spectral_paths(compute_metrics=True, device="cuda")
     paths = {**_paths(), **new_paths(compute_metrics=True), **macs,
-             **boussinesq_paths(1024, device="cuda"), **threed, **bodies}
+             **boussinesq_paths(1024, device="cuda"), **threed, **bodies, **compressible,
+             **spectral}
     # plain torch, cuFFT and cuBLAS only
     no_kernel = {"cavity1024_implicit_dst", "cavity1024_les_implicit_jacobi",
-                 "heated_cavity1024_dct", *threed, *bodies,
+                 "heated_cavity1024_dct", *threed, *bodies, *compressible, *spectral,
                  *(k for k in macs if not k.endswith("_mg2"))}
     for path, case in paths.items():
         graph = make_chunk(case.cfg, case.step, steps, keep_graph=True)
@@ -1494,6 +1565,267 @@ def phase_3d_bodies(card):
         torch.cuda.empty_cache()
 
 
+def _sod_tube(nx: int):
+    """The Sod tube of tests/test_compressible.py:62 (transmissive x, uniform
+    y, HLLC + MUSCL, CFL 0.4) on the card."""
+    grid = Grid(nx=nx, ny=8, x_max=1.0, y_max=0.04, centering="cell")
+    cfg = comp.CompressibleConfig(grid=grid, flux="hllc", reconstruction="muscl", cfl=0.4)
+    left = torch.tensor(grid.x_coords() < 0.5, device="cuda")[None, :].expand(8, nx)
+    rho = torch.where(left, 1.0, 0.125)
+    p = torch.where(left, 1.0, 0.1)
+    zero = torch.zeros_like(rho)
+
+    def bc(U, step, t):
+        U = U.clone()
+        U[:, :, 0] = U[:, :, 1]
+        U[:, :, -1] = U[:, :, -2]
+        U[:, 0, :] = U[:, 1, :]
+        U[:, -1, :] = U[:, -2, :]
+        return U
+
+    state = comp.CompressibleState(U=comp.prim_to_cons(rho, zero, zero, p, 1.4),
+                                   t=torch.zeros((), device="cuda"),
+                                   step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    return cfg, comp.make_step(cfg, bc, device="cuda"), state
+
+
+def _chunks_to(cfg, step, state, t_end, chunk_steps):
+    """Captured chunks of ``chunk_steps`` until t ≥ ``t_end`` (the JAX tests'
+    loop: the last chunk may pass it)."""
+    chunk = make_chunk(cfg, step, chunk_steps)
+    if chunk.mode != "graph":
+        raise AssertionError(f"{chunk.mode} route: {chunk.reason}")
+    while float(state.t) < t_end:
+        state, m = chunk(state, 1.0)
+    return state, m
+
+
+def _wedge_gate(state, grid):
+    """β from the shock fit of tests/test_compressible.py:232-263 (the ρ
+    mid-level crossing above the wall for 0.7 ≤ x ≤ 1.4, plus the frame's
+    10°) and the post-shock state at x = 1.3, y = 0.08."""
+    rho = state.U[0].cpu().numpy()
+    X, Y = grid.x_coords(), grid.y_coords()
+    mid = 0.5 * (1.0 + RHO2)
+    xs, ys = [], []
+    for j in range(len(X)):
+        if not (0.7 <= X[j] <= 1.4):
+            continue
+        above = np.where(rho[:, j] > mid)[0]
+        if not len(above) or above.max() + 1 >= len(Y):
+            continue
+        i = above.max()
+        f = (rho[i, j] - mid) / (rho[i, j] - rho[i + 1, j] + 1e-12)
+        xs.append(X[j])
+        ys.append(Y[i] + f * (Y[i + 1] - Y[i]))
+    beta = float(np.degrees(np.arctan(np.polyfit(xs, ys, 1)[0])) + 10.0)
+    r, u, v, p = (a.cpu().numpy() for a in cons_to_prim(state.U, 1.4))
+    jj, ii = int(np.argmin(np.abs(X - 1.3))), int(np.argmin(np.abs(Y - 0.08)))
+    return beta, float(r[ii, jj]), float(p[ii, jj]), float(v[ii, jj])
+
+
+def phase_compressible(card):
+    """The compressible goldens, the Sod star states, the θ-β-M gate at
+    400×200, each 2D cell at its reference size through runner.Simulation
+    (the compressible health check) and its steps/s, the blast's gates at
+    64³ and its 256³ cell with peak memory."""
+    ref_all = json.loads((ROOT / "tests" / "goldens.json").read_text())
+    for name, ((case_name, kw), steps) in COMPRESSIBLE_GOLDENS.items():
+        sig = golden_signature(build(case_name, device="cuda", **kw), steps)
+        share = golden_check(sig, ref_all[name])
+        say("compressible_golden", golden=name, steps=steps, share_of_tol=share,
+            worst_share_of_tol=max(share.values()), rtol=GOLDEN_RTOL, signature=sig)
+
+    cfg, step, state = _sod_tube(400)
+    state, _ = _chunks_to(cfg, step, state, 0.2, 50)
+    r, u, _, p = (a[4].cpu().numpy() for a in cons_to_prim(state.U, 1.4))
+    x = cfg.grid.x_coords()
+
+    def mean_in(lo, hi, f):
+        return float(f[(x > lo) & (x < hi)].mean())
+
+    got = {"rho_left": mean_in(0.55, 0.65, r), "rho_right": mean_in(0.72, 0.82, r),
+           "p": mean_in(0.58, 0.78, p), "u": mean_in(0.58, 0.78, u)}
+    rel = {k: got[k] / SOD_STAR[k] - 1 for k in got}
+    say("sod_star_states", nx=cfg.grid.nx, t=float(state.t), got=got, want=SOD_STAR, rel_err=rel,
+        rtol=SOD_RTOL)
+    if not all(abs(e) <= SOD_RTOL for e in rel.values()):
+        raise AssertionError(f"Sod star states {got}")
+
+    case = build("wedge", frame="wedge_aligned", flux="hllc", reconstruction="muscl",
+                 device="cuda")
+    t0 = time.perf_counter()
+    state, _ = _chunks_to(case.cfg, case.step, case.state, 2.5, 200)
+    wall = time.perf_counter() - t0
+    beta, rho2, p2, v2 = _wedge_gate(state, case.grid)
+    say("theta_beta_mach_gate", nx=case.grid.nx, ny=case.grid.ny, t=float(state.t),
+        steps=int(state.step), beta_deg=beta, want_beta_deg=BETA_DEG, rho2=rho2, want_rho2=RHO2, p2=p2, want_p2=P2,
+        v2=v2, wall_s=wall, card=card)
+    if not (abs(beta - BETA_DEG) <= BETA_TOL_DEG and abs(rho2 / RHO2 - 1) <= JUMP_RTOL
+            and abs(p2 / P2 - 1) <= JUMP_RTOL and abs(v2) < V_MAX):
+        raise AssertionError(f"θ-β-M: β {beta}, ρ₂ {rho2}, p₂ {p2}, v {v2}")
+
+    # each path with its metrics on (the health check reads them), then its
+    # steps/s with them off, as the bench times it
+    paths = compressible_paths(compute_metrics=True, device="cuda")
+    timed = compressible_paths(device="cuda")
+    blast = {k: timed.pop(k) for k in list(timed) if k.startswith("blast3d")}
+    for path, case in timed.items():
+        case_on = paths[path]
+        steps = COMPRESSIBLE_PATH_STEPS
+        cfg = RunnerConfig(t_final=1e9, max_steps=steps, chunk_steps=100, log_every_chunks=0)
+        sim = Simulation(case_on.step, case_on.state, cfg, case.grid.n_cells,
+                         health_fn=lambda m, step: check_compressible(m))
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, report = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        if report["stopped_reason"] or int(state.step) != steps or sim.chunk.mode != "graph":
+            raise AssertionError(f"{path}: {report}")
+        if not bool(torch.isfinite(state.U).all()) or any(launches.values()):
+            raise AssertionError(f"{path}: finite {bool(torch.isfinite(state.U).all())}, "
+                                 f"launches {launches}")
+        rate = cells_per_sec(case, case.grid.n_cells, short=50, long=250)
+        steps_per_s = 1e3 / rate["ms_per_step"]
+        extra = {}
+        if path.startswith("cavity"):
+            extra = {"target_steps_per_s": CAVITY_TARGET_STEPS_PER_S,
+                     "over_target": steps_per_s / CAVITY_TARGET_STEPS_PER_S}
+        say("compressible_path", path=path, shape=list(case.grid.shape), steps=steps,
+            t=report["final_time"], last_chunk=sim.metrics_history[-1], wall_s=wall,
+            steps_per_s=steps_per_s, cells_per_s=rate["value"], ms_per_step=rate["ms_per_step"],
+            **extra, **_chunk_facts(sim), card=card)
+        del sim, state, case, case_on
+        torch.cuda.empty_cache()
+
+    case = build("blast3d", n=BLAST_GATE_N, device="cuda")
+    U0 = case.state.U
+    mass0, e0 = (float(U0[c, 1:-1, 1:-1, 1:-1].double().sum()) for c in (0, 4))
+    state, _ = make_chunk(case.cfg, case.step, BLAST_GATE_STEPS)(case.state, 1.0)
+    mass1, e1 = (float(state.U[c, 1:-1, 1:-1, 1:-1].double().sum()) for c in (0, 4))
+    rho = state.U[0].cpu().numpy()
+    c = BLAST_GATE_N // 2
+    axis_gap = max(float(np.abs(rho[c, c, :] - rho[c, :, c]).max()),
+                   float(np.abs(rho[c, c, :] - rho[:, c, c]).max()))
+    say("blast3d_gate", n=BLAST_GATE_N, steps=BLAST_GATE_STEPS, t=float(state.t),
+        mass_rel=mass1 / mass0 - 1, energy_rel=e1 / e0 - 1, axis_profile_gap=axis_gap,
+        rtol=BLAST_RTOL, axis_tol=BLAST_AXIS_TOL)
+    if not (abs(mass1 / mass0 - 1) <= BLAST_RTOL and abs(e1 / e0 - 1) <= BLAST_RTOL
+            and axis_gap < BLAST_AXIS_TOL and bool(torch.isfinite(state.U).all())):
+        raise AssertionError(f"blast3d gate: mass {mass1 / mass0 - 1}, energy "
+                             f"{e1 / e0 - 1}, axis gap {axis_gap}")
+    del case, state
+    for path, case in blast.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        rate = cells_per_sec(case, case.grid.n_cells, short=5, long=15)
+        say("compressible_path", path=path, shape=list(case.grid.shape),
+            steps_per_s=1e3 / rate["ms_per_step"], cells_per_s=rate["value"],
+            ms_per_step=rate["ms_per_step"], device_peak_bytes=torch.cuda.max_memory_allocated(),
+            state_bytes=case.state.U.numel() * 4, launches=_counts(),
+            **{k: rate[k] for k in ("route", "nodes", "capture_s")}, card=card)
+        del case
+    torch.cuda.empty_cache()
+
+
+def phase_spectral(card):
+    """The reference's Kolmogorov run at 640×360 on both traces, the
+    pseudo-spectral cells at 512² and 1024², and the pseudo-spectral gates:
+    the inviscid Taylor–Green energy and the forced laminar profile."""
+    paths = spectral_paths(compute_metrics=True, device="cuda")
+    for path, case in spectral_paths(device="cuda").items():
+        steps = KOLMOGOROV_STEPS if path.startswith("kolmogorov640") else 500
+        cfg = RunnerConfig(t_final=1e9, max_steps=steps, chunk_steps=50, log_every_chunks=0)
+        case_on = paths.pop(path)
+        sim = Simulation(case_on.step, case_on.state, cfg, case.grid.n_cells)
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, report = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        finite = all(bool(torch.isfinite(torch.view_as_real(x) if x.is_complex() else x).all())
+                     for x in leaves(state))
+        if report["stopped_reason"] or int(state.step) != steps or sim.chunk.mode != "graph":
+            raise AssertionError(f"{path}: {report}")
+        if not finite or any(launches.values()):
+            raise AssertionError(f"{path}: finite {finite}, launches {launches}")
+        rate = cells_per_sec(case, case.grid.n_cells, short=50, long=250)
+        say("spectral_path", path=path, shape=list(case.grid.shape), steps=steps,
+            t=report["final_time"], last_chunk=sim.metrics_history[-1],
+            run_wall_s=wall, run_steps_per_s=steps / wall,
+            steps_per_s=1e3 / rate["ms_per_step"], cells_per_s=rate["value"],
+            ms_per_step=rate["ms_per_step"], **_chunk_facts(sim), card=card)
+        del sim, state, case, case_on
+        torch.cuda.empty_cache()
+
+    cfg = ps.PseudoSpectralConfig(ny=TG_N, aspect=1.0, nu=0.0, dt=2e-3, forcing_scale=0.0)
+    y, x = np.meshgrid(np.arange(TG_N) / TG_N, np.arange(TG_N) / TG_N, indexing="ij")
+    k = 2 * np.pi * 4
+    s0 = ps.init_state(cfg, w0=-2 * k * np.sin(k * x) * np.sin(k * y), device="cuda")
+    e0 = sum(float((a.double() ** 2).mean()) for a in ps.velocities(cfg, s0))
+    s, _ = make_chunk(cfg, ps.make_step(cfg, device="cuda"), TG_STEPS)(s0, 1.0)
+    e1 = sum(float((a.double() ** 2).mean()) for a in ps.velocities(cfg, s))
+    say("ps_taylor_green_gate", n=TG_N, steps=TG_STEPS, e0=e0, e1=e1, rel=e1 / e0 - 1,
+        rtol=TG_RTOL)
+    if not abs(e1 / e0 - 1) < TG_RTOL:
+        raise AssertionError(f"Taylor–Green energy {e0} → {e1}")
+
+    kf, nu, alpha, fs = 8, 1e-3, 0.5, 0.05
+    cfg = ps.PseudoSpectralConfig(ny=FIXED_N, aspect=1.0, nu=nu, dt=2e-3, forcing_wavenumber=kf,
+                                  forcing_scale=fs, linear_friction=alpha)
+    s, _ = make_chunk(cfg, ps.make_step(cfg, device="cuda"), FIXED_STEPS)(
+        ps.init_state(cfg, device="cuda"), 1.0)
+    u, v = ps.velocities(cfg, s)
+    u_star = fs / (nu * (np.pi * kf) ** 2 + alpha)
+    u_max, v_max = float(u.abs().max()), float(v.abs().max())
+    say("ps_laminar_fixed_point_gate", n=FIXED_N, steps=FIXED_STEPS, t=float(s.t),
+        u_max=u_max, u_star=u_star, rel=u_max / u_star - 1, v_max=v_max, rtol=FIXED_RTOL)
+    if not (abs(u_max / u_star - 1) <= FIXED_RTOL and v_max < FIXED_V * u_star):
+        raise AssertionError(f"laminar fixed point: max|u| {u_max} (u* {u_star}), max|v| {v_max}")
+
+
+def phase_new_tiers_resume():
+    """One compressible case (the wedge-aligned 400×200) and one
+    pseudo-spectral case (1024²) through the command line's ``run`` with
+    native snapshots: a run and a ``--resume`` against one run, bit for bit;
+    the ω̂ records are the JAX package's float32 planes."""
+    for case_name, args, shape, field in (
+            ("wedge", ["--frame", "wedge_aligned", "--reconstruction", "muscl"],
+             {"U": [4, 200, 400]}, "U"),
+            ("kolmogorov_ps", ["--ny", "1024", "--noise", "0.1"],
+             {"w_hat": [2, 1024, 513]}, "w_hat")):
+        out = SMOKE_OUT / case_name
+        shutil.rmtree(out, ignore_errors=True)
+        common = ["run", case_name, *args, "--device", "cuda", "--t-final", "1e9",
+                  "--chunk-steps", "50", "--snapshot-interval", "100", "--io", SNAPSHOT_IO]
+        reports = [cli.main([*common, "--out", str(out / "split"), "--max-steps", "100"]),
+                   cli.main([*common, "--out", str(out / "split"), "--max-steps", "200",
+                             "--resume"]),
+                   cli.main([*common, "--out", str(out / "straight"), "--max-steps", "200"])]
+        if [r["final_step"] for r in reports] != [100, 200, 200] or any(
+                r["chunk_route"] != "graph" or r["stopped_reason"] for r in reports):
+            raise AssertionError(f"{case_name} runs: {reports}")
+        a = csnap_steps(out / "split" / "snapshots.csnap")
+        b = csnap_steps(out / "straight" / "snapshots.csnap")
+        (fa, ta), (fb, tb) = a[200], b[200]
+        differ = [k for k in fb if not np.array_equal(fa[k], fb[k])]
+        template = build(case_name, device="cuda", **cli._extra_kwargs(args))
+        sa = restore(template.state, out / "split" / "snapshots.csnap")
+        sb = restore(template.state, out / "straight" / "snapshots.csnap")
+        differ += [k for (k, x), y in zip(named_leaves(sa), leaves(sb)) if not torch.equal(x, y)]
+        fields = {k: list(v.shape) for k, v in fb.items()}
+        say("new_tier_resume", case=case_name, steps=200, snapshots=sorted(a), fields=fields,
+            dtype=str(fb[field].dtype), bit_equal=not differ, differ=differ, t_split=ta,
+            t_straight=tb, io=SNAPSHOT_IO, reports=reports)
+        if (differ or ta != tb or not sorted(a) == sorted(b) == [0, 100, 200]
+                or fields != shape or fb[field].dtype != np.float32 or int(sa.step) != 200):
+            raise AssertionError(f"{case_name} resume: {differ}, t {ta} vs {tb}, {fields}")
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -1515,9 +1847,13 @@ def phase_timings(card):
     for route in (None, "loop"):
         for path, case in {**_paths(compute_metrics=False), **new_paths(),
                            **mac_paths(), **boussinesq_paths()}.items():
-            say("time_profile", **profile_chunk(case, 20, "cuda", card, route, path=path))
-        for path, case in {**threed_paths(), **sphere_paths()}.items():
             say("time_profile", **profile_chunk(case, 10, "cuda", card, route, path=path))
+        for path, case in {**threed_paths(), **sphere_paths()}.items():
+            say("time_profile", **profile_chunk(case, 5, "cuda", card, route, path=path))
+        torch.cuda.empty_cache()
+        for path, case in {**compressible_paths(), **spectral_paths()}.items():
+            say("time_profile", **profile_chunk(case, 5 if "3d" in path else 10, "cuda",
+                                                card, route, path=path))
         torch.cuda.empty_cache()
     # per tier the flops and bytes of one step against the card's peaks
     for row in run_roofline(1024):
@@ -1598,6 +1934,21 @@ def phase_timings(card):
     return kernels
 
 
+def _timed_phases():
+    """``phase(fn, *args)`` runs one phase and prints its seconds; the
+    seconds of every phase so far are on ``phase.seconds``."""
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase.seconds[fn.__name__] = time.perf_counter() - t0
+        say("phase_seconds", name=fn.__name__, seconds=phase.seconds[fn.__name__])
+        return out
+
+    phase.seconds = {}
+    return phase
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_name_and_power_limit()
@@ -1616,25 +1967,29 @@ def main() -> int:
         kernels=[k.symbol for k in kernels])
     err = {"fused_predictor_central": phase_kernel_vs_plain()}
     err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
-    phase_chunk_routes()
-    phase_golden()
-    dct_table = phase_dct_variants(card)
-    phase_fdm_precision()
-    phase_mac_paths()
-    mac_mg, mac_cyl = phase_mac_kernels()
-    phase_mac_goldens()
-    phase_botella_peyret()
-    bq_mg = phase_boussinesq()
-    phase_3d()
-    phase_3d_bodies(card)
-    pred_launches = phase_main_path()
-    cyl_a, cyl_chunks_per_step = phase_cylinder()
-    mg = phase_mg_cavity()
-    implicit_mg = phase_implicit_cavity()
-    phase_ghia()
-    les_a = phase_les_cylinder()
-    transport_pred = phase_transport_resume()
-    times = phase_timings(card)
+    phase = _timed_phases()
+    phase(phase_chunk_routes)
+    phase(phase_golden)
+    dct_table = phase(phase_dct_variants, card)
+    phase(phase_fdm_precision)
+    phase(phase_mac_paths)
+    mac_mg, mac_cyl = phase(phase_mac_kernels)
+    phase(phase_mac_goldens)
+    phase(phase_botella_peyret)
+    bq_mg = phase(phase_boussinesq)
+    phase(phase_3d)
+    phase(phase_3d_bodies, card)
+    phase(phase_compressible, card)
+    phase(phase_spectral, card)
+    phase(phase_new_tiers_resume)
+    pred_launches = phase(phase_main_path)
+    cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
+    mg = phase(phase_mg_cavity)
+    implicit_mg = phase(phase_implicit_cavity)
+    phase(phase_ghia)
+    les_a = phase(phase_les_cylinder)
+    transport_pred = phase(phase_transport_resume)
+    times = phase(phase_timings, card)
 
     launches = {
         "fused_predictor_central": {"cavity_1024_dct": pred_launches,
@@ -1684,7 +2039,7 @@ def main() -> int:
     rows[1]["kernel_chunks_per_cylinder_step"] = cyl_chunks_per_step
     say("dct_autotune_table", winners={n: t["winner"] for n, t in dct_table.items()},
         ms=dct_table, card=card)
-    say("smoke_seconds", seconds=time.perf_counter() - t_start)
+    say("smoke_seconds", seconds=time.perf_counter() - t_start, phase_seconds=phase.seconds)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

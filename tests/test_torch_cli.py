@@ -29,7 +29,8 @@ def test_list_cases(capsys):
     for name in ("cavity", "channel", "cylinder", "transport", "cavity_mac", "cavity_stretched",
                  "cylinder_mac", "cylinder_oscillating", "cylinder_stretched", "heated_cavity",
                  "rayleigh_benard", "cavity3d", "cavity3d_mac", "cavity3d_stretched", "sphere",
-                 "sphere_stretched", "heated_sphere", "heated_sphere_stretched", "heated_cube"):
+                 "sphere_stretched", "heated_sphere", "heated_sphere_stretched", "heated_cube",
+                 "wedge", "cavity_supersonic", "blast3d", "kolmogorov", "kolmogorov_ps"):
         assert name in out
 
 
@@ -95,6 +96,11 @@ TINY = {
     "heated_sphere": SPHERE,
     "heated_sphere_stretched": SPHERE,
     "heated_cube": dict(n=8),
+    "wedge": dict(nx=24, ny=12),
+    "cavity_supersonic": dict(nx=24, ny=12),
+    "blast3d": dict(n=8),
+    "kolmogorov": dict(ny=16),
+    "kolmogorov_ps": dict(ny=16, noise=0.1),
 }
 # the options each tier has: the collocated cases take implicit diffusion
 # and LES together; on the MAC tiers the cavity takes each alone, the
@@ -117,7 +123,13 @@ VARIANTS.update(cavity_mac=[{}, dict(diffusion="implicit"), dict(use_les=True)],
                                            les_model="dynamic")],
                 heated_sphere=[{}, dict(ibm_scheme="ghost", theta_scheme="tvd")],
                 heated_sphere_stretched=[{}, dict(ibm_scheme="ghost", theta_scheme="tvd")],
-                heated_cube=[{}, dict(theta_scheme="upwind")])
+                heated_cube=[{}, dict(theta_scheme="upwind")],
+                wedge=[{}, dict(wall_treatment="ghost", reconstruction="muscl"),
+                       dict(frame="wedge_aligned", time_order=2), dict(flux="roe_ref")],
+                cavity_supersonic=[{}, dict(real_geometry=True, flux="roe")],
+                blast3d=[{}, dict(flux="rusanov", reconstruction="none")],
+                kolmogorov=[{}, dict(advection="bfecc", linear_friction=0.1)],
+                kolmogorov_ps=[{}, dict(linear_friction=0.2)])
 
 
 def test_every_registered_case_builds_and_steps():
