@@ -28,8 +28,11 @@
     python -m cfdsim_tpu_torch run blast3d --n 128 --t-final 0.1 --device cuda
     python -m cfdsim_tpu_torch run kolmogorov --advection bfecc --t-final 7.5 --device cuda
     python -m cfdsim_tpu_torch run kolmogorov_ps --ny 1024 --noise 0.1 --io native --device cuda
+    python -m cfdsim_tpu_torch run schafer_turek_fem --scheme projection --theta 0.5 \
+        --h-near 0.0035 --h-far 0.015 --wake-refine true --dt 0.002 --t-final 12 \
+        --io native --device cuda
     python -m cfdsim_tpu_torch bench [--n 1024] [--sweep | --profile | --all | --roofline
-                                      | --cylinder | --routes]
+                                      | --cylinder | --routes | --fem]
 
 On a CUDA device ``run`` steps through captured chunks (one CUDA graph per
 chunk of ``--chunk-steps`` steps, replayed; see
@@ -48,7 +51,11 @@ card, pass ``--device cpu``.
 ``<out>/snapshots.csnap`` (``--io native``, needs g++ and zlib: the writer
 is compiled at first use). ``--resume [SNAPSHOTS]`` restores fields, step
 and t from the latest snapshot (bare: the case's own file under ``--out``;
-a ``.csnap`` file is read directly) and continues bit-exactly. ``--render``
+a ``.csnap`` file is read directly) and continues bit-exactly. An
+unstructured FEM case (``cylinder_fem``, ``cavity_fem``,
+``schafer_turek_fem``) snapshots its fields sampled onto the case's grid
+(u, v, p, vorticity) and its nodal state (``fem_u``, ``fem_p``,
+``fem_phi``), which ``--resume`` reads. ``--render``
 and the ``render``, ``video`` and ``thin`` sub-commands need matplotlib and
 Pillow, and h5py for the snapshots they read.
 """
@@ -129,6 +136,22 @@ def _snapshot_fields(state) -> dict:
     return fields
 
 
+def _fem_snapshot_fields(state, sampler) -> dict:
+    """An unstructured FEM state's snapshot: its fields sampled onto the
+    case's grid (u, v, p, vorticity: what the renderer reads, as the JAX
+    CLI writes them) and its nodal fields under the state's
+    ``snapshot_prefix`` (``fem_u``, ``fem_p``, ``fem_phi``), from which
+    ``--resume`` restores the state bit for bit."""
+    from cfdsim_tpu_torch.fem.sample import sample_fields
+
+    f = sample_fields(sampler, state.u, state.p)
+    fields = {"u": f["u"], "v": f["v"], "p": f["p"], "vorticity": f["vorticity"]}
+    for name in ("u", "p", "phi"):
+        if getattr(state, name) is not None:
+            fields[state.snapshot_prefix + name] = getattr(state, name)
+    return fields
+
+
 def cmd_run(args, extra):
     from cfdsim_tpu_torch.cases import build
     from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
@@ -169,8 +192,13 @@ def cmd_run(args, extra):
 
             writer = SnapshotWriter(snap_path)
 
+        fem_sampler = case.extras.get("sampler")
+
         def snapshot_fn(state, step, t):
-            writer.save(step, t, **_snapshot_fields(state))
+            if fem_sampler is not None:
+                writer.save(step, t, **_fem_snapshot_fields(state, fem_sampler))
+            else:
+                writer.save(step, t, **_snapshot_fields(state))
 
     health_fn = None
     if args.case in ("wedge", "cavity_supersonic"):
@@ -213,6 +241,9 @@ def cmd_run(args, extra):
         cyl = None
         if "center" in case.extras and "radius" in case.extras:
             cyl = (case.extras["center"], case.extras["radius"])
+        geometry = getattr(case.extras.get("mesh"), "geometry", {})
+        if "cylinder_center" in geometry:  # an FEM mesh around a cylinder
+            cyl = (geometry["cylinder_center"], geometry["cylinder_radius"])
         render_frames_from_hdf5(h5, out / "frames", grid=case.grid, fields=fields,
                                 cylinder=cyl)
         print(f"frames in {out / 'frames'}")
@@ -262,6 +293,8 @@ def cmd_bench(args, _extra):
         rows = bench.run_cylinder(device=device)
     elif args.routes:
         rows = bench.run_routes(device=device)
+    elif args.fem:
+        rows = bench.run_fem(device=device)
     else:  # the captured chunk (the path's metric), then the eager loop beside it
         rows = (bench.run_bench(n=args.n, device=device, route=route)
                 for route in (None, "loop"))
@@ -335,6 +368,9 @@ def main(argv=None):
                       help="ref-parity cylinder steps/s, kernel A vs streaming rbsor")
     mode.add_argument("--routes", action="store_true",
                       help="kernel A's cluster and cooperative routes per shape and sweeps")
+    mode.add_argument("--fem", action="store_true",
+                      help="the FEM cylinder's monolithic and projection steps/s, with its "
+                           "matvecs and host reads per step")
 
     args, unknown = p.parse_known_args(argv)
     extra = _extra_kwargs(unknown)

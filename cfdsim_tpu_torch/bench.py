@@ -34,7 +34,8 @@ heated cavity (DCT and ``mg:2``), the 256³ cavities, the 3D bodies and
 the compressible and spectral cells (:func:`run_paths` over
 :func:`new_paths`, :func:`boussinesq_paths`, :func:`threed_paths`,
 :func:`sphere_paths`, :func:`compressible_paths` and
-:func:`spectral_paths`). ``--roofline`` is the twin
+:func:`spectral_paths`), and the FEM cylinder's monolithic and projection
+steps/s (:func:`run_fem`; ``--fem`` runs those alone). ``--roofline`` is the twin
 of ``run_roofline``: the card's measured peaks and, per tier (the sphere
 included), flops and bytes per cell of one step (``utils/roofline.py``,
 pre-fusion counts) against them. ``--cylinder``
@@ -48,6 +49,7 @@ refuses to run without a CUDA device: a CPU number is not a device metric.
     python -m cfdsim_tpu_torch bench --sweep
     python -m cfdsim_tpu_torch bench --profile [--n 1024]
     python -m cfdsim_tpu_torch bench --all [--n 1024]
+    python -m cfdsim_tpu_torch bench --fem
     python -m cfdsim_tpu_torch bench --roofline [--n 1024]
     python -m cfdsim_tpu_torch bench --cylinder
     python -m cfdsim_tpu_torch bench --routes
@@ -450,6 +452,42 @@ def spectral_paths(compute_metrics=False, device="cuda") -> dict:
     }
 
 
+def fem_paths(device="cuda") -> dict:
+    """The FEM bench cells (``bench.py:164-182``): ``cylinder_fem(re=100,
+    wake_refine=True)`` through the monolithic step (the reference-parity
+    scheme) and the projection step (the production scheme)."""
+    return {f"fem_cylinder_{scheme}": build("cylinder_fem", re=100.0, wake_refine=True,
+                                            scheme=scheme, device=device)
+            for scheme in ("monolithic", "projection")}
+
+
+def run_fem(short=5, long=30, device="cuda"):
+    """Steps/s of the two :func:`fem_paths` cells, marginal between a short
+    and a long chunk from the initial state (the JAX bench's 5 and 30), with
+    the triangles and, over the long chunk's runs, the matvecs,
+    preconditioner applications and host reads per step (the Krylov exits
+    are read on the host, so the chunk is the loop of step calls)."""
+    device = _require_cuda(device)
+    card = card_name_and_power_limit()
+    metrics = {"fem_cylinder_monolithic": "fem_cylinder_steps_per_sec",
+               "fem_cylinder_projection": "fem_cylinder_projection_steps_per_sec"}
+    for path, case in fem_paths(device).items():
+        t_short, _, _ = _timed_chunk(case, case.state, short)
+        before = dict(case.step.counts)
+        t_long, state, chunk = _timed_chunk(case, case.state, long)
+        steps = 4 * long  # the warm-up and three timed runs
+        per_step = {f"{k}_per_step": (v - before.get(k, 0)) / steps
+                    for k, v in case.step.counts.items()}
+        if not all(bool(torch.isfinite(x).all()) for x in leaves(state)):
+            raise RuntimeError(f"non-finite state after the long chunk of {path}")
+        yield {"metric": metrics[path], "value": (long - short) / (t_long - t_short),
+               "unit": "steps/s", "path": path, "n_tris": case.extras["mesh"].n_tris,
+               "n_u": case.extras["ops"].n_u, "n_p": case.extras["ops"].n_p,
+               "ms_per_step": (t_long - t_short) / (long - short) * 1e3, "steps": [short, long],
+               "t_short_s": t_short, "t_long_s": t_long, **per_step, **_chunk_facts(chunk),
+               "card": card}
+
+
 def cells_per_sec(case, n_cells: int, short=100, long=600) -> dict:
     """Cells/s of ``case`` through the captured chunk, marginal between a
     short and a long chunk from the initial state (the JAX bench's
@@ -562,7 +600,8 @@ def run_profile(n=1024, steps=50, device="cuda"):
     :func:`mac_paths` (the staggered and stretched tiers, the ghost-IBM
     cylinders), :func:`boussinesq_paths`, and :func:`threed_paths` and
     :func:`sphere_paths` (10-step chunks), :func:`compressible_paths` and
-    :func:`spectral_paths` (10-step chunks, the blast 5)."""
+    :func:`spectral_paths` (10-step chunks, the blast 5); then the
+    :func:`fem_paths` (10 steps, on the loop: their steps read the host)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     for route in (None, "loop"):
@@ -588,6 +627,8 @@ def run_profile(n=1024, steps=50, device="cuda"):
             yield profile_chunk(case, 5 if "3d" in path else 10, device, card, route,
                                 path=path)
         torch.cuda.empty_cache()
+    for path, case in fem_paths(device).items():  # the loop route only: they read the host
+        yield profile_chunk(case, 10, device, card, path=path)
 
 
 def _marginal(body, x, r1=20, r2=200):
@@ -624,7 +665,8 @@ def run_all(n=1024, device="cuda"):
     sphere's cells/s at its default 192×96×96, marginal between 50 and 250
     steps (``bench.py:151-162``); then ms per step of the compressible and
     spectral cells (:func:`compressible_paths`, :func:`spectral_paths`;
-    the blast between 3 and 9 steps)."""
+    the blast between 3 and 9 steps); then the FEM cylinder's monolithic and
+    projection steps/s (:func:`run_fem`, ``bench.py:164-182``)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     h = 1.0 / (n - 1)
@@ -671,6 +713,7 @@ def run_all(n=1024, device="cuda"):
     blast = {k: paths.pop(k) for k in list(paths) if k.startswith("blast3d")}
     yield from run_paths(n, device=device, paths={**paths, **spectral_paths(device=device)})
     yield from run_paths(n, short=3, long=9, device=device, paths=blast)
+    yield from run_fem(device=device)
 
 
 def run_roofline(n=1024, device="cuda"):

@@ -17,7 +17,8 @@ compressible tier: the oblique-shock ``"wedge"`` (three modes), the
 supersonic open cavity ``"cavity_supersonic"`` (pinned or real geometry)
 and the 3D ``"blast3d"``; the spectral tier: Kolmogorov flow on stable fluids
 ``"kolmogorov"`` and on the pseudo-spectral vorticity solver
-``"kolmogorov_ps"``.
+``"kolmogorov_ps"``; the unstructured FEM tier: ``"cylinder_fem"``,
+``"cavity_fem"`` and ``"schafer_turek_fem"``.
 """
 
 from __future__ import annotations
@@ -1257,6 +1258,213 @@ def kolmogorov_ps(
                 {"velocities": lambda s: ps.velocities(cfg, s)})
 
 
+
+def _fem_case(name, mesh, spaces, cfg, g, precision, scheme, grid, extras, device,
+              perturb_fn=None):
+    """The FEM cases' common tail: element tables in ``precision``, the
+    Stokes initial state (falling back to the Dirichlet lift where the
+    solve comes back non-finite), an optional perturbation of it, the
+    monolithic or projection step and the sampler onto ``grid``."""
+    from cfdsim_tpu_torch.fem.assembly import build_element_ops
+    from cfdsim_tpu_torch.fem.sample import build_sampler
+    from cfdsim_tpu_torch.models import fem as mfem
+
+    if precision not in ("fp32", "fp64"):
+        raise ValueError(f"unknown precision {precision!r}")
+    if scheme not in ("monolithic", "projection"):
+        raise ValueError(f"unknown scheme {scheme!r}")
+    ops = build_element_ops(spaces, torch.float64 if precision == "fp64" else torch.float32,
+                            device=device)
+    # Stokes init: restart 40 with extra block-preconditioner sweeps; a
+    # non-finite solve falls back to the Dirichlet lift
+    stokes_cfg = dataclasses.replace(cfg, gmres_restart=40, gmres_maxiter=30, pc_sweeps=4)
+    state = mfem.solve_stokes(ops, stokes_cfg, g)
+    if not bool(torch.isfinite(state.u).all()):
+        state = state._replace(u=torch.as_tensor(g, device=device).to(ops.dtype),
+                               p=torch.zeros((ops.n_p,), dtype=ops.dtype, device=device))
+    if perturb_fn is not None:
+        state = state._replace(u=perturb_fn(state.u))
+    force_nodes = spaces.dirichlet_tag_nodes.get("cylinder")
+    if scheme == "projection":
+        step = mfem.make_projection_step(ops, cfg, g, mesh.tags["outlet"],
+                                         force_nodes=force_nodes)
+        # seed the pressure-increment carry: the CG warm start
+        state = state._replace(phi=torch.zeros_like(state.p))
+    else:
+        step = mfem.make_step(ops, cfg, g, force_nodes=force_nodes)
+    sampler = build_sampler(spaces, grid.x_coords(), grid.y_coords(), device=device)
+    return Case(name, cfg, step, state, grid,
+                {"mesh": mesh, "spaces": spaces, "ops": ops, "sampler": sampler, "g": g,
+                 **extras})
+
+
+def cylinder_fem(
+    re: float = 100.0,
+    space: str = "p1p1",
+    h_far: float = 0.2,
+    h_near: float = 0.02,
+    dt: float = 0.05,
+    v_inf: float = 1.0,
+    tau_h=None,
+    wake_refine: bool = False,
+    gmres_tol: float = 1e-5,
+    perturb: float = 0.03,
+    theta: float = 1.0,
+    precision: str = "fp32",
+    scheme: str = "monolithic",
+    pp_tol: float = 1e-6,
+    rotational: float = 0.0,
+    supg: float = 0.0,
+    stab: str = "bp",
+    viz_shape: tuple = (200, 300),
+    mesh=None,
+    *,
+    device,
+) -> Case:
+    """Unstructured-FEM flow over a cylinder (the reference's Gridap
+    "efficient" configuration: [-L, 8L]×[-2L, 2L], D = L = 1 at (3L, 0),
+    uniform inlet V∞, no-slip walls and cylinder, h 0.02→0.2 grading, dt =
+    0.05, semi-implicit P1-P1 + τ; ``space="p2p1"`` Taylor-Hood).
+    ``wake_refine`` adds an h = 2·h_near wake band; ``scheme="projection"``
+    the pressure-correction step; ``stab="pspg"`` the consistent
+    stabilization; ``mesh`` an external TriMesh (e.g. ``fem.msh_io.read_msh``)
+    whose geometry carries the cylinder's circle. Metrics fx/fy are the
+    reaction drag and lift per unit density (Cd = 2·fx/(V∞²·D))."""
+    from cfdsim_tpu_torch.fem.mesh import cylinder_mesh
+    from cfdsim_tpu_torch.fem.spaces import build_spaces, dirichlet_values
+    from cfdsim_tpu_torch.models.fem import FEMConfig
+
+    if mesh is None:
+        L = 1.0
+        mesh = cylinder_mesh(
+            h_far=h_far, h_near=h_near, x_span=(-L, 8 * L), y_span=(-2 * L, 2 * L),
+            center=(3 * L, 0.0), radius=L / 2,
+            wake_box=(3 * L, 7.5 * L, -1.0, 1.0) if wake_refine else None,
+            h_wake=2 * h_near if wake_refine else None,
+        )
+    else:
+        L = 2.0 * mesh.geometry["cylinder_radius"]
+    cx, cy = mesh.geometry.get("cylinder_center", (3.0, 0.0))
+    spaces = build_spaces(mesh, space)
+    cfg = FEMConfig(nu=v_inf * L / re, dt=dt, space=space, v_inf=v_inf, tau_h=tau_h,
+                    gmres_tol=gmres_tol, theta=theta, pp_tol=pp_tol, rotational=rotational,
+                    supg=supg, stab=stab)
+    g = dirichlet_values(spaces, {
+        "inlet": lambda x, y: (v_inf + 0 * x, 0 * y),
+        "walls": lambda x, y: (0 * x, 0 * y),
+        "cylinder": lambda x, y: (0 * x, 0 * y),
+    })
+
+    def perturb_fn(u):
+        # a one-sided v bump behind the body breaks the symmetry, so
+        # shedding starts promptly
+        xp, yp = spaces.u_points[:, 0], spaces.u_points[:, 1]
+        bump = perturb * np.exp(-(((xp - (cx + L)) / (0.7 * L)) ** 2
+                                  + ((yp - cy) / (0.7 * L)) ** 2))
+        bump[spaces.dirichlet_mask] = 0.0
+        u = u.clone()
+        u[:, 1] += torch.as_tensor(bump, device=u.device).to(u.dtype)
+        return u
+
+    ny, nx = viz_shape
+    # the reference's 300×200 window, centred on the body
+    grid = Grid(nx=nx, ny=ny, x_min=cx - 3.5 * L, x_max=cx + 4 * L, y_min=cy - 1.5 * L,
+                y_max=cy + 1.5 * L)
+    return _fem_case("cylinder_fem", mesh, spaces, cfg, g, precision, scheme, grid,
+                     {"re": re, "diameter": L}, device, perturb_fn if perturb else None)
+
+
+def cavity_fem(
+    n: int = 48,
+    Re: float = 100.0,
+    space: str = "p1p1",
+    dt: float = 0.05,
+    lid_velocity: float = 1.0,
+    gmres_tol: float = 1e-5,
+    theta: float = 1.0,
+    stab: str = "bp",
+    viz_shape: tuple = (128, 128),
+    *,
+    device,
+) -> Case:
+    """Lid-driven cavity on the unstructured FEM tier (the Ghia benchmark
+    on a criss-cross triangulation): velocity Dirichlet on all four sides,
+    lid u = V on the top edge with zeroed corners; the enclosed pressure is
+    defined up to a constant (GMRES works in the quotient space).
+    Monolithic only: the projection scheme needs outflow nodes."""
+    from cfdsim_tpu_torch.fem.mesh import rectangle_mesh
+    from cfdsim_tpu_torch.fem.spaces import build_spaces, dirichlet_values
+    from cfdsim_tpu_torch.models.fem import FEMConfig
+
+    mesh = rectangle_mesh(n, n, crisscross=True)
+    spaces = build_spaces(mesh, space, dirichlet_tags=("inlet", "outlet", "walls", "cylinder"))
+    cfg = FEMConfig(nu=lid_velocity / Re, dt=dt, space=space, v_inf=lid_velocity,
+                    gmres_tol=gmres_tol, theta=theta, stab=stab)
+    eps = 0.25 / n
+
+    def lid(x, y):
+        on_lid = (y > 1.0 - eps) & (x > eps) & (x < 1.0 - eps)
+        return (lid_velocity * on_lid.astype(np.float64), 0.0 * y)
+
+    zero = lambda x, y: (0.0 * x, 0.0 * y)  # noqa: E731
+    g = dirichlet_values(spaces, {"walls": lid, "inlet": zero, "outlet": zero})
+    ny, nx = viz_shape
+    return _fem_case("cavity_fem", mesh, spaces, cfg, g, "fp32", "monolithic",
+                     Grid(nx=nx, ny=ny), {"re": Re}, device)
+
+
+def schafer_turek_fem(
+    re: float = 100.0,
+    space: str = "p1p1",
+    h_near: float = 0.008,
+    h_far: float = 0.04,
+    dt: float = 0.0025,
+    u_mean: float = 1.0,
+    gmres_tol: float = 1e-5,
+    theta: float = 1.0,
+    wake_refine: bool = False,
+    precision: str = "fp32",
+    scheme: str = "monolithic",
+    pp_tol: float = 1e-6,
+    rotational: float = 0.0,
+    supg: float = 0.0,
+    stab: str = "bp",
+    viz_shape: tuple = (120, 640),
+    *,
+    device,
+) -> Case:
+    """Schäfer–Turek 2D-2 on the FEM tier: channel [0, 2.2]×[0, 0.41], D =
+    0.1 cylinder at (0.2, 0.2) (off centre: it sheds by itself), parabolic
+    inlet with U_max = 1.5·ū. Published at Re = ūD/ν = 100: Cd 3.22–3.24,
+    Cl amplitude ≈ 1.0, St 0.295–0.305; Cd = 2·fx/(ū²D), Cl = 2·fy/(ū²D)
+    (``extras["coeff_scale"]``). The steady 2D-1 variant is re = 20,
+    u_mean = 0.2."""
+    from cfdsim_tpu_torch.fem.mesh import cylinder_mesh
+    from cfdsim_tpu_torch.fem.spaces import build_spaces, dirichlet_values
+    from cfdsim_tpu_torch.models.fem import FEMConfig
+
+    H, Lx, D = 0.41, 2.2, 0.1
+    u_max = 1.5 * u_mean
+    mesh = cylinder_mesh(
+        h_far=h_far, h_near=h_near, x_span=(0.0, Lx), y_span=(0.0, H), center=(0.2, 0.2),
+        radius=D / 2, grade=0.2,
+        wake_box=(0.2, 1.4, 0.06, 0.35) if wake_refine else None,
+        h_wake=2.0 * h_near if wake_refine else None,
+    )
+    spaces = build_spaces(mesh, space)
+    cfg = FEMConfig(nu=u_mean * D / re, dt=dt, space=space, v_inf=u_max, gmres_tol=gmres_tol,
+                    theta=theta, pp_tol=pp_tol, rotational=rotational, supg=supg, stab=stab)
+    g = dirichlet_values(spaces, {
+        "inlet": lambda x, y: (4.0 * u_max * y * (H - y) / H**2, 0 * y),
+        "walls": lambda x, y: (0 * x, 0 * y),
+        "cylinder": lambda x, y: (0 * x, 0 * y),
+    })
+    ny, nx = viz_shape
+    grid = Grid(nx=nx, ny=ny, x_min=0.0, x_max=Lx, y_min=0.0, y_max=H)
+    return _fem_case("schafer_turek_fem", mesh, spaces, cfg, g, precision, scheme, grid,
+                     {"re": re, "diameter": D, "u_mean": u_mean,
+                      "coeff_scale": 2.0 / (u_mean**2 * D)}, device)
+
 CASES: dict[str, Callable[..., Case]] = {
     "cavity": lid_cavity,
     "cavity3d": cavity3d,
@@ -1282,6 +1490,9 @@ CASES: dict[str, Callable[..., Case]] = {
     "blast3d": blast3d,
     "kolmogorov": kolmogorov,
     "kolmogorov_ps": kolmogorov_ps,
+    "cylinder_fem": cylinder_fem,
+    "cavity_fem": cavity_fem,
+    "schafer_turek_fem": schafer_turek_fem,
 }
 
 

@@ -4,7 +4,8 @@ A CFD case has no weights: its state (u, v, p, t, step, and θ for the
 coupled transport states and the Boussinesq states; w too in 3D; on the
 staggered tiers fields of several shapes; the conserved U of the
 compressible tiers; ω̂ of the pseudo-spectral tier, complex64 here and float32
-re/im planes in the JAX package) is what moves between the JAX
+re/im planes in the JAX package; the nodal u (n_u, 2), p (n_p,) and optional
+φ of the FEM tier) is what moves between the JAX
 package and this one. Pass the JAX arrays through
 ``np.asarray`` on the way in and build a JAX state from the numpy dict on
 the way out.
@@ -19,6 +20,7 @@ from cfdsim_tpu_torch.models.boussinesq import BoussinesqState
 from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DState
 from cfdsim_tpu_torch.models.compressible import CompressibleState
 from cfdsim_tpu_torch.models.compressible3d import Compressible3DState
+from cfdsim_tpu_torch.models.fem import FEMState
 from cfdsim_tpu_torch.models.incompressible import IncompressibleState
 from cfdsim_tpu_torch.models.incompressible3d import Incompressible3DState
 from cfdsim_tpu_torch.models.mac import MACState
@@ -177,3 +179,27 @@ def ps_state_to_numpy(state: PSState) -> dict:
     w = state.w_hat.detach().cpu()
     return {"w_hat": torch.stack([w.real, w.imag]).numpy(),
             "t": np.float32(state.t.item()), "step": np.int32(state.step.item())}
+
+
+def fem_state_from_numpy(u, p, t, step, device, phi=None, dtype=torch.float32) -> FEMState:
+    """A :class:`FEMState` on ``device``: u (n_u, 2), p (n_p,) and, for the
+    projection scheme, φ (n_p,) cast to ``dtype`` (float64 for the
+    ``precision="fp64"`` cases); ``t`` float32, ``step`` int32."""
+    if np.ndim(u) != 2 or np.shape(u)[1] != 2 or np.ndim(p) != 1:
+        raise ValueError(f"not an FEM state: u {np.shape(u)}, p {np.shape(p)}")
+
+    def field(a):
+        return None if a is None else torch.tensor(np.asarray(a), device=device).to(dtype)
+
+    return FEMState(u=field(u), p=field(p), t=torch.tensor(np.float32(t), device=device),
+                    step=torch.tensor(np.int32(step), device=device), phi=field(phi))
+
+
+def fem_state_to_numpy(state: FEMState) -> dict:
+    """``{"u", "p", "t", "step"}`` of a :class:`FEMState`, plus ``"phi"``
+    where the state carries one."""
+    out = {"u": state.u.detach().cpu().numpy(), "p": state.p.detach().cpu().numpy(),
+           "t": np.float32(state.t.item()), "step": np.int32(state.step.item())}
+    if state.phi is not None:
+        out["phi"] = state.phi.detach().cpu().numpy()
+    return out

@@ -114,20 +114,24 @@ def restore(state, path):
     states like transport's CoupledState), on the device of the field it
     replaces (a complex field from its re/im planes, :func:`to_host`); ``t``
     (float32) and ``step`` (int32) are taken from the snapshot's metadata.
-    A field whose shape differs from the state's raises ``ValueError``."""
+    A state type with a ``snapshot_prefix`` (the FEM state, whose
+    snapshots also hold grid-sampled fields of the same names) reads its
+    fields under that prefix; a field that is None stays None. A field
+    whose shape differs from the state's raises ``ValueError``."""
     fields, step, t = load_latest(path)
 
     def fill(st):
         updates = {}
         matched = 0
+        prefix = getattr(type(st), "snapshot_prefix", "")
         for name in st._fields:
             v = getattr(st, name)
             if hasattr(v, "_fields"):
                 sub, n = fill(v)
                 updates[name] = sub
                 matched += n
-            elif name in fields:
-                updates[name] = _field_like(fields[name], v)
+            elif v is not None and prefix + name in fields:
+                updates[name] = _field_like(fields[prefix + name], v)
                 matched += 1
         if "t" in st._fields:
             updates["t"] = torch.tensor(np.float32(t), device=st.t.device)

@@ -7,6 +7,7 @@ through it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 
 import torch
@@ -19,7 +20,8 @@ class CapturedProgram:
     buffers); it must read nothing back to the host. Construction runs it
     once eagerly on a side stream (cuFFT plans, kernel build and load, the
     allocator's first blocks), then captures one call with
-    ``torch.cuda.graph``. A capture that fails raises. :meth:`replay` queues
+    ``torch.cuda.graph``, the garbage collector paused. A capture that fails
+    raises. :meth:`replay` queues
     the program on the current stream without a synchronisation.
 
     ``capture_seconds`` is the host time of capture and instantiation.
@@ -37,8 +39,17 @@ class CapturedProgram:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(**({"keep_graph": True} if keep_graph else {}))
-        with torch.cuda.graph(self.graph):
-            fn()
+        # no garbage collection inside the capture: a collected cycle that
+        # holds another program would release its graph and memory pool
+        # there, and that invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         if keep_graph:
             self.graph.instantiate()  # a kept graph is otherwise instantiated at its first replay
         self.capture_seconds = time.perf_counter() - t0

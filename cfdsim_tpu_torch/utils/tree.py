@@ -1,15 +1,19 @@
 """Leaves of (nested) NamedTuples: the one place that knows a state or a
 metrics record may nest (``models/transport.py::CoupledState.flow``,
-``CoupledMetrics.flow``). The chunk's static buffers, its copies in and out
-and its stacked metric rows, and the runner's one host copy per chunk, all
-work on these leaves.
+``CoupledMetrics.flow``) and that a field may be None (an empty subtree, as
+in a JAX pytree: ``models/fem.py::FEMState.phi`` of the monolithic step).
+The chunk's static buffers, its copies in and out and its stacked metric
+rows, and the runner's one host copy per chunk, all work on these leaves.
 """
 
 from __future__ import annotations
 
 
 def leaves(tree) -> list:
-    """The leaves of a NamedTuple, depth first; a non-NamedTuple is one leaf."""
+    """The leaves of a NamedTuple, depth first; None has none, anything else
+    that is not a NamedTuple is one leaf."""
+    if tree is None:
+        return []
     if hasattr(tree, "_fields"):
         return [leaf for field in tree for leaf in leaves(field)]
     return [tree]
@@ -21,6 +25,8 @@ def rebuild(like, flat):
     flat = iter(flat)
 
     def build(node):
+        if node is None:
+            return None
         if hasattr(node, "_fields"):
             return type(node)(*(build(field) for field in node))
         return next(flat)
@@ -35,6 +41,8 @@ def tree_map(fn, tree):
 
 def named_leaves(tree, prefix: str = "") -> list:
     """(dotted name, leaf) pairs in :func:`leaves` order."""
+    if tree is None:
+        return []
     if hasattr(tree, "_fields"):
         return [pair for name, field in zip(tree._fields, tree)
                 for pair in named_leaves(field, f"{prefix}{name}.")]

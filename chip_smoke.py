@@ -141,6 +141,24 @@ and the final ``{"ok": true, ...}`` line is not printed:
    1024`` with native snapshots, 100 steps, ``--resume`` to 200, against
    one run of 200: bit-equal records and restored states; ω̂ is stored as
    the JAX package's float32 planes (2, 1024, 513)
+5m. FEM (``phase_fem``): ``bench.fem_paths`` (``cylinder_fem(re=100,
+   wake_refine=True)``, monolithic and projection) profiled over 5 steps
+   on the loop route (their Krylov exits are read on the host): events,
+   busy and wall ms per step, idle share, triangles, matvecs and host reads
+   per step; twenty projection steps of the Schäfer–Turek case twice from
+   its initial state, bit-equal; the Schäfer–Turek 2D-2 gate at the
+   configuration of examples/schafer_turek_2d2.py (projection, ~10.7k
+   triangles, θ = ½, dt = 0.002) to t = 12, the tail from t = 6 (t = 8 and
+   4 where the first 250 steps say the run would take over 300 s): the
+   tail's largest Cd in 3.22-3.24 (the benchmark's c_D,max) and its mean
+   within 1% of the JAX package's 3.19 for the same window, the FFT
+   Strouhal number in 0.295-0.305 (the zero-crossing one printed beside
+   it), the Cl amplitude within 5% of 1.09; the FEM Ghia
+   gate, ``cavity_fem(n=32, Re=100, dt=0.1)`` after 100 steps, RMS < 0.01
+   on both centre lines; the implicit adjoint's gradient on the card
+   against the CPU's (the Poiseuille loss of tests/test_fem.py:280, within
+   1e-3 of its max); no kernel launched. The bench cells' marginal steps/s
+   come in phase 13 (``bench --all``)
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -259,6 +277,7 @@ from cfdsim_tpu_torch.bench import (
     cells_per_sec,
     compressible_paths,
     dct_solve_ms,
+    fem_paths,
     mac_paths,
     new_paths,
     predictor_ms,
@@ -280,6 +299,7 @@ from cfdsim_tpu_torch.cases import build, lid_cavity, lid_cavity_mac
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.io_ import restore
+from cfdsim_tpu_torch.fem.sample import point_sampler, sample_fields
 from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter, csnap_steps
 from cfdsim_tpu_torch.models import compressible as comp
 from cfdsim_tpu_torch.models import mac_stretched
@@ -305,6 +325,10 @@ from cfdsim_tpu_torch.solvers.riemann import cons_to_prim
 from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
 from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
 from cfdsim_tpu_torch.validation import (
+    GHIA_U,
+    GHIA_V,
+    GHIA_X,
+    GHIA_Y,
     botella_peyret_errors,
     ghia_error,
     sphere_drag_schiller_naumann,
@@ -425,6 +449,28 @@ COMPRESSIBLE_PATH_STEPS = 300
 KOLMOGOROV_STEPS = 750
 TG_N, TG_STEPS, TG_RTOL = 96, 500, 1e-4
 FIXED_N, FIXED_STEPS, FIXED_RTOL, FIXED_V = 64, 8000, 5e-3, 1e-4
+# the FEM tier: the Schäfer–Turek 2D-2 gate at examples/schafer_turek_2d2.py:37-46
+# (projection, P1-P1, h 0.0035 → 0.015 with the wake band, ~10.7k triangles,
+# θ = ½, dt = 0.002) to t = 12 with the tail from t = 6: the published bands
+# on the tail's largest Cd (the benchmark's c_D,max, 3.22-3.24; the JAX
+# package's saturated 3.228) and on the St of the lift's FFT (0.295-0.305),
+# the Cl amplitude within 5% of the JAX package's 1.09, and the tail's mean
+# Cd within 1% of the JAX package's 3.19 for the same window (its run of
+# this configuration, BENCHNOTES.md:614: the drag still rises through
+# t = 6-12);
+# where the first 250 steps say the run would take over ST_BUDGET_S, it
+# stops at t = 8 with the tail from t = 4. The FEM Ghia gate: cavity_fem(n=32, Re=100,
+# dt=0.1), 100 steps, RMS < 0.01 on both centre lines
+# (tests/test_fem.py:348-373). Twenty projection steps twice: the same bits.
+ST_CONFIG = dict(re=100.0, scheme="projection", h_near=0.0035, h_far=0.015, wake_refine=True,
+                 dt=0.002, theta=0.5)
+ST_RUNS = ((12.0, 6.0), (8.0, 4.0))  # (t_final, tail from), the second when over budget
+ST_BUDGET_S = 300.0
+ST_CD_MAX, ST_ST, ST_CL_AMP, ST_CL_RTOL = (3.22, 3.24), (0.295, 0.305), 1.09, 0.05
+ST_CD_MEAN, ST_CD_MEAN_RTOL = 3.19, 0.01
+ST_CHUNK = 50
+FEM_GHIA_TOL, FEM_GHIA_STEPS, FEM_REPRO_STEPS, FEM_PROFILE_STEPS = 0.01, 100, 20, 5
+FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in other orders)
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -1826,6 +1872,140 @@ def phase_new_tiers_resume():
             raise AssertionError(f"{case_name} resume: {differ}, t {ta} vs {tb}, {fields}")
 
 
+def _st_coefficients(cd, cl, dt, t_tail, diameter, u_mean):
+    """examples/schafer_turek_2d2.py:78-100: the tail's mean and largest Cd,
+    the Strouhal number from the lift's FFT (dominant bin) and from its zero
+    crossings, and the Cl amplitude, over t > ``t_tail``."""
+    t = dt * np.arange(1, len(cd) + 1)
+    tail = t > t_tail
+    clt = cl[tail] - cl[tail].mean()
+    spec = np.abs(np.fft.rfft(clt))
+    f_fft = np.fft.rfftfreq(len(clt), dt)[1:][np.argmax(spec[1:])]
+    zc = np.where(np.diff(np.signbit(clt)))[0]
+    f_zc = 0.5 * (len(zc) - 1) / (dt * (zc[-1] - zc[0])) if len(zc) > 2 else float("nan")
+    return {"cd": float(cd[tail].mean()), "cd_max": float(cd[tail].max()),
+            "st_fft": float(f_fft * diameter / u_mean),
+            "st_zc": float(f_zc * diameter / u_mean),
+            "cl_amp": float(0.5 * (cl[tail].max() - cl[tail].min())),
+            "cd_last": float(cd[-1]), "tail_steps": int(tail.sum())}
+
+
+def phase_fem(card):
+    """The unstructured FEM tier on the card: the bench cells' profiles, the
+    reproducibility of the projection step, the Schäfer–Turek 2D-2 gate and
+    the FEM Ghia gate. None of the three kernels runs here."""
+    _reset_counts()
+    # (a) the bench cells (bench.fem_paths): events, busy and wall ms, idle
+    # share, and matvecs and host reads per step over the profile's runs
+    # (a warm-up, a timed run, a profiled run)
+    for path, case in fem_paths("cuda").items():
+        case.step.counts.clear()
+        row = profile_chunk(case, FEM_PROFILE_STEPS, "cuda", card, path=path)
+        steps = 3 * FEM_PROFILE_STEPS
+        say("fem_path", n_tris=case.extras["mesh"].n_tris, n_u=case.extras["ops"].n_u,
+            n_p=case.extras["ops"].n_p, steps_per_s=1e3 / row["wall_ms_per_step"],
+            **{f"{k}_per_step": v / steps for k, v in sorted(case.step.counts.items())}, **row)
+        del case
+    torch.cuda.empty_cache()
+
+    # (d) twenty projection steps of the Schäfer–Turek case, twice from its
+    # initial state: the same bits (a fixed-order scatter, no atomics)
+    t0 = time.perf_counter()
+    case = build("schafer_turek_fem", **ST_CONFIG, device="cuda")
+    build_s = time.perf_counter() - t0
+    repro = make_chunk(case.cfg, case.step, FEM_REPRO_STEPS)
+    a, ma = repro(case.state, 1.0)
+    b, mb = repro(case.state, 1.0)
+    differ = [name for (name, x), y in zip(named_leaves(a) + named_leaves(ma),
+                                           leaves(b) + leaves(mb)) if not torch.equal(x, y)]
+    say("fem_reproducible", steps=FEM_REPRO_STEPS, n_tris=case.extras["mesh"].n_tris,
+        build_s=build_s, bit_equal=not differ, differ=differ)
+    if differ:
+        raise AssertionError(f"projection steps not reproducible: {differ}")
+
+    # (b) the Schäfer–Turek 2D-2 gate
+    chunk = make_chunk(case.cfg, case.step, ST_CHUNK)
+    dt, coeff = case.cfg.dt, case.extras["coeff_scale"]
+    (t_final, t_tail), state, fx, fy = ST_RUNS[0], case.state, [], []
+    case.step.counts.clear()
+    t0 = time.perf_counter()
+    while len(fx) * ST_CHUNK < round(t_final / dt):
+        state, m = chunk(state, 1.0)
+        fx.append(m.fx.cpu().numpy())
+        fy.append(m.fy.cpu().numpy())
+        if len(fx) == 5:  # 250 steps: the rate decides the run's length
+            per_step = (time.perf_counter() - t0) / (5 * ST_CHUNK)
+            if per_step * round(t_final / dt) > ST_BUDGET_S:
+                t_final, t_tail = ST_RUNS[1]
+    run_s = time.perf_counter() - t0
+    n_steps = len(fx) * ST_CHUNK
+    if not all(bool(torch.isfinite(x).all()) for x in leaves(state)):
+        raise AssertionError("Schäfer–Turek: non-finite state")
+    cd, cl = coeff * np.concatenate(fx), coeff * np.concatenate(fy)
+    got = _st_coefficients(cd, cl, dt, t_tail, case.extras["diameter"], case.extras["u_mean"])
+    ok = (ST_CD_MAX[0] <= got["cd_max"] <= ST_CD_MAX[1]
+          and abs(got["cd"] / ST_CD_MEAN - 1) <= ST_CD_MEAN_RTOL
+          and ST_ST[0] <= got["st_fft"] <= ST_ST[1]
+          and abs(got["cl_amp"] / ST_CL_AMP - 1) <= ST_CL_RTOL)
+    say("fem_schafer_turek_gate", t_final=t_final, t_tail=t_tail, steps=n_steps,
+        n_tris=case.extras["mesh"].n_tris, **got, cd_max_band=ST_CD_MAX, cd_mean_ref=ST_CD_MEAN,
+        cd_mean_rtol=ST_CD_MEAN_RTOL, st_band=ST_ST, cl_amp_ref=ST_CL_AMP,
+        cl_rtol=ST_CL_RTOL, run_s=run_s, ms_per_step=run_s / n_steps * 1e3,
+        **{f"{k}_per_step": v / n_steps for k, v in sorted(case.step.counts.items())},
+        last_poisson_res=float(m.poisson_res[-1]), card=card)
+    if not ok:
+        raise AssertionError(f"Schäfer–Turek 2D-2 outside its bands: {got}")
+    del case, state, chunk
+    torch.cuda.empty_cache()
+
+    # (c) the FEM Ghia gate
+    case = build("cavity_fem", n=32, Re=100.0, dt=0.1, device="cuda")
+    state, m = make_chunk(case.cfg, case.step, FEM_GHIA_STEPS)(case.state, 1.0)
+    sp = case.extras["spaces"]
+    tu = point_sampler(sp, np.stack([0.5 * np.ones_like(GHIA_Y), GHIA_Y], axis=1), device="cuda")
+    tv = point_sampler(sp, np.stack([GHIA_X, 0.5 * np.ones_like(GHIA_X)], axis=1), device="cuda")
+    u_c = sample_fields(tu, state.u)["u"].cpu().numpy().ravel()
+    v_c = sample_fields(tv, state.u)["v"].cpu().numpy().ravel()
+    eu = float(np.sqrt(np.mean((u_c - GHIA_U[100]) ** 2)))
+    ev = float(np.sqrt(np.mean((v_c - GHIA_V[100]) ** 2)))
+    say("fem_ghia_gate", n=32, steps=FEM_GHIA_STEPS, eu=eu, ev=ev, tol=FEM_GHIA_TOL,
+        poisson_res=float(m.poisson_res[-1]))
+    if not (eu < FEM_GHIA_TOL and ev < FEM_GHIA_TOL and float(m.poisson_res[-1]) < 1e-4):
+        raise AssertionError(f"FEM Ghia: {eu}, {ev}")
+    # (e) the implicit adjoint on the card: the gradient of the Poiseuille
+    # loss of tests/test_fem.py:280 against the same on the CPU
+    grads = {dev: _fem_gradient(dev) for dev in ("cuda", "cpu")}
+    rel = float(np.abs(grads["cuda"] - grads["cpu"]).max() / np.abs(grads["cpu"]).max())
+    say("fem_gradient", max_abs_grad=float(np.abs(grads["cpu"]).max()), rel_cuda_cpu=rel,
+        tol=FEM_GRAD_RTOL)
+    if not rel <= FEM_GRAD_RTOL:
+        raise AssertionError(f"FEM gradient on the card {rel} from the CPU's")
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the FEM tier: {launches}")
+
+
+def _fem_gradient(device) -> np.ndarray:
+    """d mean(u²)/d u0 after one monolithic step of the Poiseuille channel
+    (tests/test_fem.py:280), through the implicit adjoint."""
+    from cfdsim_tpu_torch.fem.assembly import build_element_ops
+    from cfdsim_tpu_torch.fem.mesh import rectangle_mesh
+    from cfdsim_tpu_torch.fem.spaces import build_spaces, dirichlet_values
+    from cfdsim_tpu_torch.models import fem as mfem
+
+    spaces = build_spaces(rectangle_mesh(12, 6, (0.0, 4.0), (0.0, 1.0)), "p1p1")
+    g = dirichlet_values(spaces, {"inlet": lambda x, y: (4.0 * y * (1.0 - y), 0 * y),
+                                  "walls": lambda x, y: (0 * x, 0 * y)})
+    ops = build_element_ops(spaces, device=device)
+    cfg = mfem.FEMConfig(nu=0.1, dt=0.1, space="p1p1", gmres_tol=1e-6, gmres_restart=120,
+                         gmres_maxiter=10)
+    state = mfem.solve_stokes(ops, cfg, g)
+    u0 = state.u.clone().requires_grad_()
+    new, _ = mfem.make_step(ops, cfg, g)(state._replace(u=u0), 1.0)
+    torch.mean(new.u ** 2).backward()
+    return u0.grad.cpu().numpy()
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -1982,6 +2162,7 @@ def main() -> int:
     phase(phase_compressible, card)
     phase(phase_spectral, card)
     phase(phase_new_tiers_resume)
+    phase(phase_fem, card)
     pred_launches = phase(phase_main_path)
     cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
     mg = phase(phase_mg_cavity)

@@ -19,6 +19,18 @@ from cfdsim_tpu_torch.io_.native import csnap_steps
 from cfdsim_tpu_torch.utils.tree import leaves
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The FEM cases' Stokes solves are thousands of small ops. Where the test workers share
+    the cores, each op's OpenMP team waits on descheduled threads (measured
+    ~8 ms an op at full load against ~10 µs alone), so this module's torch
+    runs on one thread; the setting is put back afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -30,7 +42,8 @@ def test_list_cases(capsys):
                  "cylinder_mac", "cylinder_oscillating", "cylinder_stretched", "heated_cavity",
                  "rayleigh_benard", "cavity3d", "cavity3d_mac", "cavity3d_stretched", "sphere",
                  "sphere_stretched", "heated_sphere", "heated_sphere_stretched", "heated_cube",
-                 "wedge", "cavity_supersonic", "blast3d", "kolmogorov", "kolmogorov_ps"):
+                 "wedge", "cavity_supersonic", "blast3d", "kolmogorov", "kolmogorov_ps",
+                 "cylinder_fem", "cavity_fem", "schafer_turek_fem"):
         assert name in out
 
 
@@ -101,6 +114,9 @@ TINY = {
     "blast3d": dict(n=8),
     "kolmogorov": dict(ny=16),
     "kolmogorov_ps": dict(ny=16, noise=0.1),
+    "cylinder_fem": dict(h_far=0.6, h_near=0.15, viz_shape=(8, 8)),
+    "cavity_fem": dict(n=6, viz_shape=(8, 8)),
+    "schafer_turek_fem": dict(h_near=0.03, h_far=0.1, viz_shape=(8, 16)),
 }
 # the options each tier has: the collocated cases take implicit diffusion
 # and LES together; on the MAC tiers the cavity takes each alone, the
@@ -129,7 +145,11 @@ VARIANTS.update(cavity_mac=[{}, dict(diffusion="implicit"), dict(use_les=True)],
                 cavity_supersonic=[{}, dict(real_geometry=True, flux="roe")],
                 blast3d=[{}, dict(flux="rusanov", reconstruction="none")],
                 kolmogorov=[{}, dict(advection="bfecc", linear_friction=0.1)],
-                kolmogorov_ps=[{}, dict(linear_friction=0.2)])
+                kolmogorov_ps=[{}, dict(linear_friction=0.2)],
+                cylinder_fem=[{}, dict(scheme="projection", rotational=1.0),
+                              dict(stab="pspg", precision="fp64")],
+                cavity_fem=[{}, dict(stab="pspg", theta=0.5)],
+                schafer_turek_fem=[{}, dict(scheme="projection")])
 
 
 def test_every_registered_case_builds_and_steps():

@@ -20,6 +20,20 @@ from cfdsim_tpu_torch.models.incompressible import chunk_route, make_chunk
 from cfdsim_tpu_torch.validation import ghia_error
 from test_torch_schemes import _compare_flow_steps, _developed
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The stability test runs 2,000 steps of small ops. Where the test
+    workers share the cores, each op's OpenMP team waits on descheduled
+    threads (that test: 9 s on one thread, 171-450 s on eight under load),
+    so this module's torch runs on one thread; the setting is put back
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {
     "dst": dict(n=32, Re=100.0, diffusion="implicit", implicit_solver="dst"),
     "auto-is-dst": dict(n=32, Re=100.0, diffusion="implicit"),
