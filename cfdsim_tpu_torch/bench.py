@@ -653,19 +653,20 @@ def _marginal(body, x, r1=20, r2=200):
     return (run(r2) - run(r1)) / (r2 - r1)
 
 
-def run_all(n=1024, device="cuda"):
+def run_all(n=1024, device="cuda", steps=(10, 30), steps_3d=(3, 9)):
     """The secondary metrics at n² (the twin of ``bench.py::run_secondary``),
     one row each: marginal streaming rbsor sweeps/s, RB-SOR kernel sweeps/s
     (``rbsor_pallas``: the blocked kernel above 512²), multigrid V-cycles/s
     with kernel and with plain smoothing, and DCT solves/s; then the device
     ms of one Helmholtz (DST) solve beside the DCT solve's, the MAC and
     stretched cells/s, and ms per step of the implicit, LES and transport
-    paths and the heated cavities (:func:`run_paths`, marginal between 10
-    and 30 steps), the 3D cavities and the 3D bodies (between 3 and 9); the
-    sphere's cells/s at its default 192×96×96, marginal between 50 and 250
-    steps (``bench.py:151-162``); then ms per step of the compressible and
+    paths and the heated cavities (:func:`run_paths`, marginal between the
+    two chunk lengths of ``steps``, 10 and 30 by default), the 3D cavities
+    and the 3D bodies (``steps_3d``, 3 and 9); the sphere's cells/s at its
+    default 192×96×96, marginal between 50 and 250 steps
+    (``bench.py:151-162``); then ms per step of the compressible and
     spectral cells (:func:`compressible_paths`, :func:`spectral_paths`;
-    the blast between 3 and 9 steps); then the FEM cylinder's monolithic and
+    the blast at ``steps_3d``); then the FEM cylinder's monolithic and
     projection steps/s (:func:`run_fem`, ``bench.py:164-182``)."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
@@ -702,17 +703,20 @@ def run_all(n=1024, device="cuda"):
     case = cavity_stretched(n=ns, Re=1000.0, beta=1.5, compute_metrics=False, device=device)
     yield {"metric": f"cell_updates_per_sec_cavity_stretched{ns}",
            **cells_per_sec(case, ns * ns), "card": card}
-    yield from run_paths(n, device=device)
-    yield from run_paths(n, device=device, paths=boussinesq_paths(n, device=device))
-    yield from run_paths(n, short=3, long=9, device=device, paths=threed_paths(device=device))
+    short, long = steps
+    short_3d, long_3d = steps_3d
+    yield from run_paths(n, short, long, device=device)
+    yield from run_paths(n, short, long, device=device, paths=boussinesq_paths(n, device=device))
+    yield from run_paths(n, short_3d, long_3d, device=device, paths=threed_paths(device=device))
     case = build("sphere", compute_metrics=False, device=device)
     yield {"metric": "cell_updates_per_sec_sphere3d",
            **cells_per_sec(case, case.grid.n_cells, short=50, long=250), "card": card}
-    yield from run_paths(n, short=3, long=9, device=device, paths=sphere_paths(device=device))
+    yield from run_paths(n, short_3d, long_3d, device=device, paths=sphere_paths(device=device))
     paths = compressible_paths(device=device)
     blast = {k: paths.pop(k) for k in list(paths) if k.startswith("blast3d")}
-    yield from run_paths(n, device=device, paths={**paths, **spectral_paths(device=device)})
-    yield from run_paths(n, short=3, long=9, device=device, paths=blast)
+    yield from run_paths(n, short, long, device=device,
+                         paths={**paths, **spectral_paths(device=device)})
+    yield from run_paths(n, short_3d, long_3d, device=device, paths=blast)
     yield from run_fem(device=device)
 
 

@@ -434,18 +434,22 @@ CHUNK_ROUTES = ("graph", "loop")
 STEPS_PER_GRAPH = 10
 
 
-def chunk_route(device, reads_host: bool) -> tuple[str, str]:
+def chunk_route(device, reads_host: bool, collectives: bool = False) -> tuple[str, str]:
     """(route, reason) of a chunk of steps on ``device``, from the device's
-    type and whether the step waits for the host: ``"graph"`` (one captured
-    device program) on a CUDA device for a step that reads nothing on the
-    host, else ``"loop"`` (a Python loop of step calls). Decided before
-    anything runs; nothing moves from one route to the other afterwards."""
+    type, whether the step waits for the host and whether it calls
+    ``torch.distributed`` collectives (the steps of ``parallel/``):
+    ``"graph"`` (one captured device program) on a CUDA device for a step
+    that reads nothing on the host and calls no collective, else ``"loop"``
+    (a Python loop of step calls). Decided before anything runs; nothing
+    moves from one route to the other afterwards."""
     kind = torch.device(device).type
     if kind != "cuda":
         return "loop", f"the state is on {kind}: a CUDA graph needs a CUDA device"
     if reads_host:
         return "loop", ("the step reads the host (the streaming jacobi/rbsor early exit "
                         "checks its residual there), which a CUDA graph cannot capture")
+    if collectives:
+        return "loop", "the step calls torch.distributed collectives, which are not captured"
     return "graph", "a CUDA device and a step that reads nothing on the host"
 
 
@@ -482,6 +486,11 @@ class Chunk:
     capture that fails raises. ``keep_graph`` keeps the CUDA graph beside
     its executable so that ``program.nodes`` can count its nodes.
 
+    A replay runs outside autograd, so the graph route refuses a state, a
+    ``cfl_scale`` or a step module whose parameters or buffers require grad
+    while grad mode is on, before anything is captured: a differentiated
+    chunk runs on the loop route.
+
     The input state is the chunk's to use up, as the JAX chunk donates its
     argument (this implementation copies it into the static buffers). The
     returned state and metrics are copies out of the static buffers: they
@@ -506,7 +515,22 @@ class Chunk:
     def __call__(self, state, cfl_scale):
         if self.mode == "loop":
             return self._loop(state, cfl_scale)
+        if torch.is_grad_enabled() and self._carries_grad(state, cfl_scale):
+            # a replay copies the state into static buffers outside autograd:
+            # no gradient could come out of it
+            raise ValueError("a chunk on the graph route cannot be differentiated: a state "
+                             "or step that requires grad runs on the loop route "
+                             "(make_chunk(..., route='loop'))")
         return self._replay(state, cfl_scale)
+
+    def _carries_grad(self, state, cfl_scale) -> bool:
+        """Whether the input or the step's own tensors (a forcing built from
+        a control, say) require grad."""
+        own = ()
+        if isinstance(self.step_fn, nn.Module):
+            own = (*self.step_fn.parameters(), *self.step_fn.buffers())
+        return any(torch.is_tensor(x) and x.requires_grad
+                   for x in (*leaves(state), cfl_scale, *own))
 
     def _loop(self, state, cfl_scale):
         if not torch.is_tensor(cfl_scale):
@@ -588,15 +612,17 @@ def make_chunk(cfg, step_fn: Callable, n_steps: int, *, device=None,
 
     ``device`` defaults to the step's (``step_fn.device``). Whether the step
     reads the host is its ``reads_host`` (a step without that attribute is
-    taken to read it). ``route="loop"`` asks for the loop where the graph
-    would be taken (to time the two side by side); ``route="graph"`` where
-    :func:`chunk_route` says "loop" is refused. ``keep_graph`` is
-    :class:`Chunk`'s."""
+    taken to read it), whether it calls collectives its ``collectives`` (the
+    steps of ``parallel/`` set it: they take the loop). ``route="loop"``
+    asks for the loop where the graph would be taken (to time the two side
+    by side); ``route="graph"`` where :func:`chunk_route` says "loop" is
+    refused. ``keep_graph`` is :class:`Chunk`'s."""
     if device is None:
         device = getattr(step_fn, "device", None)
         if device is None:
             raise ValueError("make_chunk needs device= for a step that has no .device")
-    mode, reason = chunk_route(device, getattr(step_fn, "reads_host", True))
+    mode, reason = chunk_route(device, getattr(step_fn, "reads_host", True),
+                               getattr(step_fn, "collectives", False))
     if route is not None and route != mode:
         if route not in CHUNK_ROUTES:
             raise ValueError(f"unknown chunk route {route!r}; one of {CHUNK_ROUTES}")

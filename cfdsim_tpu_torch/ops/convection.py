@@ -46,6 +46,13 @@ def supg_tau(u, v, dx: float, dy: float, dt, nu_eff):
 
     ``nu_eff`` is a tensor or a number; a number is summed with 1e-10 in
     float32, as the JAX package sums its float32 ν_eff array."""
+    tau = supg_tau_field(u, v, dx, dy, dt, nu_eff)
+    return _pad1(tau[1:-1, 1:-1])
+
+
+def supg_tau_field(u, v, dx: float, dy: float, dt, nu_eff):
+    """:func:`supg_tau` on every node, the frame included (a block of a
+    distributed field zeroes the frame of the global grid instead)."""
     h = min(dx, dy)
     vel = torch.sqrt(u * u + v * v)
     if torch.is_tensor(nu_eff):
@@ -57,8 +64,7 @@ def supg_tau(u, v, dx: float, dy: float, dt, nu_eff):
     # the reciprocal, which rounds differently)
     h_t = torch.full((), h, dtype=vel.dtype, device=vel.device)
     tau_flow = h_t / (2.0 * vel.clamp(min=1e-10)) * (pe / 2.0).clamp(max=1.0)
-    tau = torch.where(vel > 1e-10, tau_flow, dt / 2.0)
-    return _pad1(tau[1:-1, 1:-1])
+    return torch.where(vel > 1e-10, tau_flow, dt / 2.0)
 
 
 def convection_supg(u, v, phi, dx: float, dy: float, tau, ref_parity: bool = False):

@@ -142,7 +142,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    one run of 200: bit-equal records and restored states; ω̂ is stored as
    the JAX package's float32 planes (2, 1024, 513)
 5m. FEM (``phase_fem``): ``bench.fem_paths`` (``cylinder_fem(re=100,
-   wake_refine=True)``, monolithic and projection) profiled over 5 steps
+   wake_refine=True)``, monolithic and projection) profiled over 3 steps
    on the loop route (their Krylov exits are read on the host): events,
    busy and wall ms per step, idle share, triangles, matvecs and host reads
    per step; twenty projection steps of the Schäfer–Turek case twice from
@@ -159,6 +159,28 @@ and the final ``{"ok": true, ...}`` line is not printed:
    against the CPU's (the Poiseuille loss of tests/test_fem.py:280, within
    1e-3 of its max); no kernel launched. The bench cells' marginal steps/s
    come in phase 13 (``bench --all``)
+5n. gradients (``phase_gradients``): d mean(u²)/d u0 through 8
+   steps of ``lid_cavity(n=24, Re=100, jacobi 8)`` on the chunk's loop route,
+   held to 1e-4 of max|g| against the CPU's; the graph route refusing a
+   state that requires grad before it captures anything; the fused 1024²
+   cavity's kernel wrapper refusing a field that requires grad (the kernels
+   have no backward); the adjoint example
+   (``cfdsim_tpu_torch/examples/adjoint_forcing.py``) at its full default (n =
+   48, 200 steps checkpointed per step, 60 Adam iterations): the largest
+   coefficient error under 0.2, printed with the seconds; no kernel launched
+5o. distributed (``phase_distributed``): a NCCL group of world size
+   1 (the card's machine has one GPU; the exchanges between ranks are
+   checked on gloo ranks on the CPU by tests/test_torch_*), then the
+   explicit collocated cavity at 1024², Re = 1000, rbsor (the JAX
+   package's PoissonConfig defaults), 20 steps against ``IncompressibleStep``
+   (u, v rtol 1e-5 atol 1e-6; p rtol 1e-4 atol 1e-5), the explicit MAC
+   cavity at 1024² with the pencil DCT against ``MACStep`` (u, v 2e-5; p
+   2e-4), the explicit heated cavity at ``heated_cavity()``'s defaults, 40
+   steps, against ``BoussinesqStep`` (u, v, θ 3e-5; Nu 1e-4) (the JAX
+   tests' tolerances), each with its ms and device events per step beside
+   the single-device step's (loop and captured); the sharded MAC gradient
+   (16², rbsor 20, 4 steps) against the single-device one within 1e-5 of
+   max|g|; no kernel launched; the group destroyed at the end
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -225,11 +247,12 @@ and the final ``{"ok": true, ...}`` line is not printed:
    DCT solve's, MAC-1024² and stretched-512² cells/s, and ms per step,
    chunk and eager, of the implicit cavity, the LES cylinder, the
    transport cavity, the heated and 3D cavities, the 3D bodies and the
-   compressible and spectral cells, and the sphere's cells/s), ``bench
+   compressible and spectral cells (marginal between chunks of 5 and 15
+   steps, 2 and 6 in 3D), and the sphere's cells/s), ``bench
    --roofline`` (the card's peaks, and flops,
    bytes per cell and bound of the collocated, MAC, stretched and sphere
    tiers), the profile of every path, staggered, 3D, compressible and
-   spectral ones included, and
+   spectral ones included (chunks of 3 steps, 2 in 3D), and
    ``bench --cylinder`` (steps/s through kernel A, captured and eager, and
    through streaming rbsor)
    (``cfdsim_tpu_torch/bench.py``).
@@ -295,13 +318,15 @@ from cfdsim_tpu_torch.bench import (
     threed_paths,
 )
 from cfdsim_tpu_torch import __main__ as cli
-from cfdsim_tpu_torch.cases import build, lid_cavity, lid_cavity_mac
+from cfdsim_tpu_torch.cases import build, heated_cavity, lid_cavity, lid_cavity_mac
+from cfdsim_tpu_torch.examples import adjoint_forcing
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import cylinder_masks
 from cfdsim_tpu_torch.io_ import restore
 from cfdsim_tpu_torch.fem.sample import point_sampler, sample_fields
 from cfdsim_tpu_torch.io_.native import NativeSnapshotWriter, csnap_steps
 from cfdsim_tpu_torch.models import compressible as comp
+from cfdsim_tpu_torch.models import mac
 from cfdsim_tpu_torch.models import mac_stretched
 from cfdsim_tpu_torch.models import spectral_ps as ps
 from cfdsim_tpu_torch.models.incompressible import make_chunk
@@ -469,8 +494,23 @@ ST_BUDGET_S = 300.0
 ST_CD_MAX, ST_ST, ST_CL_AMP, ST_CL_RTOL = (3.22, 3.24), (0.295, 0.305), 1.09, 0.05
 ST_CD_MEAN, ST_CD_MEAN_RTOL = 3.19, 0.01
 ST_CHUNK = 50
-FEM_GHIA_TOL, FEM_GHIA_STEPS, FEM_REPRO_STEPS, FEM_PROFILE_STEPS = 0.01, 100, 20, 5
+FEM_GHIA_TOL, FEM_GHIA_STEPS, FEM_REPRO_STEPS, FEM_PROFILE_STEPS = 0.01, 100, 20, 3
 FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in other orders)
+# gradients: the 8-step cavity's gradient on the card against the
+# CPU's, 1e-4 of max|g| (the FEM adjoint's check held 1.4e-5 on the same
+# pattern); the adjoint example's recovered coefficients within 0.2
+# (tests/test_differentiability.py:109)
+GRAD_STEPS, GRAD_CARD_RTOL, ADJOINT_ERR = 8, 1e-4, 0.2
+# the distributed steps at world size 1: steps held against the single-device
+# step (the JAX tests' tolerances: tests/test_explicit_step.py:37-42,
+# tests/test_mac_explicit.py:74, tests/test_boussinesq.py:80-86)
+DIST_STEPS, BQ_DIST_STEPS = 20, 40
+# to make room for the gradient and distributed phases, steps were
+# cut, never grids: the profiled chunks of phase 13 (2D, 3D; were 10 and
+# 5), `bench --all`'s marginal chunks (2D, 3D; were 10-30 and 3-9) and the
+# FEM cells' profiled steps (5 before)
+PROFILE_STEPS, PROFILE_STEPS_3D = 3, 2
+SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -2006,6 +2046,231 @@ def _fem_gradient(device) -> np.ndarray:
     return u0.grad.cpu().numpy()
 
 
+def _cavity_gradient(device):
+    """d mean(u_8²)/d u0 through 8 steps of lid_cavity(n=24, Re=100, jacobi
+    8) on the chunk's loop route (tests/test_differentiability.py:20-38)."""
+    case = lid_cavity(n=24, Re=100.0, poisson=PoissonConfig(method="jacobi", iters=8),
+                      device=device)
+    chunk = make_chunk(case.cfg, case.step, GRAD_STEPS, route="loop")
+    u0 = case.state.u.clone().requires_grad_()
+    state, _ = chunk(case.state._replace(u=u0), 1.0)
+    torch.mean(state.u ** 2).backward()
+    return u0.grad.cpu().numpy(), chunk
+
+
+def _sharded_mac_gradient(mesh):
+    """d mean(u_4²)/d u0 of the 16² MAC cavity (rbsor 20 sweeps, fixed dt,
+    metrics off) through the distributed step on ``mesh`` and through the
+    single-device step (tests/test_differentiability.py:58-92)."""
+    from cfdsim_tpu_torch.parallel import (
+        gather_blocks,
+        make_cavity_mac_explicit_step,
+        shard_trimmed_state,
+        trim_state,
+    )
+
+    def case():
+        return lid_cavity_mac(n=16, Re=100.0, poisson=PoissonConfig(method="rbsor", iters=20),
+                              adaptive_dt=False, dt_base=1e-3, compute_metrics=False,
+                              device=mesh.device)
+
+    c = case()
+    step = make_cavity_mac_explicit_step(c.cfg, mesh)
+    t0 = shard_trimmed_state(trim_state(c.state), mesh)
+    u0 = t0.u.clone().requires_grad_()
+    s = t0._replace(u=u0)
+    for _ in range(4):
+        s, _ = step(s, 1.0)
+    (torch.sum(s.u ** 2) / (16 * 16)).backward()
+    g_dist = gather_blocks(u0.grad, mesh)
+    c = case()
+    u1 = c.state.u[:, :-1].clone().requires_grad_()
+    s = c.state._replace(u=torch.nn.functional.pad(u1, (0, 1)))
+    for _ in range(4):
+        s, _ = c.step(s, 1.0)
+    torch.mean(s.u[:, :-1] ** 2).backward()
+    return g_dist.cpu().numpy(), u1.grad.cpu().numpy()
+
+
+def phase_gradients(card):
+    """Gradients through the time loop on the card: the 8-step cavity on the
+    loop route against the CPU's; the graph route refusing a state, and the
+    adjoint example's step whose forcing, that requires grad (before any
+    capture); the fused predictor's wrapper
+    refusing one (the kernel has no backward); the adjoint example at its
+    full default (n = 48, 200 steps, 60 Adam iterations). No kernel runs."""
+    _reset_counts()
+    (g_card, chunk), (g_cpu, _) = _cavity_gradient("cuda"), _cavity_gradient("cpu")
+    rel = float(np.abs(g_card - g_cpu).max() / np.abs(g_cpu).max())
+    say("gradient_cavity", n=24, steps=GRAD_STEPS, route=chunk.mode, reason=chunk.reason,
+        max_abs_grad=float(np.abs(g_cpu).max()), rel_cuda_cpu=rel, tol=GRAD_CARD_RTOL)
+    if not (chunk.mode == "loop" and np.abs(g_cpu).max() > 0 and rel <= GRAD_CARD_RTOL):
+        raise AssertionError(f"cavity gradient on the card {rel} from the CPU's")
+
+    case = lid_cavity(n=24, Re=100.0, poisson=PoissonConfig(method="jacobi", iters=8),
+                      device="cuda")
+    graph = make_chunk(case.cfg, case.step, GRAD_STEPS)
+    state = case.state._replace(u=case.state.u.clone().requires_grad_())
+    try:
+        graph(state, 1.0)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    say("gradient_graph_route_refused", route=graph.mode, refused=refused,
+        captured=graph.program is not None)
+    if graph.mode != "graph" or refused is None or graph.program is not None:
+        raise AssertionError(f"the graph route took a state that requires grad: {refused}")
+    # the adjoint example's step carries the control in its forcing buffer,
+    # from a state at rest
+    step = adjoint_forcing.make_problem(48, 1, device="cuda").step(
+        torch.zeros(4, device="cuda", requires_grad=True))
+    graph = make_chunk(step.cfg, step, GRAD_STEPS)
+    try:
+        graph(mac.init_state(step.cfg, device="cuda"), 1.0)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    say("gradient_graph_route_refused_forcing", route=graph.mode, refused=refused,
+        captured=graph.program is not None)
+    if graph.mode != "graph" or refused is None or graph.program is not None:
+        raise AssertionError(f"the graph route took a step whose forcing requires grad: "
+                             f"{refused}")
+
+    case = lid_cavity(n=1024, Re=1000.0, fused_predictor=True, device="cuda")
+    state = case.state._replace(u=case.state.u.clone().requires_grad_())
+    try:
+        case.step(state, 1.0)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    say("gradient_kernel_refused", n=1024, refused=refused)
+    if refused is None or "no backward" not in refused:
+        raise AssertionError("the fused predictor's wrapper took a tensor that requires grad")
+    del case, state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    err = adjoint_forcing.main(verbose=False, device="cuda")
+    seconds = time.perf_counter() - t0
+    say("adjoint_forcing", n=48, steps=200, iterations=60, lr=0.1, max_err=err,
+        gate=ADJOINT_ERR, seconds=seconds, ms_per_iteration=seconds / 60 * 1e3, card=card)
+    if not err < ADJOINT_ERR:
+        raise AssertionError(f"the adjoint example recovered c within {err}")
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the gradient path: {launches}")
+
+
+def _within(label, got, want, rtol, atol, **fields):
+    """max |got − want| − (atol + rtol·|want|) ≤ 0, numpy.testing's rule."""
+    got, want = got.double(), want.double()
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - (atol + rtol * want.abs())).max())
+    say(label, max_abs_err=err, rtol=rtol, atol=atol, bit_equal=bool(torch.equal(got, want)),
+        **fields)
+    if excess > 0:
+        raise AssertionError(f"{label}: max |Δ| {err} over rtol {rtol}, atol {atol}")
+
+
+def _profile_pair(path, cfg, dist_step, dist_state, single, card, steps=10):
+    """ms and device events per step of the distributed step (its loop) and
+    of the single-device step (its loop and its captured chunk)."""
+    from types import SimpleNamespace
+
+    rows = [profile_chunk(SimpleNamespace(cfg=cfg, step=dist_step, state=dist_state), steps,
+                          "cuda", card, "loop", path=path, side="distributed_world1")]
+    for route in ("loop", None):
+        rows.append(profile_chunk(single, steps, "cuda", card, route, path=path,
+                                  side="single_device"))
+    for row in rows:
+        row.pop("top_self_device_us")
+        say("distributed_profile", **row)
+
+
+def phase_distributed(card):
+    """The distributed steps on one card: a NCCL group of world size 1 (the
+    card's machine has one GPU, and NCCL puts no two ranks on one GPU; the
+    exchanges between ranks are checked on gloo on the CPU by the tests).
+    Each step is held against the single-device step at the JAX tests'
+    tolerances, and timed beside it; then the sharded MAC gradient."""
+    from cfdsim_tpu_torch.parallel import (
+        block_state,
+        gather_state,
+        init_distributed,
+        make_cavity_explicit_step,
+        make_cavity_mac_explicit_step,
+        make_heated_cavity_explicit_step,
+        shard_boussinesq_state,
+        shard_trimmed_state,
+        trim_boussinesq_state,
+        trim_state,
+    )
+
+    rendezvous = SMOKE_OUT / "nccl_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    mesh = init_distributed("nccl", f"file://{rendezvous}", 1, 0, device="cuda:0")
+    try:
+        _reset_counts()
+        say("distributed_mesh", backend=mesh.backend, py=mesh.py, px=mesh.px,
+            device=str(mesh.device))
+        # the collocated cavity, the JAX package's PoissonConfig defaults (rbsor)
+        case = lid_cavity(n=1024, Re=1000.0, poisson=PoissonConfig(), device="cuda")
+        step = make_cavity_explicit_step(case.cfg, mesh)
+        d, r = block_state(case.state, mesh), case.state
+        for _ in range(DIST_STEPS):
+            d, _ = step(d, 1.0)
+            r, _ = case.step(r, 1.0)
+        g = gather_state(d, mesh)
+        _within("distributed_cavity_uv", torch.stack([g.u, g.v]), torch.stack([r.u, r.v]),
+                1e-5, 1e-6, n=1024, steps=DIST_STEPS, poisson="rbsor:100")
+        _within("distributed_cavity_p", g.p, r.p, 1e-4, 1e-5, n=1024, steps=DIST_STEPS)
+        # 5,000 device events a step: two steps keep the profiler's pass short
+        _profile_pair("cavity1024_rbsor", case.cfg, step, d, case, card, steps=2)
+        del case, step, d, r, g
+        # the MAC cavity with the pencil DCT
+        case = lid_cavity_mac(n=1024, Re=1000.0, device="cuda")
+        step = make_cavity_mac_explicit_step(case.cfg, mesh)
+        d, r = shard_trimmed_state(trim_state(case.state), mesh), case.state
+        for _ in range(DIST_STEPS):
+            d, _ = step(d, 1.0)
+            r, _ = case.step(r, 1.0)
+        g = gather_state(d, mesh)
+        _within("distributed_mac_uv", torch.stack([g.u, g.v]),
+                torch.stack([r.u[:, :-1], r.v[:-1, :]]), 0.0, 2e-5, n=1024, steps=DIST_STEPS)
+        _within("distributed_mac_p", g.p, r.p, 0.0, 2e-4, n=1024, steps=DIST_STEPS)
+        _profile_pair("cavity_mac1024_dct", case.cfg, step, d, case, card)
+        del case, step, d, r, g
+        # the heated cavity at heated_cavity()'s defaults
+        case = heated_cavity(device="cuda")
+        step = make_heated_cavity_explicit_step(case.cfg, mesh)
+        d = shard_boussinesq_state(trim_boussinesq_state(case.state), mesh)
+        r = case.state
+        for _ in range(BQ_DIST_STEPS):
+            d, md = step(d, 1.0)
+            r, mr = case.step(r, 1.0)
+        g = gather_state(d, mesh)
+        _within("distributed_heated_cavity", torch.stack([g.u, g.v, g.theta]),
+                torch.stack([r.u[:, :-1], r.v[:-1, :], r.theta]), 0.0, 3e-5,
+                n=case.grid.nx, Ra=case.cfg.rayleigh, steps=BQ_DIST_STEPS)
+        _within("distributed_heated_cavity_nu", md.nu_hot_wall.reshape(1),
+                mr.nu_hot_wall.reshape(1), 1e-4, 0.0)
+        _profile_pair(f"heated_cavity{case.grid.nx}", case.cfg, step, d, case, card)
+        del case, step, d, r, g
+        # the sharded MAC gradient against the single-device gradient
+        g_dist, g_single = _sharded_mac_gradient(mesh)
+        rel = float(np.abs(g_dist - g_single).max() / np.abs(g_single).max())
+        say("distributed_mac_gradient", n=16, steps=4, max_abs_grad=float(np.abs(g_single).max()),
+            rel_distributed_single=rel, tol=1e-5)
+        if not (np.abs(g_single).max() > 0 and rel <= 1e-5):
+            raise AssertionError(f"sharded MAC gradient {rel} from the single-device one")
+        launches = _counts()
+        if any(launches.values()):
+            raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -2027,13 +2292,16 @@ def phase_timings(card):
     for route in (None, "loop"):
         for path, case in {**_paths(compute_metrics=False), **new_paths(),
                            **mac_paths(), **boussinesq_paths()}.items():
-            say("time_profile", **profile_chunk(case, 10, "cuda", card, route, path=path))
+            say("time_profile", **profile_chunk(case, PROFILE_STEPS, "cuda", card, route,
+                                                path=path))
         for path, case in {**threed_paths(), **sphere_paths()}.items():
-            say("time_profile", **profile_chunk(case, 5, "cuda", card, route, path=path))
+            say("time_profile", **profile_chunk(case, PROFILE_STEPS_3D, "cuda", card, route,
+                                                path=path))
         torch.cuda.empty_cache()
         for path, case in {**compressible_paths(), **spectral_paths()}.items():
-            say("time_profile", **profile_chunk(case, 5 if "3d" in path else 10, "cuda",
-                                                card, route, path=path))
+            say("time_profile", **profile_chunk(
+                case, PROFILE_STEPS_3D if "3d" in path else PROFILE_STEPS, "cuda", card, route,
+                path=path))
         torch.cuda.empty_cache()
     # per tier the flops and bytes of one step against the card's peaks
     for row in run_roofline(1024):
@@ -2075,7 +2343,7 @@ def phase_timings(card):
         say("time_rbsor_b", **t, card=card)
     # the JAX bench's secondary metrics, and the cylinder through kernel A
     # and through streaming rbsor
-    for row in run_all(1024):
+    for row in run_all(1024, steps=SECONDARY_STEPS, steps_3d=SECONDARY_STEPS_3D):
         say("time_secondary", **row)
     for row in run_cylinder():
         say("time_cylinder", **row)
@@ -2163,6 +2431,8 @@ def main() -> int:
     phase(phase_spectral, card)
     phase(phase_new_tiers_resume)
     phase(phase_fem, card)
+    phase(phase_gradients, card)
+    phase(phase_distributed, card)
     pred_launches = phase(phase_main_path)
     cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
     mg = phase(phase_mg_cavity)
