@@ -364,10 +364,14 @@ def _slopes_axis(q, axis: int):
     return F.pad(s, pads)
 
 
-def advect3d(u, v, w, ghosts, dx: float, dy: float, dz: float, scheme: str = "central"):
+def advect3d(u, v, w, ghosts, dx: float, dy: float, dz: float, scheme: str = "central",
+             slope_fix=None):
     """Conservative divergence-form 3D MAC advection (central, or upwind /
     van Leer MUSCL face values as the 2D ``mac._advect``): (conv_u, conv_v,
-    conv_w) on the interior faces."""
+    conv_w) on the interior faces. ``slope_fix(name, s) -> s`` post-processes
+    each MUSCL slope array, named by component and axis ("ux" … "wz"): the
+    distributed step zeroes the slopes on the global domain's boundary
+    lines, which lie inside its halo windows."""
     u_gy, u_gz, v_gx, v_gz, w_gx, w_gy = ghosts
     u_y = 0.5 * (u_gy[:, :-1, :] + u_gy[:, 1:, :])  # (nz, ny+1, nx+1)
     v_x = 0.5 * (v_gx[:, :, :-1] + v_gx[:, :, 1:])  # (nz, ny+1, nx+1)
@@ -383,9 +387,11 @@ def advect3d(u, v, w, ghosts, dx: float, dy: float, dz: float, scheme: str = "ce
         F_w, G_w, H_w = u_z * w_x, v_z * w_y, wc * wc
     elif scheme in ("upwind", "tvd"):
         if scheme == "tvd":
-            sux, suy, suz = _slopes_axis(u, 2), _slopes_axis(u_gy, 1), _slopes_axis(u_gz, 0)
-            svx, svy, svz = _slopes_axis(v_gx, 2), _slopes_axis(v, 1), _slopes_axis(v_gz, 0)
-            swx, swy, swz = _slopes_axis(w_gx, 2), _slopes_axis(w_gy, 1), _slopes_axis(w, 0)
+            fix = (lambda name, s: s) if slope_fix is None else slope_fix
+            sux, suy, suz, svx, svy, svz, swx, swy, swz = (
+                fix(c + "xyz"[2 - axis], _slopes_axis(q, axis)) for c, q, axis in (
+                    ("u", u, 2), ("u", u_gy, 1), ("u", u_gz, 0), ("v", v_gx, 2), ("v", v, 1),
+                    ("v", v_gz, 0), ("w", w_gx, 2), ("w", w_gy, 1), ("w", w, 0)))
         else:
             sux, suy, suz, svx, svy, svz, swx, swy, swz = (
                 torch.zeros_like(q) for q in (u, u_gy, u_gz, v_gx, v, v_gz, w_gx, w_gy, w))

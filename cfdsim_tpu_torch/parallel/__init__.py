@@ -13,14 +13,22 @@ step on it, every collective placed by hand:
   Helmholtz solves;
 - ``explicit``: the collocated cavity and cylinder steps;
 - ``mac_sharded``, ``mac_explicit``: the trimmed MAC state and the MAC
-  cavity and cylinder steps;
-- ``boussinesq_explicit``: the heated cavity and Rayleigh–Bénard;
+  cavity, cylinder and moving-body steps;
+- ``mac_stretched_explicit``: the stretched MAC cavity, cylinder and
+  moving body;
+- ``ibm_ghost_explicit``: a rank's ghost-cell IBM tables and the (moving)
+  ghost forcing on blocks;
+- ``mac3d_explicit``, ``mac_stretched3d_explicit``: the trimmed 3D state and
+  the 3D MAC cavity, sphere (penalized or ghost-cell) and moving sphere, on
+  the uniform and the stretched grid;
+- ``transport3d_explicit``: the heated sphere (uniform and stretched);
+- ``boussinesq_explicit``, ``boussinesq3d_explicit``: the heated cavity,
+  Rayleigh–Bénard and the heated cube;
 - ``launch``: gloo ranks on the CPU (``spawn``), for tests and the dry run.
 
 The JAX package's GSPMD half (``shard_state``, ``make_sharded_step``,
 ``make_sharded_mac_step``) has no counterpart here. Not ported yet: the
-stretched and 3D MAC tiers, the ghost-cell IBM, the moving body, the
-spectral and FEM tiers (ROADMAP.md item 22).
+spectral and FEM tiers (ROADMAP.md item 22d).
 """
 
 from cfdsim_tpu_torch.parallel.boussinesq_explicit import (
@@ -34,12 +42,57 @@ from cfdsim_tpu_torch.parallel.explicit import (
     make_cylinder_explicit_step,
     make_explicit_step,
 )
+from cfdsim_tpu_torch.parallel.boussinesq3d_explicit import (
+    make_heated_cube_explicit_step,
+    shard_boussinesq3d_state,
+    trim_boussinesq3d_state,
+    untrim_boussinesq3d_state,
+)
 from cfdsim_tpu_torch.parallel.halo import halo_exchange, make_sharded_stencil
+from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
+    MovingGhostGeometry,
+    ShardedGhostIBM3D,
+    ShardedGhostSet,
+    apply_ghost_forcing_local,
+    moving_ghost_forcing_stack,
+    moving_ghost_width_2d,
+    partition_ghost_ibm3d,
+)
+from cfdsim_tpu_torch.parallel.mac3d_explicit import (
+    MAC3DLocalBCs,
+    cavity3d_bc_kit,
+    cavity3d_local_bcs,
+    external_flow3d_local_bcs,
+    free_slip3d_local_bcs,
+    make_cavity3d_mac_explicit_step,
+    make_mac3d_explicit_step,
+    make_moving_body_mac3d_explicit_step,
+    make_sphere_ghost_mac3d_explicit_step,
+    make_sphere_mac3d_explicit_step,
+    shard_trimmed_state3d,
+    trim_face_masks3d,
+    trim_state3d,
+    untrim_state3d,
+)
 from cfdsim_tpu_torch.parallel.mac_explicit import (
     make_cavity_mac_explicit_step,
     make_cylinder_mac_explicit_step,
     make_mac_explicit_step,
+    make_moving_body_mac_explicit_step,
     trim_face_masks,
+)
+from cfdsim_tpu_torch.parallel.mac_stretched3d_explicit import (
+    make_cavity3d_stretched_explicit_step,
+    make_moving_body3d_stretched_explicit_step,
+    make_sphere3d_stretched_explicit_step,
+    make_sphere_ghost3d_stretched_explicit_step,
+    make_stretched3d_explicit_step,
+)
+from cfdsim_tpu_torch.parallel.mac_stretched_explicit import (
+    make_cavity_stretched_explicit_step,
+    make_cylinder_stretched_explicit_step,
+    make_moving_body_stretched_explicit_step,
+    make_stretched_mac_explicit_step,
 )
 from cfdsim_tpu_torch.parallel.mac_sharded import (
     shard_trimmed_state,
@@ -62,6 +115,10 @@ from cfdsim_tpu_torch.parallel.transforms import (
     dst_helmholtz_local,
     make_fdm_poisson3d_local,
     make_fdm_poisson_local,
+)
+from cfdsim_tpu_torch.parallel.transport3d_explicit import (
+    make_heated_sphere_explicit_step,
+    make_heated_sphere_stretched_explicit_step,
 )
 
 __all__ = [
@@ -95,4 +152,41 @@ __all__ = [
     "trim_boussinesq_state",
     "untrim_boussinesq_state",
     "shard_boussinesq_state",
+    "make_moving_body_mac_explicit_step",
+    "make_stretched_mac_explicit_step",
+    "make_cavity_stretched_explicit_step",
+    "make_cylinder_stretched_explicit_step",
+    "make_moving_body_stretched_explicit_step",
+    "ShardedGhostSet",
+    "ShardedGhostIBM3D",
+    "partition_ghost_ibm3d",
+    "apply_ghost_forcing_local",
+    "moving_ghost_width_2d",
+    "MovingGhostGeometry",
+    "moving_ghost_forcing_stack",
+    "MAC3DLocalBCs",
+    "cavity3d_bc_kit",
+    "cavity3d_local_bcs",
+    "free_slip3d_local_bcs",
+    "external_flow3d_local_bcs",
+    "trim_state3d",
+    "untrim_state3d",
+    "shard_trimmed_state3d",
+    "trim_face_masks3d",
+    "make_mac3d_explicit_step",
+    "make_cavity3d_mac_explicit_step",
+    "make_sphere_mac3d_explicit_step",
+    "make_sphere_ghost_mac3d_explicit_step",
+    "make_moving_body_mac3d_explicit_step",
+    "make_stretched3d_explicit_step",
+    "make_cavity3d_stretched_explicit_step",
+    "make_sphere3d_stretched_explicit_step",
+    "make_sphere_ghost3d_stretched_explicit_step",
+    "make_moving_body3d_stretched_explicit_step",
+    "make_heated_sphere_explicit_step",
+    "make_heated_sphere_stretched_explicit_step",
+    "make_heated_cube_explicit_step",
+    "trim_boussinesq3d_state",
+    "untrim_boussinesq3d_state",
+    "shard_boussinesq3d_state",
 ]

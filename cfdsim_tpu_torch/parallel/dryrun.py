@@ -3,11 +3,18 @@
     python -m cfdsim_tpu_torch.parallel.dryrun --ranks 4 --device cpu [--topology 2x2]
 
 The explicit half of the JAX package's ``__graft_entry__.dryrun_multichip``
-on a grid of 8·max(py, px) cells a side: (2) the distributed red-black SOR
-solve, (4) the collocated cavity step, (5) the MAC cavity step with the
-pencil DCT projection, (6d) the heated cavity; each one call on the mesh,
-held against the single-device solver or step from the same input (its
-steps 1 and 3 are GSPMD and have no counterpart here). ``--device cuda``
+on a grid of 8·max(py, px) cells a side (8 in z): (2) the distributed
+red-black SOR solve, (4) the collocated cavity step, (5) the MAC cavity
+step with the pencil DCT projection, (5b) the moving body, (6) the 3D MAC
+cavity (central, TVD with Smagorinsky LES, dynamic LES), the sphere, the
+heated sphere and the stretched sphere (with dynamic LES), (6b2) the
+stretched heated sphere, (6b3) the ghost-cell sphere and the stretched
+ghost-cell heated sphere, (6c) the moving sphere, the stretched moving
+cylinder, their moving ghosts and the stretched moving sphere, (6d) the
+heated cavity and the heated cube; each one call on the mesh, held against
+the single-device solver or step from the same input (its steps 1, 3 and
+6e are GSPMD and have no counterpart here; 7, 7b and 8 are the spectral
+and FEM tiers, not ported yet). ``--device cuda``
 (the default) runs one NCCL rank per card and needs ``--ranks`` cards;
 ``--device cpu`` runs gloo ranks on the CPU. Prints one JSON line per check
 and exits non-zero if a check fails.
@@ -24,8 +31,12 @@ import torch
 
 from cfdsim_tpu_torch.parallel.launch import spawn
 
-# the largest |Δ| a check allows: float32 sums in another order
+# the largest |Δ| a check allows: float32 sums in another order (the 3D
+# steps: the JAX tests' 2e-5; their dynamic LES 5e-5, its C_s² a sum over
+# the mesh)
 ATOL = 1e-5
+ATOL_3D = 2e-5
+ATOL_DYNAMIC = 5e-5
 
 
 def _dryrun(mesh):
@@ -91,7 +102,161 @@ def _dryrun(mesh):
     got = gather_state(state, mesh)
     diff("heated_cavity_step", torch.stack([got.u, got.v, got.theta]),
          torch.stack([ref.u[:, :-1], ref.v[:-1, :], ref.theta]), n=n)
+    rows += _dryrun_staggered_3d(mesh, n)
     return {"mesh": [mesh.py, mesh.px], "rows": rows}
+
+
+def _dryrun_staggered_3d(mesh, n: int):
+    """Steps 5b, 6, 6b2, 6b3, 6c and the 3D half of 6d."""
+    from cfdsim_tpu_torch.cases import (
+        cylinder_oscillating,
+        heated_sphere,
+        heated_sphere_stretched,
+        sphere_mac3d,
+        sphere_stretched,
+    )
+    from cfdsim_tpu_torch.grid import Grid3D
+    from cfdsim_tpu_torch.ibm import oscillating_sphere
+    from cfdsim_tpu_torch.models import boussinesq3d as b3
+    from cfdsim_tpu_torch.models import mac3d
+    from cfdsim_tpu_torch.models import mac_stretched3d as ms3
+    from cfdsim_tpu_torch.models.mac_stretched import stretched_faces
+    from cfdsim_tpu_torch.parallel import (
+        gather_state,
+        local_block,
+        make_cavity3d_mac_explicit_step,
+        make_heated_cube_explicit_step,
+        make_heated_sphere_explicit_step,
+        make_heated_sphere_stretched_explicit_step,
+        make_moving_body3d_stretched_explicit_step,
+        make_moving_body_mac3d_explicit_step,
+        make_moving_body_mac_explicit_step,
+        make_moving_body_stretched_explicit_step,
+        make_sphere3d_stretched_explicit_step,
+        make_sphere_ghost_mac3d_explicit_step,
+        make_sphere_mac3d_explicit_step,
+        shard_trimmed_state,
+        shard_trimmed_state3d,
+        trim_face_masks3d,
+        trim_state,
+        trim_state3d,
+    )
+
+    dev = mesh.device
+    rows = []
+
+    def check(name, ref_step, state, step, atol=ATOL_3D, extras=(), **fields):
+        """One call of the distributed ``step`` against ``ref_step`` on the
+        full state: the trimmed faces (and θ) compared."""
+        three_d = state.u.ndim == 3
+        trimmed = (trim_state3d if three_d else trim_state)(state)
+        blocks = (shard_trimmed_state3d if three_d else shard_trimmed_state)(trimmed, mesh)
+        got = gather_state(step(blocks, 1.0, *(local_block(x, mesh) for x in extras))[0], mesh)
+        ref = trim_state3d(ref_step(state, 1.0)[0]) if three_d else trim_state(
+            ref_step(state, 1.0)[0])
+        names = [k for k in ("u", "v", "w", "theta") if hasattr(ref, k)]
+        err = max(float((getattr(got, k) - getattr(ref, k)).abs().max()) for k in names)
+        rows.append({"check": name, "max_abs_err": err, "atol": atol, "n": n, **fields})
+
+    nz = 8
+    box = dict(domain=(4.0, 2.0, 2.0), center=(1.0, 1.0, 1.0), radius=0.25, ibm_ramp_steps=2,
+               device=dev)
+    stretch = dict(scheme="central", refine_strength=1.0, refine_width=0.5, wake_length=1.0)
+
+    # 5b) the moving body's masks rebuilt on each rank, its force summed
+    c = cylinder_oscillating(nx=2 * n, ny=n, domain=(4.0, 2.0), center=(2.0, 1.0), radius=0.25,
+                             KC=4.0, period=4.0, device=dev)
+    check("moving_body_step", c.step, c.state,
+          make_moving_body_mac_explicit_step(c.cfg, mesh, c.extras["body"]), atol=ATOL)
+
+    # 6) the 3D MAC cavity (central; TVD with Smagorinsky; dynamic LES), the
+    # sphere, the heated sphere, the stretched sphere (and with dynamic LES)
+    cube = Grid3D(nx=n, ny=n, nz=nz, centering="cell")
+    for name, kw, atol in (("cavity3d_mac_step", dict(nu=1e-2), ATOL_3D),
+                           ("cavity3d_mac_tvd_les_step",
+                            dict(nu=2e-3, scheme="tvd", use_les=True), ATOL_3D),
+                           ("cavity3d_mac_dynamic_les_step",
+                            dict(nu=2e-3, use_les=True, les_model="dynamic"), ATOL_DYNAMIC)):
+        cfg = mac3d.MAC3DConfig(grid=cube, max_velocity=5.0, **kw)
+        check(name, mac3d.make_step(cfg, mac3d.cavity3d_bcs(), device=dev),
+              mac3d.init_state(cfg, device=dev), make_cavity3d_mac_explicit_step(cfg, mesh),
+              atol=atol)
+    c = sphere_mac3d(nx=2 * n, ny=n, nz=nz, Re=100.0, **box)
+    check("sphere_step", c.step, c.state, make_sphere_mac3d_explicit_step(
+        c.cfg, mesh, v_inf=1.0, ibm_ramp_steps=2), extras=trim_face_masks3d(*c.extras["ibm_masks"]))
+    c = heated_sphere(nx=2 * n, ny=n, nz=nz, Re=100.0, **box)
+    mu, mv, mw, mc = c.extras["ibm_masks"]
+    check("heated_sphere_step", c.step, c.state, make_heated_sphere_explicit_step(
+        c.cfg, mesh, v_inf=1.0, ibm_ramp_steps=2),
+        extras=(*trim_face_masks3d(mu, mv, mw), np.asarray(mc, np.float32)))
+    for name, kw, atol in (("sphere_stretched_step", dict(Re=100.0), ATOL_3D),
+                           ("sphere_stretched_dynamic_les_step",
+                            dict(Re=500.0, use_les=True, les_model="dynamic"), ATOL_DYNAMIC)):
+        c = sphere_stretched(nx=2 * n, ny=n, nz=nz, **stretch, **kw, **box)
+        ex = c.extras
+        check(name, c.step, c.state, make_sphere3d_stretched_explicit_step(
+            c.cfg, mesh, ex["x_faces"], ex["y_faces"], ex["z_faces"], v_inf=1.0,
+            ibm_ramp_steps=2), atol=atol, extras=trim_face_masks3d(*ex["ibm_masks"]))
+
+    # 6b2) the stretched heated sphere; 6b3) the ghost-cell sphere and the
+    # stretched ghost-cell heated sphere (this rank's tables, momentum and θ)
+    c = heated_sphere_stretched(nx=2 * n, ny=n, nz=nz, Re=100.0, **stretch, **box)
+    ex = c.extras
+    mu, mv, mw, mc = ex["ibm_masks"]
+    check("heated_sphere_stretched_step", c.step, c.state,
+          make_heated_sphere_stretched_explicit_step(c.cfg, mesh, ex["x_faces"], ex["y_faces"],
+                                                     ex["z_faces"], v_inf=1.0, ibm_ramp_steps=2),
+          extras=(*trim_face_masks3d(mu, mv, mw), np.asarray(mc, np.float32)))
+    c = sphere_mac3d(nx=2 * n, ny=n, nz=nz, Re=100.0, ibm_scheme="ghost", **box)
+    check("sphere_ghost_step", c.step, c.state, make_sphere_ghost_mac3d_explicit_step(
+        c.cfg, mesh, c.extras["ibm_ghost"], v_inf=1.0, ibm_ramp_steps=2))
+    c = heated_sphere_stretched(nx=2 * n, ny=n, nz=nz, Re=100.0, ibm_scheme="ghost", **stretch,
+                                **box)
+    ex = c.extras
+    check("heated_sphere_stretched_ghost_step", c.step, c.state,
+          make_heated_sphere_stretched_explicit_step(
+              c.cfg, mesh, ex["x_faces"], ex["y_faces"], ex["z_faces"], v_inf=1.0,
+              ibm_ramp_steps=2, ghost=ex["ibm_ghost"], ghost_c=ex["ibm_ghost_c"]))
+
+    # 6c) the moving sphere, the stretched moving cylinder, their moving
+    # ghosts, the stretched moving sphere
+    # (the moving sphere's box has cubic cells: the moving ghost's window, in
+    # lines, grows with the spacing's anisotropy)
+    lz = 2.0 * nz / n
+    body3 = oscillating_sphere((2.0, 1.0, 0.5 * lz), 0.3, amplitude=0.4, period=4.0)
+    cfg3 = mac3d.MAC3DConfig(grid=Grid3D(nx=2 * n, ny=n, nz=nz, x_max=4.0, y_max=2.0, z_max=lz,
+                                         centering="cell"), nu=0.01, dt_max=0.02)
+    c = cylinder_oscillating(nx=2 * n, ny=n, domain=(4.0, 2.0), center=(2.0, 1.0), radius=0.25,
+                             KC=4.0, period=4.0, stretched=True, refine_strength=1.0, device=dev)
+    cg = cylinder_oscillating(nx=2 * n, ny=n, domain=(4.0, 2.0), center=(2.0, 1.0),
+                              radius=0.25, KC=4.0, period=4.0, stretched=True,
+                              refine_strength=1.0, ibm_scheme="ghost", device=dev)
+    for scheme in ("penalize", "ghost"):
+        tag = "" if scheme == "penalize" else "_ghost"
+        check(f"moving_sphere{tag}_step", mac3d.make_step(
+            cfg3, mac3d.free_slip_bcs3d(), moving_body=body3, moving_scheme=scheme, device=dev),
+            mac3d.init_state(cfg3, device=dev), make_moving_body_mac3d_explicit_step(
+                cfg3, mesh, body3, moving_scheme=scheme))
+        cc = c if scheme == "penalize" else cg
+        check(f"moving_body_stretched{tag}_step", cc.step, cc.state,
+              make_moving_body_stretched_explicit_step(cc.cfg, mesh, cc.extras["x_faces"],
+                                                       cc.extras["y_faces"], cc.extras["body"],
+                                                       moving_scheme=scheme), atol=ATOL)
+    xf = stretched_faces(2 * n, 4.0, refine=[(2.0, 0.5, 1.0)])
+    yf = stretched_faces(n, 2.0, refine=[(1.0, 0.5, 1.0)])
+    zf = stretched_faces(nz, lz, refine=[(0.5 * lz, 0.5, 1.0)])
+    cfg_s3 = ms3.StretchedMAC3DConfig(nx=2 * n, ny=n, nz=nz, nu=0.01, scheme="central",
+                                      dt_max=0.02)
+    check("moving_sphere_stretched_step", ms3.make_step(
+        cfg_s3, mac3d.free_slip_bcs3d(), xf, yf, zf, moving_body=body3, device=dev),
+        ms3.init_state(cfg_s3, device=dev),
+        make_moving_body3d_stretched_explicit_step(cfg_s3, mesh, xf, yf, zf, body3))
+
+    # 6d, 3D half) the heated cube
+    cfg = b3.Boussinesq3DConfig(grid=cube, rayleigh=1e4)
+    check("heated_cube_step", b3.make_step(cfg, device=dev), b3.init_state(cfg, device=dev),
+          make_heated_cube_explicit_step(cfg, mesh))
+    return rows
 
 
 def main(argv=None) -> int:

@@ -24,9 +24,12 @@ red-black SOR (``sharded.rbsor_local``) or the exact pencil DCT
 (``transforms.dct_poisson_local``), with which the projection stays exact
 to float32 rounding across the mesh.
 
-Not ported yet: the moving body (``moving_body=``, penalized or with the
-sharded moving ghost of the JAX package's ``ibm_ghost_explicit.py``) and
-``make_moving_body_mac_explicit_step``; ROADMAP.md item 22b.
+A moving body (``moving_body=``) is forced on each rank's block: its sharp
+face masks rebuilt every step from this rank's lines of the single-device
+step's float32 face coordinates, or, with ``moving_scheme="ghost"``, the
+ghost faces classified again on the block and their probes gathered from
+exchanged windows (``ibm_ghost_explicit.py``); its momentum sums over the
+mesh into the body force.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from cfdsim_tpu_torch.parallel.halo import (
     halo_exchange,
     halo_exchange_edges,
 )
+from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import MovingBodyLocal, moving_ghost_width_2d
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 from cfdsim_tpu_torch.parallel.sharded import rbsor_local, sweep_colours
 from cfdsim_tpu_torch.parallel.transforms import dct_inv_eigenvalues_local, dct_poisson_local
@@ -254,14 +258,35 @@ def _laplacians(U, V, ax: float, ay: float):
     return lap(U), lap(V)
 
 
+def uniform_moving_body(body, scheme: str, g, mesh: GridMesh, local_shape, *,
+                        device) -> MovingBodyLocal:
+    """:class:`MovingBodyLocal` on the uniform MAC grid ``g``: the taper
+    min(dx, dy) and δ = 1.5·min(dx, dy) of ``models/mac.py``, the window of
+    :func:`~cfdsim_tpu_torch.parallel.ibm_ghost_explicit.moving_ghost_width_2d`."""
+    dx, dy = g.dx, g.dy
+    hb = min(dx, dy)
+    xf = g.x_min + np.arange(g.nx + 1) * dx
+    yc = g.y_min + (np.arange(g.ny) + 0.5) * dy
+    xc = g.x_min + (np.arange(g.nx) + 0.5) * dx
+    yf = g.y_min + np.arange(g.ny + 1) * dy
+    return MovingBodyLocal(body, scheme, ((xf, yc), (xc, yf)),
+                           (((g.x_min, dx), (g.y_min + 0.5 * dy, dy)),
+                            ((g.x_min + 0.5 * dx, dx), (g.y_min, dy))), hb, 1.5 * hb,
+                           moving_ghost_width_2d(1.5 * hb, dx, dy), mesh, local_shape,
+                           device=device)
+
+
 class MACExplicitStep(nn.Module):
     """``step(tstate, cfl_scale[, mask_u_t, mask_v_t]) -> (tstate,
     StepMetrics)`` on this rank's trimmed blocks; see
     :func:`make_mac_explicit_step`."""
 
     def __init__(self, cfg: MACConfig, mesh: GridMesh, bcs: MACLocalBCs, use_ibm: bool = False,
-                 ibm_ramp_steps: int = 0, *, device=None):
+                 ibm_ramp_steps: int = 0, moving_body=None, moving_scheme: str = "penalize", *,
+                 device=None):
         super().__init__()
+        if moving_scheme not in ("penalize", "ghost"):
+            raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=4)
         if cfg.poisson.method not in ("rbsor", "dct"):
@@ -301,6 +326,10 @@ class MACExplicitStep(nn.Module):
         self.register_buffer("zero", torch.zeros((), dtype=torch.float32, device=self.device))
         self.register_buffer("visc_num", torch.tensor(0.2 * min(g.dx, g.dy) ** 2,
                                                       dtype=torch.float32, device=self.device))
+        self.moving = None
+        if moving_body is not None:
+            self.moving = uniform_moving_body(moving_body, moving_scheme, g, mesh,
+                                              self.local_shape, device=self.device)
 
     def forward(self, tstate: MACState, cfl_scale, *extras):
         cfg = self.cfg
@@ -416,6 +445,10 @@ class MACExplicitStep(nn.Module):
             u_star = u_star - du_ibm
             v_star = v_star - dv_ibm
             sums = [du_ibm.sum(), dv_ibm.sum()]
+        if self.moving is not None:
+            (u_star, v_star), d_mb = self.moving(
+                (u_star, v_star), tstate.t, ibm_ramp(tstate.step, self.ibm_ramp_steps))
+            sums += [d.sum() for d in d_mb]
 
         # --- the exact projection (the adjoint MAC divergence and gradient)
         US, VS, _ = pad(u_star, v_star, a, 1)
@@ -469,11 +502,12 @@ class MACExplicitStep(nn.Module):
             (lap_n - rhs).abs().amax(),
         ]), mesh).unbind(0)
         totals = psum(torch.stack([(0.5 * (ucc * ucc + vcc * vcc)).sum(), *sums]), mesh)
+        # each body's momentum sink, summed over the mesh, is its force
         fx = fy = zero
-        if self.use_ibm:
-            cell = dx * dy
-            fx = totals[1] * cell / dt
-            fy = totals[2] * cell / dt
+        cell = dx * dy
+        for k in range(1, len(sums), 2):
+            fx = fx + totals[k] * cell / dt
+            fy = fy + totals[k + 1] * cell / dt
         return new_tstate, StepMetrics(
             dt=dt, div_pre=div_pre, div_post=div_post_m, max_vel=max_vel,
             energy=totals[0] / self.n_global, vort_max=vort_max, poisson_res=poisson_res,
@@ -482,20 +516,18 @@ class MACExplicitStep(nn.Module):
 
 def make_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, bcs: MACLocalBCs,
                            use_ibm: bool = False, ibm_ramp_steps: int = 0, moving_body=None,
-                           *, device=None) -> MACExplicitStep:
+                           moving_scheme: str = "penalize", *, device=None) -> MACExplicitStep:
     """Build the explicit-communication MAC step on the trimmed blocks.
 
     Returns ``step(tstate, cfl_scale[, mask_u_t, mask_v_t]) -> (tstate,
     StepMetrics)``. The optional IBM masks are this rank's blocks of the
     face-sampled penalization masks, *trimmed* (``trim_face_masks``), whose
-    boundary-adjacent lines must be zero. ``moving_body`` is not ported yet
-    and raises ``NotImplementedError``."""
-    if moving_body is not None:
-        raise NotImplementedError(
-            "the distributed MAC step's moving body (penalized or moving ghost) is not ported "
-            "yet: ROADMAP.md item 22b (ibm_ghost_explicit.py, "
-            "make_moving_body_mac_explicit_step)")
-    return MACExplicitStep(cfg, mesh, bcs, use_ibm, ibm_ramp_steps, device=device)
+    boundary-adjacent lines must be zero. ``moving_body`` (``ibm.MovingBody``)
+    is forced toward its velocity by sharp masks rebuilt every step or, with
+    ``moving_scheme="ghost"``, by the moving ghost (the body at least the
+    ghost's halo width + 1 samples inside the domain)."""
+    return MACExplicitStep(cfg, mesh, bcs, use_ibm, ibm_ramp_steps, moving_body, moving_scheme,
+                           device=device)
 
 
 def trim_face_masks(mask_u, mask_v):
@@ -533,3 +565,15 @@ def make_cylinder_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, v_inf: float
                                       perturb_ramp_steps=perturb_ramp_steps, mesh=mesh)
     return make_mac_explicit_step(cfg, mesh, bcs, use_ibm=True, ibm_ramp_steps=ibm_ramp_steps,
                                   device=device)
+
+
+def make_moving_body_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, moving_body,
+                                       ibm_ramp_steps: int = 0, moving_scheme: str = "penalize",
+                                       *, device=None) -> MACExplicitStep:
+    """The explicit-communication MAC step of a moving body
+    (``ibm.MovingBody``) in a quiescent free-slip box, the distributed twin
+    of the ``cylinder_oscillating`` case: ``step(tstate, cfl_scale)``."""
+    g = cfg.grid
+    return make_mac_explicit_step(cfg, mesh, free_slip_mac_local_bcs(g.ny, g.nx),
+                                  moving_body=moving_body, ibm_ramp_steps=ibm_ramp_steps,
+                                  moving_scheme=moving_scheme, device=device)

@@ -16,7 +16,7 @@ through ``torch.distributed.nn.functional``, so gradients flow through it.
   ``solvers/poisson3d.py`` made multi-rank (the 3D one keeps z local);
 - :func:`make_fdm_poisson_local`, :func:`make_fdm_poisson3d_local`: the
   stretched grids' fast diagonalization of ``solvers/fdm.py`` (float32
-  products with TF32 off, as there);
+  products with TF32 off, in its order, on its float64 1/λ);
 - :func:`dst_helmholtz_local`: the Dirichlet implicit-viscous Helmholtz
   solve of ``solvers/helmholtz.py``.
 
@@ -198,83 +198,84 @@ def _f32(a, device):
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
+def _x_pencil_rows(local_shape, mesh: GridMesh) -> slice:
+    """Global y indices of this rank's x-pencil rows: the pencil holds rows
+    iy·ny_l + ix·r … + r − 1, r = ny_l/px."""
+    r = local_shape[0] // max(mesh.px, 1)
+    start = mesh.iy * local_shape[0] + mesh.ix * r
+    return slice(start, start + r)
+
+
+def _inv_lam(lam: np.ndarray, nullspace_tol: float) -> np.ndarray:
+    """1/λ of the Neumann eigenvalues, 0 on the constant mode: the
+    single-device solver's float64 table (``solvers/fdm.py``)."""
+    scale = max(np.abs(lam).max(), 1.0)
+    with np.errstate(divide="ignore"):
+        return np.where(np.abs(lam) < nullspace_tol * scale, 0.0, 1.0 / lam)
+
+
 def make_fdm_poisson_local(hx, hy, mesh: GridMesh, nullspace_tol: float = 1e-10):
     """Distributed fast-diagonalization Poisson solve for *stretched* grids
-    (``solvers/fdm.py`` made multi-rank): returns ``solve(rhs_b)``. The dense
-    eigenbasis products run on locally complete pencil axes with the six
-    all-to-alls of :func:`dct_poisson_local`; the division happens in the
-    y-pencil layout at global spectral indices."""
+    (``solvers/fdm.py`` made multi-rank): returns ``solve(rhs_b)`` for
+    blocks of ``mesh``'s layout. The dense eigenbasis products run on
+    locally complete pencil axes in the single-device solver's order (y,
+    x, then back y, x: eight all-to-alls), and the spectral division reads
+    this rank's slice of its float64 1/λ table, so at world size 1 the
+    solve is the single-device one."""
     hx = np.asarray(hx, np.float64)
     hy = np.asarray(hy, np.float64)
     lx, Vx, Vxi = _eig_similar_symmetric(neumann_operator_1d(hx), hx)
     ly, Vy, Vyi = _eig_similar_symmetric(neumann_operator_1d(hy), hy)
-    scale = max(np.abs(ly[:, None] + lx[None, :]).max(), 1.0)
-    tol = nullspace_tol * scale
+    inv_lam = _inv_lam(ly[:, None] + lx[None, :], nullspace_tol)
+    local_shape = (len(hy) // mesh.py, len(hx) // mesh.px)
+    _check_pencil(local_shape, mesh.py, mesh.px)
     dev = mesh.device
     VxT, VxiT, Vy_c, Vyi_c = (_f32(a, dev) for a in (Vx.T, Vxi.T, Vy, Vyi))
-    lx_c, ly_c = _f32(lx, dev), _f32(ly, dev)
+    inv_lam_c = _f32(inv_lam[_x_pencil_rows(local_shape, mesh)], dev)  # the x-pencil's rows
 
     def solve(rhs_b):
         _check_pencil(rhs_b.shape, mesh.py, mesh.px)
-        nx_l = rhs_b.shape[1]
-        q = nx_l // max(mesh.py, 1)
-        start = mesh.ix * nx_l + mesh.iy * q
         with full_fp32_matmul():
-            t = to_x_pencil(rhs_b, mesh)
-            t = t @ VxiT
-            t = from_x_pencil(t, mesh)
-            t = to_y_pencil(t, mesh)
-            t = Vyi_c @ t
-            lam = ly_c[:, None] + lx_c[start:start + q][None, :]
-            small = lam.abs() < tol
-            t = t * torch.where(small, 0.0, 1.0 / torch.where(small, 1.0, lam))
-            t = Vy_c @ t
-            t = from_y_pencil(t, mesh)
-            t = to_x_pencil(t, mesh)
-            t = t @ VxT
-            return from_x_pencil(t, mesh).to(rhs_b.dtype)
+            t = from_y_pencil(Vyi_c @ to_y_pencil(rhs_b, mesh), mesh)
+            t = to_x_pencil(t, mesh) @ VxiT
+            t = from_x_pencil(t * inv_lam_c, mesh)
+            t = from_y_pencil(Vy_c @ to_y_pencil(t, mesh), mesh)
+            return from_x_pencil(to_x_pencil(t, mesh) @ VxT, mesh).to(rhs_b.dtype)
 
     return solve
 
 
 def make_fdm_poisson3d_local(hx, hy, hz, mesh: GridMesh, nullspace_tol: float = 1e-10):
     """Distributed 3D fast-diagonalization Neumann Poisson solve for
-    stretched grids on (nz, ny_l, nx_l) blocks: the z product is local, x
-    and y ride the pencil all-to-alls (``make_fdm_solver_3d`` made
-    multi-rank)."""
+    stretched grids on (nz, ny_l, nx_l) blocks (``make_fdm_solver_3d`` made
+    multi-rank): the products in the single-device solver's order (x, y,
+    z, then back z, y, x), x and y on pencils, z local, the division on
+    this rank's slice of its float64 1/λ table (six all-to-alls)."""
     hx, hy, hz = (np.asarray(a, np.float64) for a in (hx, hy, hz))
     lx, Vx, Vxi = _eig_similar_symmetric(neumann_operator_1d(hx), hx)
     ly, Vy, Vyi = _eig_similar_symmetric(neumann_operator_1d(hy), hy)
     lz, Vz, Vzi = _eig_similar_symmetric(neumann_operator_1d(hz), hz)
-    scale = max(np.abs(lz[:, None, None] + ly[None, :, None] + lx[None, None, :]).max(), 1.0)
-    tol = nullspace_tol * scale
+    inv_lam = _inv_lam(lz[:, None, None] + ly[None, :, None] + lx[None, None, :], nullspace_tol)
+    ny_l, nx_l = len(hy) // mesh.py, len(hx) // mesh.px
+    _check_pencil3d((len(hz), ny_l, nx_l), mesh.py, mesh.px)
+    q = nx_l // max(mesh.py, 1)
+    start = mesh.ix * nx_l + mesh.iy * q
     dev = mesh.device
     VxT, VxiT, Vy_c, Vyi_c, Vz_c, Vzi_c = (_f32(a, dev) for a in (Vx.T, Vxi.T, Vy, Vyi, Vz,
                                                                     Vzi))
-    lx_c, ly_c, lz_c = _f32(lx, dev), _f32(ly, dev), _f32(lz, dev)
+    inv_lam_c = _f32(inv_lam[:, :, start:start + q], dev)  # the y-pencil's columns
 
     def solve(rhs_b):
         _check_pencil3d(rhs_b.shape, mesh.py, mesh.px)
-        nx_l = rhs_b.shape[2]
-        q = nx_l // max(mesh.py, 1)
-        start = mesh.ix * nx_l + mesh.iy * q
         with full_fp32_matmul():
-            t = torch.einsum("ab,byx->ayx", Vzi_c, rhs_b)  # z (local)
-            t = _a2a(t, mesh, "x", 1, 2)
-            t = t @ VxiT  # x (pencil)
-            t = _a2a(t, mesh, "x", 2, 1)
-            t = _a2a(t, mesh, "y", 2, 1)
+            t = _a2a(rhs_b, mesh, "x", 1, 2) @ VxiT  # x (pencil)
+            t = _a2a(_a2a(t, mesh, "x", 2, 1), mesh, "y", 2, 1)
             t = torch.einsum("ab,zbx->zax", Vyi_c, t)  # y (pencil)
-            lam = (lz_c[:, None, None] + ly_c[None, :, None]
-                   + lx_c[start:start + q][None, None, :])
-            small = lam.abs() < tol
-            t = t * torch.where(small, 0.0, 1.0 / torch.where(small, 1.0, lam))
+            t = torch.einsum("ab,byx->ayx", Vzi_c, t)  # z (local)
+            t = torch.einsum("ab,byx->ayx", Vz_c, t * inv_lam_c)
             t = torch.einsum("ab,zbx->zax", Vy_c, t)
-            t = _a2a(t, mesh, "y", 1, 2)
-            t = _a2a(t, mesh, "x", 1, 2)
-            t = t @ VxT
-            t = _a2a(t, mesh, "x", 2, 1)
-            return torch.einsum("ab,byx->ayx", Vz_c, t).to(rhs_b.dtype)
+            t = _a2a(_a2a(t, mesh, "y", 1, 2), mesh, "x", 1, 2) @ VxT
+            return _a2a(t, mesh, "x", 2, 1).to(rhs_b.dtype)
 
     return solve
 

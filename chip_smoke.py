@@ -180,7 +180,20 @@ and the final ``{"ok": true, ...}`` line is not printed:
    tests' tolerances), each with its ms and device events per step beside
    the single-device step's (loop and captured); the sharded MAC gradient
    (16², rbsor 20, 4 steps) against the single-device one within 1e-5 of
-   max|g|; no kernel launched; the group destroyed at the end
+   max|g|; no kernel launched
+5p. the 2D staggered and 3D distributed steps (``phase_distributed_slices``)
+   on the same group, at full width, each against its single-device step
+   at the JAX tests' tolerances on the trimmed faces (θ too) and its
+   metrics (p's largest |Δ| printed beside max|p|), profiled beside it:
+   the 256³ ``cavity3d_mac`` (3 steps, u, v, w 2e-5), ``sphere()`` at
+   192×96×96 (2e-5, fx 1e-4), the Re = 3900 stretched ghost sphere with
+   dynamic LES of ``bench.sphere_paths`` on the central scheme and without
+   its inlet perturbation (5e-5, fx 3e-4), ``heated_sphere_stretched`` (its
+   defaults, central; 2e-5, Nu 2e-4), ``heated_cube()`` (10 steps, 5e-5, Nu
+   1e-4 and 1e-3), ``cylinder_oscillating()`` 480×240 with the moving ghost
+   (2e-5, forces 2e-4) and ``cylinder_stretched()`` 512×256 (2e-5, forces
+   1e-4), 5 steps where not said; no kernel launched; the group destroyed
+   at the end
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -510,6 +523,9 @@ DIST_STEPS, BQ_DIST_STEPS = 20, 40
 # 5), `bench --all`'s marginal chunks (2D, 3D; were 10-30 and 3-9) and the
 # FEM cells' profiled steps (5 before)
 PROFILE_STEPS, PROFILE_STEPS_3D = 3, 2
+# the 2D staggered and 3D distributed steps at world size 1 (phase 5p):
+# steps held against the single-device step, and the profiled steps
+DIST_SLICE_STEPS, DIST_SLICE_STEPS_CUBE, DIST_SLICE_PROFILE = 5, 10, 2
 SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -2267,8 +2283,143 @@ def phase_distributed(card):
         launches = _counts()
         if any(launches.values()):
             raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
-    finally:
+    except BaseException:
         torch.distributed.destroy_process_group()
+        raise
+    return mesh
+
+
+class _Bound:
+    """A distributed step with its call-time blocks (masks) bound, for a
+    chunk: ``bound(state, cfl_scale)``; it keeps the step's route facts."""
+
+    def __init__(self, step, extras):
+        self.step, self.extras = step, tuple(extras)
+        self.device, self.reads_host, self.collectives = step.device, False, True
+
+    def __call__(self, state, cfl_scale):
+        return self.step(state, cfl_scale, *self.extras)
+
+
+def _trimmed(state):
+    """The trimmed faces (2D or 3D) of a full state, as the distributed steps
+    hold them."""
+    if state.u.ndim == 2:
+        return state._replace(u=state.u[:, :-1], v=state.v[:-1, :])
+    return state._replace(u=state.u[:, :, :-1], v=state.v[:, :-1, :], w=state.w[:-1])
+
+
+def _dist_pair(label, case, step, mesh, card, steps, atol, extras=(), metric_tols=None,
+               **fields):
+    """``steps`` of the distributed ``step`` (its blocks cut from the full
+    state) against the case's single-device step from the same state: the
+    trimmed faces (θ too) within ``atol`` and each metric in
+    ``metric_tols`` within its (rtol, atol) (the JAX tests'); p's largest
+    |Δ| is printed beside max|p| (the tier-1 twins hold it at the JAX tests'
+    sizes: here the projection divides the predictor's rounding by dt, and
+    the faces bound ∇φ's error by atol/dt); then both profiled."""
+    from cfdsim_tpu_torch.parallel import block_state, gather_state, local_block
+
+    blocks = tuple(local_block(x, mesh) for x in extras)
+    d, r = block_state(_trimmed(case.state), mesh), case.state
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        d, md = step(d, 1.0, *blocks)
+        r, mr = case.step(r, 1.0)
+    torch.cuda.synchronize()
+    g, ref = gather_state(d, mesh), _trimmed(r)
+    names = [k for k in ("u", "v", "w", "theta") if hasattr(ref, k)]
+    _within(f"distributed_{label}", torch.cat([getattr(g, k).reshape(-1) for k in names]),
+            torch.cat([getattr(ref, k).reshape(-1) for k in names]), 0.0, atol, fields=names,
+            steps=steps, seconds=time.perf_counter() - t0, **fields)
+    say(f"distributed_{label}_p", max_abs_err=float((g.p - ref.p).abs().max()),
+        max_abs_p=float(ref.p.abs().max()))
+    for k, (rtol, atol_m) in (metric_tols or {}).items():
+        _within(f"distributed_{label}_{k}", getattr(md, k).reshape(1),
+                getattr(mr, k).reshape(1), rtol, atol_m)
+    _profile_pair(label, case.cfg, _Bound(step, blocks), d, case, card,
+                  steps=DIST_SLICE_PROFILE)
+
+
+def phase_distributed_slices(card, mesh):
+    """The 2D staggered and 3D distributed steps (items 22b and 22c) on the
+    NCCL group of world size 1 that ``phase_distributed`` opened, at full
+    width: each held against its single-device step at the JAX tests'
+    tolerances and profiled beside it; no kernel launched."""
+    from cfdsim_tpu_torch.parallel import (
+        make_cavity3d_mac_explicit_step,
+        make_cylinder_stretched_explicit_step,
+        make_heated_cube_explicit_step,
+        make_heated_sphere_stretched_explicit_step,
+        make_moving_body_mac_explicit_step,
+        make_sphere_ghost3d_stretched_explicit_step,
+        make_sphere_mac3d_explicit_step,
+        trim_face_masks,
+        trim_face_masks3d,
+    )
+
+    _reset_counts()
+    steps = DIST_SLICE_STEPS
+    # the 256³ lid-driven cavity through the 3D DCT (BASELINE.json config 5)
+    case = build("cavity3d_mac", n=256, device="cuda")
+    _dist_pair("cavity3d_mac256", case, make_cavity3d_mac_explicit_step(case.cfg, mesh), mesh,
+               card, 3, 2e-5, n=256)
+    del case
+    # sphere() at 192×96×96 (TVD, penalization masks)
+    case = build("sphere", device="cuda")
+    _dist_pair("sphere192x96x96", case,
+               make_sphere_mac3d_explicit_step(case.cfg, mesh, v_inf=1.0, ibm_ramp_steps=200),
+               mesh, card, steps, 2e-5, trim_face_masks3d(*case.extras["ibm_masks"]),
+               {"fx": (1e-4, 1e-6)})
+    del case
+    # the Re = 3900 stretched ghost sphere with dynamic LES (bench.sphere_paths'
+    # configuration on the central scheme, the distributed stretched tier's
+    # one, and without its inlet perturbation, which the distributed
+    # external-flow BCs do not take)
+    case = build("sphere_stretched", Re=3900.0, scheme="central", ibm_scheme="ghost",
+                 use_les=True, les_model="dynamic", device="cuda")
+    ex = case.extras
+    _dist_pair("sphere_stretched192x96x96_ghost_dynamic_les", case,
+               make_sphere_ghost3d_stretched_explicit_step(
+                   case.cfg, mesh, ex["x_faces"], ex["y_faces"], ex["z_faces"], ex["ibm_ghost"],
+                   v_inf=1.0, ibm_ramp_steps=200), mesh, card, steps, 5e-5,
+               metric_tols={"fx": (3e-4, 1e-6)})
+    del case, ex
+    # the stretched heated sphere (its defaults on the central scheme)
+    case = build("heated_sphere_stretched", scheme="central", device="cuda")
+    ex = case.extras
+    mu, mv, mw, mc = ex["ibm_masks"]
+    _dist_pair("heated_sphere_stretched192x96x96", case,
+               make_heated_sphere_stretched_explicit_step(
+                   case.cfg, mesh, ex["x_faces"], ex["y_faces"], ex["z_faces"], v_inf=1.0,
+                   ibm_ramp_steps=200), mesh, card, steps, 2e-5,
+               extras=(*trim_face_masks3d(mu, mv, mw), np.asarray(mc, np.float32)),
+               metric_tols={"nusselt": (2e-4, 0.0)})
+    del case, ex
+    # the heated cube at its defaults (48³)
+    case = build("heated_cube", device="cuda")
+    _dist_pair("heated_cube48", case, make_heated_cube_explicit_step(case.cfg, mesh), mesh,
+               card, DIST_SLICE_STEPS_CUBE, 5e-5,
+               metric_tols={"nu_hot_wall": (1e-4, 0.0), "nu_mid": (1e-3, 1e-4)})
+    del case
+    # 2D: the oscillating cylinder (480×240) with the moving ghost, and the
+    # stretched cylinder (512×256)
+    case = build("cylinder_oscillating", ibm_scheme="ghost", device="cuda")
+    _dist_pair("cylinder_oscillating480x240_ghost", case, make_moving_body_mac_explicit_step(
+        case.cfg, mesh, case.extras["body"], moving_scheme="ghost"), mesh, card, steps, 2e-5,
+        metric_tols={"fx": (2e-4, 1e-6), "fy": (2e-4, 1e-6)})
+    del case
+    case = build("cylinder_stretched", device="cuda")
+    ex = case.extras
+    _dist_pair("cylinder_stretched512x256", case, make_cylinder_stretched_explicit_step(
+        case.cfg, mesh, ex["x_faces"], ex["y_faces"], v_inf=1.0, perturb_ramp_steps=200,
+        ibm_ramp_steps=200), mesh, card, steps, 2e-5,
+        trim_face_masks(ex["ibm_mask_u"], ex["ibm_mask_v"]),
+        {"fx": (1e-4, 1e-6), "fy": (1e-4, 1e-6)})
+    del case, ex
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
 
 
 def phase_timings(card):
@@ -2432,7 +2583,11 @@ def main() -> int:
     phase(phase_new_tiers_resume)
     phase(phase_fem, card)
     phase(phase_gradients, card)
-    phase(phase_distributed, card)
+    mesh = phase(phase_distributed, card)
+    try:
+        phase(phase_distributed_slices, card, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
     pred_launches = phase(phase_main_path)
     cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
     mg = phase(phase_mg_cavity)

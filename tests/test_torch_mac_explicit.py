@@ -349,13 +349,6 @@ def test_mac_explicit_cavity_les_matches(results):
     np.testing.assert_allclose(got["metrics"]["energy"], float(m_ref.energy), rtol=1e-5)
 
 
-def test_mac_explicit_moving_body_is_not_ported_yet():
-    from cfdsim_tpu_torch.parallel.mac_explicit import make_mac_explicit_step
-
-    with pytest.raises(NotImplementedError, match="22b"):
-        make_mac_explicit_step(None, None, None, moving_body=object())
-
-
 def _jax_boussinesq(case, steps):
     import jax
     import jax.numpy as jnp

@@ -262,8 +262,15 @@ def test_dryrun_on_gloo_ranks(capsys):
 
     assert main(["--ranks", "4", "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["check"] for r in rows[:-1]] == ["rbsor_solve", "cavity_step",
-                                               "mac_cavity_step", "heated_cavity_step"]
+    assert [r["check"] for r in rows[:-1]] == [
+        "rbsor_solve", "cavity_step", "mac_cavity_step", "heated_cavity_step",
+        "moving_body_step", "cavity3d_mac_step", "cavity3d_mac_tvd_les_step",
+        "cavity3d_mac_dynamic_les_step", "sphere_step", "heated_sphere_step",
+        "sphere_stretched_step", "sphere_stretched_dynamic_les_step",
+        "heated_sphere_stretched_step", "sphere_ghost_step", "heated_sphere_stretched_ghost_step",
+        "moving_sphere_step", "moving_body_stretched_step", "moving_sphere_ghost_step",
+        "moving_body_stretched_ghost_step", "moving_sphere_stretched_step", "heated_cube_step"]
+    assert all(r["ok"] for r in rows[:-1])
     assert rows[-1] == {"dryrun_ok": True, "ranks": 4, "mesh": [2, 2], "device": "cpu"}
 
 
