@@ -305,7 +305,10 @@ def _metrics(dt, div_pre, div_post, max_vel, energy, vort_max, relres, fx, fy):
 class _ImplicitSolver:
     """The monolithic step's linear system A(u_prev, inv_dt) x = b(u_prev,
     p_prev, inv_dt) and its preconditioner (the JAX package's
-    ``_make_implicit_solver``)."""
+    ``_make_implicit_solver``). ``capture``: the forward GMRES captures its
+    iterations on a CUDA device (``solvers/krylov.py``)."""
+
+    capture = True
 
     def __init__(self, ops, cfg, g, bf, fq, counts):
         self.ops, self.cfg, self.g, self.bf, self.fq = ops, cfg, g, bf, fq
@@ -378,7 +381,7 @@ class _ImplicitSolve(torch.autograd.Function):
         solver.inv_dt.copy_(inv_dt)
         solver.M.update(inv_dt)
         u, p = _gmres(solver.A, b, (u_prev, p_prev), solver.M, solver.cfg, solver.counts,
-                      workspace=solver.workspace)
+                      capture=solver.capture, workspace=solver.workspace)
         ctx.solver = solver
         ctx.save_for_backward(u_prev, p_prev, inv_dt, u, p)
         return u, p
@@ -502,6 +505,7 @@ class FEMProjectionStep(nn.Module):
     """
 
     reads_host = True
+    capture = True  # the Krylov solves capture their iterations on a CUDA device
 
     def __init__(self, ops: ElementOps, cfg: FEMConfig, g, p_out_nodes, force_nodes=None,
                  body_force: Optional[Callable] = None):
@@ -536,9 +540,20 @@ class FEMProjectionStep(nn.Module):
                      if cfg.pp_pc != "jacobi" else None)
             self.Mp = make_pressure_pc(level, inv_dp_k, Ap=self.Ap, kind=cfg.pp_pc)
 
+    # the assembled operators, one place each (the element-sharded step,
+    # ``parallel/fem_explicit.py``, assembles them on its ranks' elements)
+    def grad_p(self, q):
+        return apply_grad_p(self.ops, q)
+
+    def div_u(self, u):
+        return apply_div_u(self.ops, u)
+
+    def stiffness_p(self, q):
+        return apply_stiffness_p(self.ops, q)
+
     def corr_of(self, q):
         """Velocity correction direction M_L⁻¹ G q, zero on Dirichlet rows."""
-        c = self.inv_ml[:, None] * apply_grad_p(self.ops, q)
+        c = self.inv_ml[:, None] * self.grad_p(q)
         return torch.where(self.ops.dir_mask[:, None], 0.0, c)
 
     def Ap(self, q):
@@ -547,9 +562,9 @@ class FEMProjectionStep(nn.Module):
         B P M_L⁻¹ Bᵀ, matrix-free."""
         q0 = torch.where(self.pm, 0.0, q)
         if self.ops.kind != "p1p1":
-            y = -apply_div_u(self.ops, self.corr_of(q0))
+            y = -self.div_u(self.corr_of(q0))
         else:
-            y = apply_stiffness_p(self.ops, q0)
+            y = self.stiffness_p(q0)
         return torch.where(self.pm, q, y)
 
     def Am(self, v):
@@ -564,6 +579,25 @@ class FEMProjectionStep(nn.Module):
     def Mu(self, v):
         """The predictor's Jacobi preconditioner."""
         return self.inv_du * v
+
+    def explicit_rhs(self, rhs_base, u_prev, tau_su):
+        """rhs_base − (1−θ)(νK + C(ū) [+ S(ū)])·u_prev, the θ-scheme's
+        explicit share."""
+        th = self.th
+        rhs_base = rhs_base - apply_momentum_conv(self.ops, u_prev, (1.0 - th) * self.cfg.nu,
+                                                  None, (1.0 - th) * u_prev)
+        if tau_su is not None:
+            rhs_base = rhs_base - (1.0 - th) * apply_su(self.ops, u_prev, u_prev, tau_su)
+        return rhs_base
+
+    def momentum_residual(self, u_new, p_new, u_prev, inv_dt, tau_su, rhs_base):
+        """The scheme's own momentum balance at (u_new, p_new), no Dirichlet
+        rows replaced: the reaction force's residual."""
+        th = self.th
+        yu = apply_momentum_conv(self.ops, u_new, th * self.cfg.nu, inv_dt, th * u_prev)
+        if tau_su is not None:
+            yu = yu + th * apply_su(self.ops, u_new, u_prev, tau_su)
+        return yu + self.grad_p(p_new) - rhs_base
 
     def forward(self, state: FEMState, cfl_scale=1.0):
         with full_fp32_matmul():
@@ -585,27 +619,25 @@ class FEMProjectionStep(nn.Module):
             tau_su.copy_(cfg.supg * su_tau(ops, u_prev, cfg.nu, inv_dt))
         rhs_base = inv_dt * apply_mass_u(ops, u_prev)
         if th != 1.0:
-            rhs_base = rhs_base - apply_momentum_conv(ops, u_prev, (1.0 - th) * cfg.nu, None,
-                                                      (1.0 - th) * u_prev)
-            if tau_su is not None:
-                rhs_base = rhs_base - (1.0 - th) * apply_su(ops, u_prev, u_prev, tau_su)
+            rhs_base = self.explicit_rhs(rhs_base, u_prev, tau_su)
         if self.bf is not None:
             rhs_base = rhs_base + self.bf
-        rhs_u = rhs_base - apply_grad_p(ops, p_prev)
+        rhs_u = rhs_base - self.grad_p(p_prev)
         b = torch.where(dm, self.g, rhs_u)
 
         du, _ = operator_diag(ops, th * cfg.nu, inv_dt, None)
         self.inv_du.copy_((1.0 / torch.where(ops.dir_mask, 1.0, du))[:, None])
-        u_star = _gmres(self.Am, b, u_prev, self.Mu, cfg, self.counts,
+        u_star = _gmres(self.Am, b, u_prev, self.Mu, cfg, self.counts, capture=self.capture,
                         workspace=self.workspace_u)
 
         # --- 2. pressure-increment Poisson
-        div_star = apply_div_u(ops, u_star)
+        div_star = self.div_u(u_star)
         bp = torch.where(self.pm, 0.0, -inv_dt * div_star)
         phi0 = (torch.zeros_like(bp) if state.phi is None
                 else torch.where(self.pm, 0.0, state.phi))
         phi = cg(self.Ap, bp, x0=phi0, M=self.Mp, tol=cfg.pp_tol, atol=0.0,
-                 maxiter=cfg.pp_maxiter, counts=self.counts, workspace=self.workspace_p)
+                 maxiter=cfg.pp_maxiter, counts=self.counts, capture=self.capture,
+                 workspace=self.workspace_p)
 
         # --- 3. correction
         u_new = u_star - dt * self.corr_of(phi)
@@ -630,10 +662,7 @@ class FEMProjectionStep(nn.Module):
         if self.fmask is not None:
             # the reaction force from the scheme's own momentum balance at
             # (u_new, p_new)
-            yu = apply_momentum_conv(ops, u_new, th * cfg.nu, inv_dt, th * u_prev)
-            if tau_su is not None:
-                yu = yu + th * apply_su(ops, u_new, u_prev, tau_su)
-            res_u = yu + apply_grad_p(ops, p_new) - rhs_base
+            res_u = self.momentum_residual(u_new, p_new, u_prev, inv_dt, tau_su, rhs_base)
             fx = -torch.sum(self.fmask * res_u[:, 0])
             fy = -torch.sum(self.fmask * res_u[:, 1])
 

@@ -24,11 +24,14 @@ step on it, every collective placed by hand:
 - ``transport3d_explicit``: the heated sphere (uniform and stretched);
 - ``boussinesq_explicit``, ``boussinesq3d_explicit``: the heated cavity,
   Rayleigh–Bénard and the heated cube;
+- ``spectral_ps_explicit``: the pseudo-spectral vorticity step, every FFT2
+  a pencil pipeline;
+- ``fem_explicit``: the unstructured FEM steps (monolithic, projection,
+  steady Stokes) with element-partitioned assembly;
 - ``launch``: gloo ranks on the CPU (``spawn``), for tests and the dry run.
 
 The JAX package's GSPMD half (``shard_state``, ``make_sharded_step``,
-``make_sharded_mac_step``) has no counterpart here. Not ported yet: the
-spectral and FEM tiers (ROADMAP.md item 22d).
+``make_sharded_mac_step``) has no counterpart here.
 """
 
 from cfdsim_tpu_torch.parallel.boussinesq_explicit import (
@@ -48,6 +51,11 @@ from cfdsim_tpu_torch.parallel.boussinesq3d_explicit import (
     trim_boussinesq3d_state,
     untrim_boussinesq3d_state,
 )
+from cfdsim_tpu_torch.parallel.fem_explicit import (
+    make_projection_step as make_fem_projection_explicit_step,
+)
+from cfdsim_tpu_torch.parallel.fem_explicit import make_sharded_ns_apply, solve_stokes_sharded
+from cfdsim_tpu_torch.parallel.fem_explicit import make_step as make_fem_explicit_step
 from cfdsim_tpu_torch.parallel.halo import halo_exchange, make_sharded_stencil
 from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
     MovingGhostGeometry,
@@ -109,6 +117,11 @@ from cfdsim_tpu_torch.parallel.mesh import (
     make_grid_mesh,
 )
 from cfdsim_tpu_torch.parallel.sharded import make_sharded_poisson, rbsor_local
+from cfdsim_tpu_torch.parallel.spectral_ps_explicit import (
+    full_spectrum_state,
+    half_spectrum_state,
+    make_ps_explicit_step,
+)
 from cfdsim_tpu_torch.parallel.transforms import (
     dct_poisson3d_local,
     dct_poisson_local,
@@ -189,4 +202,11 @@ __all__ = [
     "trim_boussinesq3d_state",
     "untrim_boussinesq3d_state",
     "shard_boussinesq3d_state",
+    "full_spectrum_state",
+    "half_spectrum_state",
+    "make_ps_explicit_step",
+    "make_sharded_ns_apply",
+    "make_fem_explicit_step",
+    "make_fem_projection_explicit_step",
+    "solve_stokes_sharded",
 ]

@@ -11,10 +11,12 @@ heated sphere and the stretched sphere (with dynamic LES), (6b2) the
 stretched heated sphere, (6b3) the ghost-cell sphere and the stretched
 ghost-cell heated sphere, (6c) the moving sphere, the stretched moving
 cylinder, their moving ghosts and the stretched moving sphere, (6d) the
-heated cavity and the heated cube; each one call on the mesh, held against
+heated cavity and the heated cube, (7) the element-sharded FEM monolithic
+step and (7b) its projection step on the JAX dry run's ``cylinder_fem``
+(re 80, h_far 0.5, h_near 0.12), (8) the pencil-FFT pseudo-spectral step
+at ny = max(2n, py·px·max(py, px)); each one call on the mesh, held against
 the single-device solver or step from the same input (its steps 1, 3 and
-6e are GSPMD and have no counterpart here; 7, 7b and 8 are the spectral
-and FEM tiers, not ported yet). ``--device cuda``
+6e are GSPMD and have no counterpart here). ``--device cuda``
 (the default) runs one NCCL rank per card and needs ``--ranks`` cards;
 ``--device cpu`` runs gloo ranks on the CPU. Prints one JSON line per check
 and exits non-zero if a check fails.
@@ -33,10 +35,13 @@ from cfdsim_tpu_torch.parallel.launch import spawn
 
 # the largest |Δ| a check allows: float32 sums in another order (the 3D
 # steps: the JAX tests' 2e-5; their dynamic LES 5e-5, its C_s² a sum over
-# the mesh)
+# the mesh); relative to the largest value, the FEM steps' u (5e-4, the
+# Krylov solves stop at their tolerance) and the spectral step's ω (2e-5)
 ATOL = 1e-5
 ATOL_3D = 2e-5
 ATOL_DYNAMIC = 5e-5
+RTOL_FEM = 5e-4
+RTOL_PS = 2e-5
 
 
 def _dryrun(mesh):
@@ -103,7 +108,61 @@ def _dryrun(mesh):
     diff("heated_cavity_step", torch.stack([got.u, got.v, got.theta]),
          torch.stack([ref.u[:, :-1], ref.v[:-1, :], ref.theta]), n=n)
     rows += _dryrun_staggered_3d(mesh, n)
+    rows += _dryrun_fem_spectral(mesh, n)
     return {"mesh": [mesh.py, mesh.px], "rows": rows}
+
+
+def _dryrun_fem_spectral(mesh, n: int):
+    """Steps 7, 7b (the element-sharded FEM steps, elements split over every
+    rank) and 8 (the pencil-FFT pseudo-spectral step)."""
+    from cfdsim_tpu_torch.cases import build
+    from cfdsim_tpu_torch.models import spectral_ps as ps
+    from cfdsim_tpu_torch.models.fem import make_projection_step, make_step
+    from cfdsim_tpu_torch.parallel import (
+        block_state,
+        full_spectrum_state,
+        gather_state,
+        make_fem_explicit_step,
+        make_fem_projection_explicit_step,
+        make_ps_explicit_step,
+    )
+
+    dev = mesh.device
+    rows = []
+
+    def rel(name, got, want, rtol, **fields):
+        scale = float(want.abs().max())
+        rows.append({"check": name, "max_abs_err": float((got - want).abs().max()),
+                     "atol": rtol * scale, **fields})
+
+    # 7) and 7b) the FEM steps, replicated DOF vectors, one all-reduce per
+    # operator application
+    case = build("cylinder_fem", re=80, h_far=0.5, h_near=0.12, viz_shape=(24, 36),
+                 gmres_tol=1e-4, device=dev)
+    ops, g = case.extras["ops"], case.extras["g"]
+    outlet = case.extras["mesh"].tags["outlet"]
+    for name, dist_step, ref_step in (
+            ("fem_step", make_fem_explicit_step(ops, case.cfg, g, mesh),
+             make_step(ops, case.cfg, g)),
+            ("fem_projection_step",
+             make_fem_projection_explicit_step(ops, case.cfg, g, outlet, mesh),
+             make_projection_step(ops, case.cfg, g, outlet))):
+        got, _ = dist_step(case.state, 1.0)
+        want, _ = ref_step(case.state, 1.0)
+        rel(name, got.u, want.u, RTOL_FEM, elements=int(ops.elem_u.shape[0]),
+            krylov=dict(dist_step.counts), krylov_single=dict(ref_step.counts))
+
+    # 8) the pseudo-spectral step on the full spectrum
+    ps_n = max(2 * n, mesh.py * mesh.px * max(mesh.py, mesh.px))
+    cfg = ps.PseudoSpectralConfig(ny=ps_n, aspect=1.0, nu=1e-4, dt=2e-3, forcing_wavenumber=4,
+                                  forcing_scale=0.3, linear_friction=0.1)
+    state = ps.init_state(cfg, noise=0.1, device=dev)
+    got = gather_state(make_ps_explicit_step(cfg, mesh)(
+        block_state(full_spectrum_state(cfg, state), mesh), 1.0)[0], mesh)
+    want = ps.make_step(cfg, device=dev)(state, 1.0)[0]
+    rel("ps_step", torch.fft.ifft2(got.w_hat).real,
+        torch.fft.irfft2(want.w_hat, s=(cfg.ny, cfg.nx)), RTOL_PS, n=ps_n)
+    return rows
 
 
 def _dryrun_staggered_3d(mesh, n: int):

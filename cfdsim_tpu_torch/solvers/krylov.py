@@ -276,20 +276,21 @@ def _gmres_buffers(w, A, M, pack, unpack, like, restart, eps, capture):
 
 @torch.no_grad()
 def cg(A, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None, counts=None,
-       workspace=None):
+       capture=True, workspace=None):
     """Solve A x = b (A symmetric positive definite) by preconditioned
     conjugate gradients; returns x in ``b``'s structure. ``counts`` gains
     the matvecs, preconditioner applications, iterations and host reads.
     On a CUDA device the setup and an iteration are captured (once per
-    ``workspace``, see :class:`Workspace`) and replayed."""
+    ``workspace``, see :class:`Workspace`) and replayed; ``capture=False``
+    runs them eagerly."""
     counts = Counter() if counts is None else counts
     pack, unpack = _flattener(b)
     bf = pack(b)
     dt = _dtype_of(bf)
     maxiter = 10 * bf.numel() if maxiter is None else maxiter
     w = Workspace() if workspace is None else workspace
-    if w.bind(("cg", A, M, bf.numel(), bf.dtype, bf.device)):
-        _cg_buffers(w, A, M, pack, unpack, bf)
+    if w.bind(("cg", A, M, bf.numel(), bf.dtype, bf.device, capture)):
+        _cg_buffers(w, A, M, pack, unpack, bf, capture)
     w.b.copy_(bf)
     if x0 is None:
         w.x.zero_()
@@ -310,7 +311,7 @@ def cg(A, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None, counts=None,
     return unpack(w.x.clone())
 
 
-def _cg_buffers(w, A, M, pack, unpack, like):
+def _cg_buffers(w, A, M, pack, unpack, like, capture):
     """A CG workspace's buffers and bodies."""
     Af, Mf = _operators(A, M, pack, unpack)
     w.b, w.x, r, p = (torch.zeros_like(like) for _ in range(4))
@@ -335,4 +336,4 @@ def _cg_buffers(w, A, M, pack, unpack, like):
         gamma.copy_(gamma_new)
         w.sums[1] = torch.dot(r, r) if M is not None else gamma_new
 
-    w.start, w.iteration = (_Body(f, like.device, True) for f in (start, iteration))
+    w.start, w.iteration = (_Body(f, like.device, capture) for f in (start, iteration))

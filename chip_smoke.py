@@ -34,8 +34,8 @@ and the final ``{"ok": true, ...}`` line is not printed:
    5e-6 for B (the bands of tests/test_pallas.py) at every size: the
    kernels spell out every rounding, so they are expected to give the
    plain versions' bits, and each line says whether they do
-4. chunk routes: 20 steps through the captured chunk (one CUDA graph,
-   ``make_chunk``'s route on the card) against 20 eager step calls from
+4. chunk routes: 10 steps through the captured chunk (one CUDA graph,
+   ``make_chunk``'s route on the card) against 10 eager step calls from
    the same state, metrics on, on the three paths below, on the
    implicit cavity (DST, and with LES the Jacobi back end), the LES
    cylinder and the coupled transport cavity of phases 9-12, on the
@@ -48,7 +48,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    in the same order, so u, v, p, t, step (θ too) and every stacked metric
    must be bit-equal; prints the graph's nodes and capture seconds per path, and
    holds each kernel's launches, counted on the device by the kernel
-   itself, to 20 per captured chunk plus the capture's eager warm-up
+   itself, to 10 per captured chunk plus the capture's eager warm-up
 5. golden: the 48² Re=100 cavity, a 300-step captured chunk + one metrics
    step, fused predictor off and on, against tests/goldens.json (RTOL 2e-5)
 5a. DCT variants: every variant against rfft at 1024² (rfft_split4 and
@@ -165,17 +165,18 @@ and the final ``{"ok": true, ...}`` line is not printed:
    state that requires grad before it captures anything; the fused 1024²
    cavity's kernel wrapper refusing a field that requires grad (the kernels
    have no backward); the adjoint example
-   (``cfdsim_tpu_torch/examples/adjoint_forcing.py``) at its full default (n =
-   48, 200 steps checkpointed per step, 60 Adam iterations): the largest
-   coefficient error under 0.2, printed with the seconds; no kernel launched
+   (``cfdsim_tpu_torch/examples/adjoint_forcing.py``) at its default size (n =
+   48, 200 steps checkpointed per step) for 40 of its 60 Adam iterations: the
+   largest coefficient error under 0.2, printed with the seconds; no kernel
+   launched
 5o. distributed (``phase_distributed``): a NCCL group of world size
    1 (the card's machine has one GPU; the exchanges between ranks are
    checked on gloo ranks on the CPU by tests/test_torch_*), then the
    explicit collocated cavity at 1024², Re = 1000, rbsor (the JAX
-   package's PoissonConfig defaults), 20 steps against ``IncompressibleStep``
+   package's PoissonConfig defaults), 10 steps against ``IncompressibleStep``
    (u, v rtol 1e-5 atol 1e-6; p rtol 1e-4 atol 1e-5), the explicit MAC
    cavity at 1024² with the pencil DCT against ``MACStep`` (u, v 2e-5; p
-   2e-4), the explicit heated cavity at ``heated_cavity()``'s defaults, 40
+   2e-4), the explicit heated cavity at ``heated_cavity()``'s defaults, 20
    steps, against ``BoussinesqStep`` (u, v, θ 3e-5; Nu 1e-4) (the JAX
    tests' tolerances), each with its ms and device events per step beside
    the single-device step's (loop and captured); the sharded MAC gradient
@@ -192,8 +193,24 @@ and the final ``{"ok": true, ...}`` line is not printed:
    defaults, central; 2e-5, Nu 2e-4), ``heated_cube()`` (10 steps, 5e-5, Nu
    1e-4 and 1e-3), ``cylinder_oscillating()`` 480×240 with the moving ghost
    (2e-5, forces 2e-4) and ``cylinder_stretched()`` 512×256 (2e-5, forces
-   1e-4), 5 steps where not said; no kernel launched; the group destroyed
+   1e-4), 5 steps where not said; no kernel launched
+5q. the pseudo-spectral and FEM distributed steps
+   (``phase_distributed_tiers``) on the same group: the pencil-FFT step at
+   1024² (``kolmogorov_ps`` with noise 0.1, 5 steps; real-space ω within
+   2e-5 of max|ω|, energy, enstrophy and max speed 1e-5 relative) and the
+   element-sharded monolithic and projection steps on ``bench.fem_paths``'
+   cylinder (3 steps each; u within 5e-4 of max|u|, p and fx 5e-3), each
+   step's wall ms beside the single-device step's and the Krylov counts
+   beside the single-device ones; no kernel launched; the group destroyed
    at the end
+5r. drivers (``phase_drivers``), as a user runs them:
+   ``cylinder_reference_v5 --ref-parity --io native --max-steps 200`` (one
+   200-step chunk at 600×180 through kernel A: healthy, snapshots at steps
+   0 and 200 read back from the ``.csnap``, kernel-A launches = steps +
+   warm-up), ``wedge_shock --t-final 0.5 --io native`` (its θ-β-M report
+   finite) and ``sharded_mac_tiers --device cuda --ranks 1 --steps 20``
+   (its own NCCL rank; each tier within 1e-5, 3D 2e-5, of its
+   single-device step)
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -514,18 +531,37 @@ FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in o
 # pattern); the adjoint example's recovered coefficients within 0.2
 # (tests/test_differentiability.py:109)
 GRAD_STEPS, GRAD_CARD_RTOL, ADJOINT_ERR = 8, 1e-4, 0.2
+# the adjoint example's Adam iterations (its default 60 ends 0.029 from the
+# coefficients on the card; 40 end 0.091 on the CPU)
+ADJOINT_ITERS = 40
 # the distributed steps at world size 1: steps held against the single-device
 # step (the JAX tests' tolerances: tests/test_explicit_step.py:37-42,
 # tests/test_mac_explicit.py:74, tests/test_boussinesq.py:80-86)
-DIST_STEPS, BQ_DIST_STEPS = 20, 40
+DIST_STEPS, BQ_DIST_STEPS = 10, 20
 # to make room for the gradient and distributed phases, steps were
 # cut, never grids: the profiled chunks of phase 13 (2D, 3D; were 10 and
 # 5), `bench --all`'s marginal chunks (2D, 3D; were 10-30 and 3-9) and the
-# FEM cells' profiled steps (5 before)
+# FEM cells' profiled steps (5 before); then, for phases 5q and 5r, phase
+# 4's steps (20 before), the adjoint example's iterations (60) and phase
+# 5o's steps (20 and 40)
+CHUNK_ROUTE_STEPS = 10
 PROFILE_STEPS, PROFILE_STEPS_3D = 3, 2
 # the 2D staggered and 3D distributed steps at world size 1 (phase 5p):
 # steps held against the single-device step, and the profiled steps
 DIST_SLICE_STEPS, DIST_SLICE_STEPS_CUBE, DIST_SLICE_PROFILE = 5, 10, 2
+# the pseudo-spectral and FEM distributed steps at world size 1 (phase 5q):
+# steps, and the tolerances of tests/test_spectral_ps.py:136-140 (ω of
+# max|ω|, the metrics relative) and tests/test_fem_explicit.py:72-75 (u of
+# max|u|, p and fx absolute)
+DIST_TIER_PS_STEPS, DIST_TIER_FEM_STEPS = 5, 3
+PS_DIST_W_RTOL, PS_DIST_METRIC_RTOL = 2e-5, 1e-5
+FEM_DIST_U_RTOL, FEM_DIST_P_ATOL, FEM_DIST_FX_ATOL = 5e-4, 5e-3, 5e-3
+# the example drivers (phase 5r): one 200-step chunk of the reference-parity
+# cylinder, the wedge to t = 0.5, 20 steps of the staggered tiers; each
+# tier within the dry run's bounds of its single-device step
+DRIVER_V5_STEPS, DRIVER_WEDGE_T, DRIVER_MAC_TIER_STEPS = 200, 0.5, 20
+DRIVER_MAC_TIER_ATOL = {"2D MAC (DCT)": 1e-5, "2D stretched (FDM)": 1e-5,
+                        "3D MAC (3D DCT)": 2e-5}
 SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -845,8 +881,9 @@ def _paths(compute_metrics=True):
 
 
 def phase_chunk_routes():
-    """The captured chunk against the eager loop, 20 steps from one state."""
-    steps = 20
+    """The captured chunk against the eager loop, ``CHUNK_ROUTE_STEPS`` steps
+    from one state."""
+    steps = CHUNK_ROUTE_STEPS
     macs = mac_paths(1024, compute_metrics=True, device="cuda")
     threed = threed_paths(256, compute_metrics=True, device="cuda")
     bodies = sphere_paths(compute_metrics=True, device="cuda")
@@ -864,7 +901,7 @@ def phase_chunk_routes():
         loop = make_chunk(case.cfg, case.step, steps, route="loop")
         if (graph.mode, loop.mode) != ("graph", "loop"):
             raise AssertionError(f"{path}: routes {graph.mode}, {loop.mode}")
-        # from a developed state: 20 steps through the loop first
+        # from a developed state: the same steps through the loop first
         state, _ = loop(case.state, 1.0)
         _reset_counts()
         sg, mg = graph(state, 1.0)  # the eager warm-up, the capture, then the replays
@@ -2114,7 +2151,8 @@ def phase_gradients(card):
     adjoint example's step whose forcing, that requires grad (before any
     capture); the fused predictor's wrapper
     refusing one (the kernel has no backward); the adjoint example at its
-    full default (n = 48, 200 steps, 60 Adam iterations). No kernel runs."""
+    default size (n = 48, 200 steps) for ``ADJOINT_ITERS`` Adam iterations.
+    No kernel runs."""
     _reset_counts()
     (g_card, chunk), (g_cpu, _) = _cavity_gradient("cuda"), _cavity_gradient("cpu")
     rel = float(np.abs(g_card - g_cpu).max() / np.abs(g_cpu).max())
@@ -2166,10 +2204,11 @@ def phase_gradients(card):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    err = adjoint_forcing.main(verbose=False, device="cuda")
+    err = adjoint_forcing.main(iters=ADJOINT_ITERS, verbose=False, device="cuda")
     seconds = time.perf_counter() - t0
-    say("adjoint_forcing", n=48, steps=200, iterations=60, lr=0.1, max_err=err,
-        gate=ADJOINT_ERR, seconds=seconds, ms_per_iteration=seconds / 60 * 1e3, card=card)
+    say("adjoint_forcing", n=48, steps=200, iterations=ADJOINT_ITERS, lr=0.1, max_err=err,
+        gate=ADJOINT_ERR, seconds=seconds, ms_per_iteration=seconds / ADJOINT_ITERS * 1e3,
+        card=card)
     if not err < ADJOINT_ERR:
         raise AssertionError(f"the adjoint example recovered c within {err}")
     launches = _counts()
@@ -2422,6 +2461,136 @@ def phase_distributed_slices(card, mesh):
         raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
 
 
+def _timed_steps(step, state, steps):
+    """``steps`` calls of ``step`` from ``state``: (state, last metrics, wall
+    ms of each step, each ended by a synchronisation)."""
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, 1.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, m, ms
+
+
+def phase_distributed_tiers(card, mesh):
+    """The pseudo-spectral and FEM distributed steps (item 22d) on the NCCL
+    group of world size 1 that ``phase_distributed`` opened, at full width:
+    the pencil-FFT step at 1024² against ``PSStep`` (real-space ω and the
+    metrics), the element-sharded monolithic and projection steps on the
+    bench's FEM cylinder against ``FEMStep``/``FEMProjectionStep`` (u, p,
+    fx; their Krylov counts printed beside the single-device ones, which may
+    differ by rounding); each step's wall ms beside the single-device
+    step's; no kernel launched."""
+    from cfdsim_tpu_torch.parallel import (
+        block_state,
+        full_spectrum_state,
+        gather_state,
+        make_fem_explicit_step,
+        make_fem_projection_explicit_step,
+        make_ps_explicit_step,
+    )
+
+    _reset_counts()
+    case = build("kolmogorov_ps", ny=1024, noise=0.1, device="cuda")
+    cfg = case.cfg
+    d, md, d_ms = _timed_steps(make_ps_explicit_step(cfg, mesh),
+                               block_state(full_spectrum_state(cfg, case.state), mesh),
+                               DIST_TIER_PS_STEPS)
+    r, mr, r_ms = _timed_steps(case.step, case.state, DIST_TIER_PS_STEPS)
+    w_dist = torch.fft.ifft2(gather_state(d, mesh).w_hat).real
+    w_ref = torch.fft.irfft2(r.w_hat, s=(cfg.ny, cfg.nx))
+    _within("distributed_ps1024_w", w_dist, w_ref, 0.0,
+            PS_DIST_W_RTOL * float(w_ref.abs().max()), n=cfg.ny, steps=DIST_TIER_PS_STEPS,
+            ms_per_step=d_ms, single_device_ms_per_step=r_ms, card=card)
+    for k in ("energy", "enstrophy", "max_vel"):
+        _within(f"distributed_ps1024_{k}", getattr(md, k).reshape(1),
+                getattr(mr, k).reshape(1), PS_DIST_METRIC_RTOL, 0.0)
+    del case, d, r, w_dist, w_ref
+
+    for path, case in fem_paths("cuda").items():
+        ops, g = case.extras["ops"], case.extras["g"]
+        force = case.extras["spaces"].dirichlet_tag_nodes["cylinder"]
+        if path.endswith("projection"):
+            step = make_fem_projection_explicit_step(ops, case.cfg, g,
+                                                     case.extras["mesh"].tags["outlet"], mesh,
+                                                     force_nodes=force)
+        else:
+            step = make_fem_explicit_step(ops, case.cfg, g, mesh, force_nodes=force)
+        case.step.counts.clear()
+        d, md, d_ms = _timed_steps(step, case.state, DIST_TIER_FEM_STEPS)
+        r, mr, r_ms = _timed_steps(case.step, case.state, DIST_TIER_FEM_STEPS)
+        _within(f"distributed_{path}_u", d.u, r.u, 0.0,
+                FEM_DIST_U_RTOL * float(r.u.abs().max()), n_tris=case.extras["mesh"].n_tris,
+                steps=DIST_TIER_FEM_STEPS, ms_per_step=d_ms, single_device_ms_per_step=r_ms,
+                krylov=dict(step.counts), krylov_single_device=dict(case.step.counts),
+                card=card)
+        _within(f"distributed_{path}_p", d.p, r.p, 0.0, FEM_DIST_P_ATOL)
+        _within(f"distributed_{path}_fx", md.fx.reshape(1), mr.fx.reshape(1), 0.0,
+                FEM_DIST_FX_ATOL)
+        del case, step, d, r
+    torch.cuda.empty_cache()
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
+
+
+def phase_drivers(card):
+    """Three example drivers on the card, as a user runs them: the
+    reference-parity cylinder (``cylinder_reference_v5 --ref-parity --io
+    native``, one 200-step chunk: healthy, its ``.csnap`` read back, kernel
+    A's cluster kernel launched once per step and once per warm-up step, as
+    it counts on the device), the wedge (``wedge_shock`` to a short t, its
+    θ-β-M report) and the staggered tiers at world size 1
+    (``sharded_mac_tiers --device cuda --ranks 1``, its own NCCL rank)."""
+    from cfdsim_tpu_torch.examples import cylinder_reference_v5, sharded_mac_tiers, wedge_shock
+
+    out = SMOKE_OUT / "drivers"
+    shutil.rmtree(out, ignore_errors=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    v5 = cylinder_reference_v5.run(cylinder_reference_v5.parse_args(
+        ["--ref-parity", "--io", "native", "--max-steps", str(DRIVER_V5_STEPS),
+         "--out", str(out / "cylinder_v5")]))
+    launches = _counts()
+    wall = time.perf_counter() - t0
+    report, sim = v5["report"], v5["sim"]
+    _healthy("cylinder_reference_v5", v5["state"], report, DRIVER_V5_STEPS, 5.0)
+    steps = csnap_steps(v5["snapshots"])
+    fields, t_last = steps[max(steps)]
+    say("driver_cylinder_reference_v5", steps=sorted(steps), launches=launches,
+        final_time=report["final_time"], snapshot_time=t_last, wall_s=wall,
+        **_chunk_facts(sim), card=card)
+    want = {"predictor": 0, "rbsor_a": DRIVER_V5_STEPS + sim.chunk.steps_per_graph,
+            "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    if (launches != want or sorted(steps) != [0, DRIVER_V5_STEPS]
+            or set(fields) != {"u", "v", "p"} or fields["u"].shape != (180, 600)
+            or not all(np.isfinite(a).all() for a in fields.values())):
+        raise AssertionError(f"cylinder_reference_v5: launches {launches} (want {want}), "
+                             f"snapshot steps {sorted(steps)}, fields {sorted(fields)}")
+
+    t0 = time.perf_counter()
+    rc = wedge_shock.main(["--t-final", str(DRIVER_WEDGE_T), "--io", "native",
+                           "--out", str(out / "wedge")])
+    wedge = json.loads((out / "wedge" / "report.json").read_text())
+    say("driver_wedge_shock", t_final=DRIVER_WEDGE_T, rc=rc, wall_s=time.perf_counter() - t0,
+        beta_deg=wedge["beta_deg"], p2_p1=wedge["p2_p1"], rho2_rho1=wedge["rho2_rho1"],
+        steps=wedge["run_report"]["final_step"], snapshots=sorted(csnap_steps(
+            out / "wedge" / "snapshots.csnap")))
+    if rc != 0 or not all(math.isfinite(wedge[k]) for k in ("beta_deg", "p2_p1", "rho2_rho1")):
+        raise AssertionError(f"wedge_shock: rc {rc}, report {wedge}")
+
+    t0 = time.perf_counter()
+    tiers = sharded_mac_tiers.main(["--device", "cuda", "--ranks", "1", "--steps",
+                                    str(DRIVER_MAC_TIER_STEPS), "--out", str(out / "mac_tiers")])
+    say("driver_sharded_mac_tiers", wall_s=time.perf_counter() - t0, **tiers)
+    rows = {r["tier"]: r for r in tiers["rows"]}
+    if (tiers["backend"] != "nccl" or set(rows) != set(DRIVER_MAC_TIER_ATOL)
+            or any(rows[k]["max_abs_err"] > atol for k, atol in DRIVER_MAC_TIER_ATOL.items())):
+        raise AssertionError(f"sharded_mac_tiers: {tiers}")
+    return launches["rbsor_a"]
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -2586,8 +2755,10 @@ def main() -> int:
     mesh = phase(phase_distributed, card)
     try:
         phase(phase_distributed_slices, card, mesh)
+        phase(phase_distributed_tiers, card, mesh)
     finally:
         torch.distributed.destroy_process_group()
+    v5_a = phase(phase_drivers, card)
     pred_launches = phase(phase_main_path)
     cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
     mg = phase(phase_mg_cavity)
@@ -2603,6 +2774,7 @@ def main() -> int:
         "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"],
                   "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"],
                   "cylinder_600x180_les": les_a,
+                  "cylinder_reference_v5_600x180": v5_a,
                   "cavity_1024_implicit_mg": implicit_mg["rbsor_a"],
                   "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"],
                   "cavity_mac_1024_mg": mac_mg["rbsor_a"],

@@ -255,7 +255,8 @@ def test_boussinesq_trimmed_roundtrip_bitwise_exact():
 
 def test_dryrun_on_gloo_ranks(capsys):
     """``python -m cfdsim_tpu_torch.parallel.dryrun --ranks 4 --device cpu``:
-    every check within its tolerance on a 2×2 gloo mesh."""
+    every check within its tolerance on a 2×2 gloo mesh, the FEM and
+    pseudo-spectral steps (JAX dry-run steps 7, 7b, 8) included."""
     import json
 
     from cfdsim_tpu_torch.parallel.dryrun import main
@@ -269,7 +270,8 @@ def test_dryrun_on_gloo_ranks(capsys):
         "sphere_stretched_step", "sphere_stretched_dynamic_les_step",
         "heated_sphere_stretched_step", "sphere_ghost_step", "heated_sphere_stretched_ghost_step",
         "moving_sphere_step", "moving_body_stretched_step", "moving_sphere_ghost_step",
-        "moving_body_stretched_ghost_step", "moving_sphere_stretched_step", "heated_cube_step"]
+        "moving_body_stretched_ghost_step", "moving_sphere_stretched_step", "heated_cube_step",
+        "fem_step", "fem_projection_step", "ps_step"]
     assert all(r["ok"] for r in rows[:-1])
     assert rows[-1] == {"dryrun_ok": True, "ranks": 4, "mesh": [2, 2], "device": "cpu"}
 
