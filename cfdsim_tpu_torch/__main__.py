@@ -136,22 +136,6 @@ def _snapshot_fields(state) -> dict:
     return fields
 
 
-def _fem_snapshot_fields(state, sampler) -> dict:
-    """An unstructured FEM state's snapshot: its fields sampled onto the
-    case's grid (u, v, p, vorticity: what the renderer reads, as the JAX
-    CLI writes them) and its nodal fields under the state's
-    ``snapshot_prefix`` (``fem_u``, ``fem_p``, ``fem_phi``), from which
-    ``--resume`` restores the state bit for bit."""
-    from cfdsim_tpu_torch.fem.sample import sample_fields
-
-    f = sample_fields(sampler, state.u, state.p)
-    fields = {"u": f["u"], "v": f["v"], "p": f["p"], "vorticity": f["vorticity"]}
-    for name in ("u", "p", "phi"):
-        if getattr(state, name) is not None:
-            fields[state.snapshot_prefix + name] = getattr(state, name)
-    return fields
-
-
 def cmd_run(args, extra):
     from cfdsim_tpu_torch.cases import build
     from cfdsim_tpu_torch.runner import RunnerConfig, Simulation
@@ -192,11 +176,13 @@ def cmd_run(args, extra):
 
             writer = SnapshotWriter(snap_path)
 
+        from cfdsim_tpu_torch.fem.sample import snapshot_fields
+
         fem_sampler = case.extras.get("sampler")
 
         def snapshot_fn(state, step, t):
             if fem_sampler is not None:
-                writer.save(step, t, **_fem_snapshot_fields(state, fem_sampler))
+                writer.save(step, t, **snapshot_fields(fem_sampler, state))
             else:
                 writer.save(step, t, **_snapshot_fields(state))
 

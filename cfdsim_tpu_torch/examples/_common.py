@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -93,6 +94,14 @@ def as_hdf5(path) -> Path:
     return path
 
 
+def atomic_savez(path, **arrays) -> None:
+    """``np.savez`` to a temporary file, then ``os.replace``: the file is
+    whole or absent."""
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
 def _plain(value):
     if isinstance(value, dict):
         return {str(k): _plain(v) for k, v in value.items()}
@@ -134,16 +143,19 @@ class Probed(nn.Module):
         return state, self.probe(state, m)
 
 
-def run_probed(case, probe, chunk_steps: int, t_final: float, on_chunk=None):
+def run_probed(case, probe, chunk_steps: int, t_final: float, on_chunk=None, *,
+               state=None, max_steps=None):
     """Chunks of ``chunk_steps`` steps of ``case.step`` (``make_chunk``: one
-    captured CUDA graph on the card) until t ≥ ``t_final``, with ``probe``'s
-    values stacked per step: (state, {field: numpy array over every step}).
-    ``on_chunk(state, values)`` sees each chunk's values (progress lines)."""
+    captured CUDA graph on the card) from ``state`` (default the case's)
+    until t ≥ ``t_final`` (or, with ``max_steps``, until the chunk that
+    reaches that step), with ``probe``'s values stacked per step: (state,
+    {field: numpy array over every step}). ``on_chunk(state, values)`` sees
+    each chunk's values (progress lines, checkpoints)."""
     from cfdsim_tpu_torch.models.incompressible import make_chunk
 
     chunk = make_chunk(case.cfg, Probed(case.step, probe), chunk_steps)
-    state, parts = case.state, []
-    while float(state.t) < t_final:
+    state, parts = case.state if state is None else state, []
+    while float(state.t) < t_final and (max_steps is None or int(state.step) < max_steps):
         state, vals = chunk(state, 1.0)
         host = dict(zip(vals._fields, torch.stack(list(vals)).cpu().numpy()))
         parts.append(host)

@@ -151,3 +151,17 @@ def sample_fields(table: SampleTable, u, p=None) -> dict:
             pv = torch.einsum("sl,sl->s", table.Np.to(p.dtype), p[table.idx_p])
             out["p"] = shape(pv)
     return out
+
+
+def snapshot_fields(table: SampleTable, state, sampled=("u", "v", "p", "vorticity")) -> dict:
+    """An unstructured FEM state's snapshot: the ``sampled`` fields on the
+    table's grid (by default u, v, p, vorticity: what the renderer reads, as
+    the JAX CLI writes them) and its nodal fields under the state's
+    ``snapshot_prefix`` (``fem_u``, ``fem_p``, ``fem_phi``), from which
+    ``--resume`` restores the state bit for bit."""
+    f = sample_fields(table, state.u, state.p)
+    fields = {k: f[k] for k in sampled}
+    for name in ("u", "p", "phi"):
+        if getattr(state, name) is not None:
+            fields[state.snapshot_prefix + name] = getattr(state, name)
+    return fields

@@ -166,7 +166,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    cavity's kernel wrapper refusing a field that requires grad (the kernels
    have no backward); the adjoint example
    (``cfdsim_tpu_torch/examples/adjoint_forcing.py``) at its default size (n =
-   48, 200 steps checkpointed per step) for 40 of its 60 Adam iterations: the
+   48, 200 steps checkpointed per step) for 30 of its 60 Adam iterations: the
    largest coefficient error under 0.2, printed with the seconds; no kernel
    launched
 5o. distributed (``phase_distributed``): a NCCL group of world size
@@ -211,6 +211,22 @@ and the final ``{"ok": true, ...}`` line is not printed:
    finite) and ``sharded_mac_tiers --device cuda --ranks 1 --steps 20``
    (its own NCCL rank; each tier within 1e-5, 3D 2e-5, of its
    single-device step)
+5s. the eight study drivers (``phase_study_drivers``), each through its
+   ``main`` with ``--device cuda --io native`` at its published grid:
+   ``sphere_wake --n 12`` (192×96×96, one 100-step chunk), ``tgv3d_les --n
+   64`` (one 200-step chunk), ``sphere_les_re3900`` (320×160×160, two
+   20-step chunks with ``--save``, then ``--resume`` for one more: the
+   series file holds every step), ``kolmogorov_spectrum --n 256`` (the
+   stable tier, 200 steps, and the pseudo-spectral one with friction, 200),
+   ``cavity_rossiter`` (600×180, one 2000-step chunk), ``cavity_accuracy_1024``
+   (1024², one 5000-step chunk to its npz, then a resume from it for one
+   more), ``cylinder_fem 100`` (the case's mesh, one 10-step monolithic
+   chunk: its line counts the accepted steps, none there as in the JAX
+   driver, and says the flow did not advance; then the coarse h 0.3 → 1.5
+   mesh, one 4-step chunk, every step accepted and the drag changing) and
+   ``schafer_turek_2d2`` (10,752 triangles, projection, one
+   50-step chunk): each report finite, its ``.csnap`` (or npz) read back at
+   its last step, no kernel launched; wall and steps/s printed
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -532,8 +548,8 @@ FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in o
 # (tests/test_differentiability.py:109)
 GRAD_STEPS, GRAD_CARD_RTOL, ADJOINT_ERR = 8, 1e-4, 0.2
 # the adjoint example's Adam iterations (its default 60 ends 0.029 from the
-# coefficients on the card; 40 end 0.091 on the CPU)
-ADJOINT_ITERS = 40
+# coefficients on the card; 40 end 0.091 and 30 end 0.018 on the CPU)
+ADJOINT_ITERS = 30
 # the distributed steps at world size 1: steps held against the single-device
 # step (the JAX tests' tolerances: tests/test_explicit_step.py:37-42,
 # tests/test_mac_explicit.py:74, tests/test_boussinesq.py:80-86)
@@ -543,7 +559,8 @@ DIST_STEPS, BQ_DIST_STEPS = 10, 20
 # 5), `bench --all`'s marginal chunks (2D, 3D; were 10-30 and 3-9) and the
 # FEM cells' profiled steps (5 before); then, for phases 5q and 5r, phase
 # 4's steps (20 before), the adjoint example's iterations (60) and phase
-# 5o's steps (20 and 40)
+# 5o's steps (20 and 40); for phase 5s the adjoint example's iterations
+# again (40)
 CHUNK_ROUTE_STEPS = 10
 PROFILE_STEPS, PROFILE_STEPS_3D = 3, 2
 # the 2D staggered and 3D distributed steps at world size 1 (phase 5p):
@@ -562,6 +579,14 @@ FEM_DIST_U_RTOL, FEM_DIST_P_ATOL, FEM_DIST_FX_ATOL = 5e-4, 5e-3, 5e-3
 DRIVER_V5_STEPS, DRIVER_WEDGE_T, DRIVER_MAC_TIER_STEPS = 200, 0.5, 20
 DRIVER_MAC_TIER_ATOL = {"2D MAC (DCT)": 1e-5, "2D stretched (FDM)": 1e-5,
                         "3D MAC (3D DCT)": 2e-5}
+# the study drivers at their published grids: one chunk each (two and a
+# resume for the Re = 3900 sphere and the 1024² accuracy run)
+STUDY_SPHERE_STEPS, STUDY_TGV_STEPS, STUDY_RE3900_CHUNK = 100, 200, 20
+STUDY_KOLMOGOROV = {"stable": ["--t", "2", "--chunk", "200"],
+                    "ps": ["--dt", "0.002", "--t", "0.4", "--chunk", "200", "--alpha", "0.1",
+                           "--noise", "0.05"]}
+STUDY_ROSSITER_STEPS, STUDY_ACCURACY_N, STUDY_ACCURACY_CHUNK = 2000, 1024, 5000
+STUDY_FEM_CYLINDER_STEPS, STUDY_FEM_COARSE_STEPS, STUDY_SCHAFER_TUREK_STEPS = 10, 4, 50
 SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -2591,6 +2616,217 @@ def phase_drivers(card):
     return launches["rbsor_a"]
 
 
+def _study_driver(card, name, run, steps_of, check):
+    """Run one study driver as a user does (``run()``: its ``main`` with
+    ``--device cuda --io native``), with every kernel's count zeroed just
+    before and read just after: none may launch. ``steps_of(result)`` is
+    the steps it ran, ``check(result)`` raises on a report that is not
+    right (not finite, a snapshot or npz that does not read back)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    steps = steps_of(result)
+    facts = check(result)
+    say("study_driver", name=name, steps=steps, wall_s=wall, steps_per_s=steps / wall,
+        launches=launches, **facts, card=card)
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched kernels: {launches}")
+    return wall
+
+
+def _finite(name, values, **facts) -> dict:
+    """Raises unless every array or number in ``values`` is finite; returns
+    ``facts`` (scalars for the phase's line)."""
+    bad = [k for k, v in values.items() if not np.isfinite(np.asarray(v, np.float64)).all()]
+    if bad:
+        raise AssertionError(f"{name}: not finite: {bad}")
+    return facts
+
+
+def _csnap_fields(path, name, step, outside_nan=False):
+    """The fields' shapes at ``step`` in the ``.csnap`` at ``path``: the step
+    there, every field finite (with ``outside_nan``, where it is not NaN by
+    design, outside an FEM mesh: some point finite)."""
+    steps = csnap_steps(path)
+    if step not in steps:
+        raise AssertionError(f"{name}: {path} holds steps {sorted(steps)}, not {step}")
+    fields, _ = steps[step]
+    for k, a in fields.items():
+        inside = a[~np.isnan(a)] if outside_nan else a
+        if not (inside.size and np.isfinite(inside).all()):
+            raise AssertionError(f"{name}: {k} of {path} is not finite")
+    return {k: list(a.shape) for k, a in fields.items()}
+
+
+def phase_study_drivers(card):
+    """The eight study drivers on the card, each through its ``main`` at its
+    published grid for one or two short chunks (``STUDY_DRIVERS``): its
+    report finite, its ``.csnap`` (or npz) read back, no kernel launched;
+    the Re = 3900 sphere's ``--save``/``--resume`` and the 1024² accuracy
+    run's npz resume each continue one chunk from their checkpoint; the FEM
+    cylinder counts its accepted steps, and on a coarse mesh must advance."""
+    from cfdsim_tpu_torch.examples import (
+        cavity_accuracy_1024,
+        cavity_rossiter,
+        cylinder_fem,
+        kolmogorov_spectrum,
+        schafer_turek_2d2,
+        sphere_les_re3900,
+        sphere_wake,
+        tgv3d_les,
+    )
+    from cfdsim_tpu_torch.models import fem as mfem
+
+    out = SMOKE_OUT / "study_drivers"
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["--device", "cuda", "--io", "native"]
+    walls = {}
+
+    def args(name, *extra):
+        return [*extra, *common, "--out", str(out / name)]
+
+    n = STUDY_SPHERE_STEPS
+    walls["sphere_wake"] = _study_driver(
+        card, "sphere_wake",
+        lambda: sphere_wake.main(args("sphere_wake", "--n", "12", "--chunk-steps", str(n),
+                                      "--max-steps", str(n))),
+        lambda r: len(r["fx"]),
+        lambda r: _finite("sphere_wake", {k: r[k] for k in ("cd", "l_r_d", "fx")}, cd=r["cd"],
+                          l_r_d=r["l_r_d"],
+                          fields=_csnap_fields(out / "sphere_wake" / "snapshots.csnap",
+                                               "sphere_wake", n)))
+    n = STUDY_TGV_STEPS
+    walls["tgv3d_les"] = _study_driver(
+        card, "tgv3d_les",
+        lambda: tgv3d_les.main(args("tgv3d_les", "--n", "64", "--chunk", str(n), "--max-steps",
+                                    str(n))),
+        lambda r: len(r["dt"]),
+        lambda r: _finite("tgv3d_les", {k: r[k] for k in ("E", "eps_peak", "slope")},
+                          E_last=float(r["E"][-1]), eps_peak=r["eps_peak"], slope=r["slope"],
+                          fields=_csnap_fields(out / "tgv3d_les" / "snapshots.csnap",
+                                               "tgv3d_les", n)))
+    n = STUDY_RE3900_CHUNK
+    save = out / "re3900_series.npz"
+    re3900 = ["--chunk-steps", str(n), "--tail", "0", "--save", str(save), "--ckpt-every", "1"]
+
+    def re3900_check(r, steps):
+        series = np.load(save)
+        if len(series["t"]) != steps or len(r["t"]) != steps:
+            raise AssertionError(f"sphere_les_re3900: {len(series['t'])} series rows, want "
+                                 f"{steps}")
+        return _finite("sphere_les_re3900", {k: r[k] for k in ("cd_mean", "cd", "probe_v")},
+                       cd_mean=r["cd_mean"], st=r["st"], st_wake=r["st_wake"],
+                       fields=_csnap_fields(out / "sphere_les_re3900" / "snapshots.csnap",
+                                            "sphere_les_re3900", steps))
+
+    walls["sphere_les_re3900"] = _study_driver(
+        card, "sphere_les_re3900",
+        lambda: sphere_les_re3900.main(args("sphere_les_re3900", *re3900, "--max-steps",
+                                            str(2 * n))),
+        lambda r: len(r["t"]), lambda r: re3900_check(r, 2 * n))
+    walls["sphere_les_re3900_resume"] = _study_driver(
+        card, "sphere_les_re3900_resume",
+        lambda: sphere_les_re3900.main(args("sphere_les_re3900", *re3900, "--resume",
+                                            "--max-steps", str(3 * n))),
+        lambda r: n, lambda r: re3900_check(r, 3 * n))
+    for solver, extra in STUDY_KOLMOGOROV.items():
+        name = f"kolmogorov_spectrum_{solver}"
+        walls[name] = _study_driver(
+            card, name,
+            lambda: kolmogorov_spectrum.main(args(name, "--n", "256", "--solver", solver,
+                                                  *extra)),
+            lambda r: len(r["energy"]),
+            lambda r: _finite(name, {k: r[k] for k in ("E_k", "energy")}, k_peak=r["k_peak"],
+                              slope_inverse=r["slope_inverse"], slope_direct=r["slope_direct"],
+                              fields=_csnap_fields(out / name / "snapshots.csnap", name,
+                                                   len(r["energy"]))))
+    n = STUDY_ROSSITER_STEPS
+    walls["cavity_rossiter"] = _study_driver(
+        card, "cavity_rossiter",
+        lambda: cavity_rossiter.main(args("cavity_rossiter", "--chunk-steps", str(n),
+                                          "--max-steps", str(n), "--tail", "0")),
+        lambda r: len(r["t"]),
+        lambda r: _finite("cavity_rossiter", {k: r[k] for k in ("t", "p", "psd")},
+                          min_rho=float(np.min(r["min_rho"])), peaks=r["peaks"],
+                          fields=_csnap_fields(out / "cavity_rossiter" / "snapshots.csnap",
+                                               "cavity_rossiter", n)))
+    n = STUDY_ACCURACY_CHUNK
+    first, second = out / "cavity_acc_1024.npz", out / "cavity_acc_1024_resumed.npz"
+
+    def accuracy_check(r, steps, npz):
+        d = np.load(npz)
+        if int(d["step"]) != steps or d["u"].shape != (STUDY_ACCURACY_N, STUDY_ACCURACY_N + 1):
+            raise AssertionError(f"cavity_accuracy_1024: {npz} at step {int(d['step'])}")
+        return _finite("cavity_accuracy_1024", {"errors": list(r["errors"].values()),
+                                                "u": d["u"]},
+                       max_err=r["max_err"], t=r["t"],
+                       fields=_csnap_fields(out / "cavity_accuracy_1024" / "snapshots.csnap",
+                                            "cavity_accuracy_1024", steps))
+
+    walls["cavity_accuracy_1024"] = _study_driver(
+        card, "cavity_accuracy_1024",
+        lambda: cavity_accuracy_1024.main(args("cavity_accuracy_1024", str(STUDY_ACCURACY_N),
+                                               "1e9", str(first), "incremental", "--chunk-steps",
+                                               str(n), "--max-steps", str(n))),
+        lambda r: r["step"], lambda r: accuracy_check(r, n, first))
+    walls["cavity_accuracy_1024_resume"] = _study_driver(
+        card, "cavity_accuracy_1024_resume",
+        lambda: cavity_accuracy_1024.main(args("cavity_accuracy_1024", str(STUDY_ACCURACY_N),
+                                               "1e9", str(second), "incremental", str(first),
+                                               "--chunk-steps", str(n), "--max-steps",
+                                               str(2 * n))),
+        lambda r: n, lambda r: accuracy_check(r, 2 * n, second))
+    accept = mfem.FEMConfig().accept_relres  # the cylinder case keeps the default
+
+    def fem_check(name, r, steps, must_advance):
+        """A step whose solve ends above ``accept_relres`` keeps its state:
+        the line counts the accepted steps and says whether the flow moved;
+        ``must_advance`` runs fail unless every step was accepted and the
+        drag changed."""
+        row = r["Re_100"]
+        res = np.asarray(row["poisson_res"])
+        accepted = int((res < accept).sum())
+        advanced = accepted > 0 and float(np.max(row["fx"]) - np.min(row["fx"])) > 0
+        if must_advance and not (accepted == steps and advanced):
+            raise AssertionError(f"{name}: {accepted} of {steps} steps accepted (relres {res}), "
+                                 f"fx {row['fx']}")
+        return _finite(name, {k: row[k] for k in ("fx", "fy", "Cd", "poisson_res")},
+                       Cd=row["Cd"], relres_max=float(res.max()), accept_relres=accept,
+                       accepted_steps=accepted, flow_advanced=advanced,
+                       fields=_csnap_fields(out / name / "Re_100" / "snapshots.csnap", name,
+                                            steps, outside_nan=True))
+
+    # the case's mesh: every monolithic GMRES there ends above accept_relres,
+    # in the JAX driver too (ROADMAP queue 3), so its line reports the steps
+    # as rejected; the coarse mesh's steps converge and must move the flow
+    for name, n, mesh, must_advance in (
+            ("cylinder_fem", STUDY_FEM_CYLINDER_STEPS, [], False),
+            ("cylinder_fem_coarse", STUDY_FEM_COARSE_STEPS,
+             ["--h-near", "0.3", "--h-far", "1.5"], True)):
+        walls[name] = _study_driver(
+            card, name,
+            lambda: cylinder_fem.main(args(name, "100", "--t-final", str(n * 0.05),
+                                           "--chunk-steps", str(n), *mesh)),
+            lambda r: r["Re_100"]["steps"],
+            lambda r: fem_check(name, r, n, must_advance))
+    n = STUDY_SCHAFER_TUREK_STEPS
+    walls["schafer_turek_2d2"] = _study_driver(
+        card, "schafer_turek_2d2",
+        lambda: schafer_turek_2d2.main(args("schafer_turek_2d2", "--t", str(n * 0.002),
+                                            "--chunk-steps", str(n))),
+        lambda r: len(r["cd_series"]),
+        lambda r: _finite("schafer_turek_2d2", {k: r[k] for k in ("cd", "cd_series",
+                                                                    "cl_series")},
+                          n_tris=r["n_tris"], cd=r["cd"],
+                          fields=_csnap_fields(out / "schafer_turek_2d2" / "snapshots.csnap",
+                                               "schafer_turek_2d2", n, outside_nan=True)))
+    torch.cuda.empty_cache()
+    return walls
+
+
 def phase_timings(card):
     # main path, in turns on the same card: fused, unfused, unfused, fused,
     # each through the captured chunk and then through the eager loop
@@ -2759,6 +2995,7 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
     v5_a = phase(phase_drivers, card)
+    phase(phase_study_drivers, card)
     pred_launches = phase(phase_main_path)
     cyl_a, cyl_chunks_per_step = phase(phase_cylinder)
     mg = phase(phase_mg_cavity)

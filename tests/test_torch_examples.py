@@ -47,6 +47,35 @@ def jax_example(name: str):
     return module
 
 
+class JaxProxy:
+    """The ``jax`` module, for a JAX driver that imports it at module level
+    (install it as the driver module's ``jax``): each function the driver
+    jits keeps its outputs in ``outputs`` (the series a driver's scan
+    returns and does not keep). ``wrap(n_call, jitted, *args)``, where
+    given, is called in place of the jitted function: it may run it and
+    change what it returns, or return synthetic values without running it
+    (series fed to the driver's own analysis)."""
+
+    def __init__(self, wrap=None):
+        import jax
+
+        self._jax, self.wrap, self.outputs = jax, wrap, []
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def jit(self, fn, **kw):
+        jitted = self._jax.jit(fn, **kw)
+
+        def call(*args):
+            out = (jitted(*args) if self.wrap is None
+                   else self.wrap(len(self.outputs), jitted, *args))
+            self.outputs.append(out)
+            return out
+
+        return call
+
+
 def report_of(out: Path) -> dict:
     return json.loads((out / "report.json").read_text())
 
@@ -185,7 +214,9 @@ def test_cylinder_oscillating_fit_runs(tmp_path):
 
 DRIVERS = ["cylinder_reference_v5", "cylinder_shedding", "wedge_shock", "natural_convection",
            "cylinder_accuracy_tiers", "cylinder_ghost_forces", "cylinder_oscillating_fit",
-           "sharded_mac_tiers", "sharded_8192", "sharded_scaling"]
+           "sharded_mac_tiers", "sharded_8192", "sharded_scaling", "sphere_wake", "tgv3d_les",
+           "sphere_les_re3900", "kolmogorov_spectrum", "cavity_rossiter",
+           "cavity_accuracy_1024", "cylinder_fem", "schafer_turek_2d2"]
 
 
 @pytest.mark.parametrize("name", DRIVERS)
