@@ -118,15 +118,21 @@ def _cavity(n, fused_predictor, device):
 def _timed_chunk(case, state, n_steps: int, route=None):
     """(best seconds of 3 runs, final state, the chunk) for ``n_steps`` steps
     from ``state`` through :func:`make_chunk`'s chunk: the captured program
-    on the card, or with ``route="loop"`` the eager loop."""
+    on the card, or with ``route="loop"`` the eager loop (on a CPU state,
+    the loop, timed without a device synchronisation)."""
     chunk = make_chunk(case.cfg, case.step, n_steps, route=route, keep_graph=True)
+
+    def sync():
+        if state.t.device.type == "cuda":
+            torch.cuda.synchronize(state.t.device)
+
     out, _ = chunk(state, 1.0)  # warm-up: kernel build and load, cuFFT plans, the capture
-    torch.cuda.synchronize()
+    sync()
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         out, _ = chunk(state, 1.0)
-        torch.cuda.synchronize()
+        sync()
         best = min(best, time.perf_counter() - t0)
     return best, out, chunk
 

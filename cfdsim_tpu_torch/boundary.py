@@ -57,6 +57,25 @@ def mirror_all_edges(field):
     return field
 
 
+def apply_bc_spec(field, spec: dict):
+    """Apply a {side: bc} dict, side by side in ``SIDES`` order, where bc is
+    ("dirichlet", value), ("neumann",) or a callable ``field -> field``;
+    writes in place like the edge writes above."""
+    for side in SIDES:
+        bc = spec.get(side)
+        if bc is None:
+            continue
+        if callable(bc):
+            field = bc(field)
+        elif bc[0] == "dirichlet":
+            field = set_edge(field, side, bc[1])
+        elif bc[0] == "neumann":
+            field = copy_edge(field, side)
+        else:
+            raise ValueError(f"unknown bc {bc!r} for side {side}")
+    return field
+
+
 def lid_cavity_bcs(lid_velocity: float = 1.0) -> Callable:
     """Lid-driven cavity: moving lid at y_hi, no-slip elsewhere.
 

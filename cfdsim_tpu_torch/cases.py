@@ -100,6 +100,8 @@ def lid_cavity(
     )
     bc = boundary.lid_cavity_bcs(lid_velocity)
     step = make_step(cfg, bc, device=device)
+    # what parallel/sharded.py::make_sharded_step needs beyond the module
+    step.explicit_spec = ("cavity", {"lid_velocity": lid_velocity})
     state = init_state(cfg, device=device)
     return Case("cavity", cfg, step, state, grid)
 
@@ -135,6 +137,7 @@ def lid_cavity_mac(
     kit = (mac.cavity_implicit_kit(grid, lid_velocity, device=device)
            if cfg.diffusion == "implicit" else None)
     step = mac.make_step(cfg, bcs, implicit_kit=kit, device=device)
+    step.explicit_spec = ("cavity_mac", {"lid_velocity": lid_velocity})
     state = mac.init_state(cfg, device=device)
     return Case("cavity_mac", cfg, step, state, grid, {"lid_velocity": lid_velocity, "bcs": bcs})
 
@@ -600,6 +603,7 @@ def cavity3d(
         **cfg_overrides,
     )
     step = m3.make_step(cfg, m3.lid_cavity3d_bcs(lid_velocity), device=device)
+    step.explicit_spec = ("cavity3d", {"lid_velocity": lid_velocity})
     state = m3.init_state(cfg, device=device)
     return Case("cavity3d", cfg, step, state, grid)
 
@@ -630,6 +634,7 @@ def cavity3d_mac(
     )
     bcs = mac3d.cavity3d_bcs(lid_velocity)
     step = mac3d.make_step(cfg, bcs, device=device)
+    step.explicit_spec = ("cavity3d_mac", {"lid_velocity": lid_velocity})
     state = mac3d.init_state(cfg, device=device)
     return Case("cavity3d_mac", cfg, step, state, grid, {"bcs": bcs})
 
@@ -1042,6 +1047,8 @@ def wedge(
             return U
 
         step = comp.make_step(cfg, bc, device=device)
+        step.explicit_spec = ("wedge", {"frame": frame, "u_inf": U_inf,
+                                        "keep_wall": np.arange(grid.nx) >= xs_idx})
         state = comp.init_state(cfg, U_inf, device=device)
         return Case("wedge", cfg, step, state, grid,
                     {"U_inf": U_inf, "mach": mach, "wedge_angle_deg": wedge_angle_deg,
@@ -1052,10 +1059,10 @@ def wedge(
     U_inf = comp.freestream(cfg, mach)
     u_inf = torch.as_tensor(U_inf, device=device)[:, None]
     solid = ibm.wedge_mask(grid, theta, wedge_start_x)
-    ghost_map = None
+    ghost_map = host_map = None
     if wall_treatment == "ghost":
-        ghost_map = ibm.ghost_map_to(ibm.wedge_slip_ghost_map(grid, theta, wedge_start_x),
-                                     device)
+        host_map = ibm.wedge_slip_ghost_map(grid, theta, wedge_start_x)
+        ghost_map = ibm.ghost_map_to(host_map, device)
     elif wall_treatment != "zero_momentum":
         raise ValueError(f"unknown wall_treatment {wall_treatment!r}")
 
@@ -1071,6 +1078,8 @@ def wedge(
         return U
 
     step = comp.make_step(cfg, bc, zero_momentum_mask=solid, device=device)
+    step.explicit_spec = ("wedge", {"frame": frame, "u_inf": U_inf, "zero_momentum": solid,
+                                    "ghost_map": host_map})
     state = comp.init_state(cfg, U_inf, device=device)
     return Case("wedge", cfg, step, state, grid,
                 {"wedge_mask": solid, "U_inf": U_inf, "mach": mach,
@@ -1147,9 +1156,14 @@ def cavity_supersonic(
             return U
 
         step = comp.make_step(cfg, bc_real, zero_momentum_mask=solid, device=device)
+        step.explicit_spec = ("cavity_supersonic", {
+            "ng": ng, "u_inf": U_inf, "zero_momentum": solid,
+            "plate_keep": 1.0 - solid.astype(np.float32)})
         extras = {"solid_mask": solid, "U_inf": U_inf}
     else:
         step = comp.make_step(cfg, bc, pin_mask=pin, pin_state=pin_state, device=device)
+        step.explicit_spec = ("cavity_supersonic", {"ng": ng, "u_inf": U_inf, "pin_mask": pin,
+                                                    "pin_state": pin_state})
         extras = {"cavity_mask": mask, "U_inf": U_inf, "pin_state": pin_state}
     state = comp.init_state(cfg, U_inf, device=device)
     state = state._replace(U=bc(state.U, state.step, state.t))
@@ -1199,6 +1213,7 @@ def blast3d(
         return U
 
     step = c3.make_step(cfg, bc, device=device)
+    step.explicit_spec = ("blast3d", {})
     state = c3.init_state(cfg, U0, device=device)
     return Case("blast3d", cfg, step, state, grid, {"r0": r0, "p_ratio": p_ratio})
 
@@ -1288,10 +1303,13 @@ def _fem_case(name, mesh, spaces, cfg, g, precision, scheme, grid, extras, devic
     if scheme == "projection":
         step = mfem.make_projection_step(ops, cfg, g, mesh.tags["outlet"],
                                          force_nodes=force_nodes)
+        step.explicit_spec = ("fem", {"g": g, "force_nodes": force_nodes,
+                                      "p_out_nodes": mesh.tags["outlet"]})
         # seed the pressure-increment carry: the CG warm start
         state = state._replace(phi=torch.zeros_like(state.p))
     else:
         step = mfem.make_step(ops, cfg, g, force_nodes=force_nodes)
+        step.explicit_spec = ("fem", {"g": g, "force_nodes": force_nodes})
     sampler = build_sampler(spaces, grid.x_coords(), grid.y_coords(), device=device)
     return Case(name, cfg, step, state, grid,
                 {"mesh": mesh, "spaces": spaces, "ops": ops, "sampler": sampler, "g": g,

@@ -100,10 +100,14 @@ def boussinesq3d_state_from_numpy(u, v, w, p, theta, t, step, device) -> Boussin
 
 def state_to_numpy(state) -> dict:
     """Every field of a flat state as a float32 array (u, v, p; θ, w where
-    the state has them), with ``"t"`` as np.float32 and ``"step"`` as
-    np.int32."""
-    out = {k: getattr(state, k).detach().cpu().numpy() for k in state._fields
-           if k not in ("t", "step")}
+    the state has them; a bfloat16 field, ``storage="bf16"``, upcast
+    exactly), with ``"t"`` as np.float32 and ``"step"`` as np.int32."""
+
+    def host(x):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+
+    out = {k: host(getattr(state, k)) for k in state._fields if k not in ("t", "step")}
     out["t"] = np.float32(state.t.item())
     out["step"] = np.int32(state.step.item())
     return out

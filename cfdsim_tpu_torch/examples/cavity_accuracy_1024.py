@@ -11,8 +11,10 @@ error at 1024² is ~1.1e-4).
 The steps run in chunks of 5000 through ``make_chunk`` (one CUDA graph of
 10 steps replayed on the card). At the end the state goes to ``out.npz``
 (keys u, v, p, t, step, the JAX driver's) and ``--resume`` reads such a
-file back, from either package. Only float32 storage is ported; the JAX
-driver's compilation cache has no counterpart. Beyond the JAX driver's
+file back, from either package, into the state's dtype (``storage`` "bf16"
+keeps u and v in bfloat16 between steps; the npz holds them as float32,
+as the JAX driver writes them). The JAX driver's compilation cache has no
+counterpart. Beyond the JAX driver's
 positional ``[n] [t_end] [out.npz] [projection] [resume] [storage]``:
 ``--device``, ``--io`` (the final state, native ``.csnap`` by default),
 ``--out`` (the report's and snapshot's directory), ``--chunk-steps``,
@@ -47,7 +49,8 @@ def extrema_errors(s, n):
     the vertical centreline (x faces at i = n/2), v on the horizontal one."""
     from cfdsim_tpu_torch.validation import botella_peyret_errors
 
-    u, v = (np.asarray(f.cpu() if torch.is_tensor(f) else f, np.float32) for f in (s.u, s.v))
+    u, v = (np.asarray(f.float().cpu() if torch.is_tensor(f) else f, np.float32)
+            for f in (s.u, s.v))
     u_c = u[:, n // 2]
     y_u = (np.arange(n) + 0.5) / n
     v_c = v[n // 2, :]
@@ -57,7 +60,8 @@ def extrema_errors(s, n):
 
 def load_npz(path, state):
     """``state`` with u, v, p, t, step from the npz at ``path`` (either
-    package's); a field whose shape is not the grid's raises."""
+    package's), each field in the state's dtype; a field whose shape is not
+    the grid's raises."""
     d = np.load(path)
     for k in STATE_KEYS:
         if d[k].shape != tuple(getattr(state, k).shape):
@@ -65,7 +69,8 @@ def load_npz(path, state):
                              f"{tuple(getattr(state, k).shape)}")
     dev = state.t.device
     return state._replace(
-        **{k: torch.as_tensor(d[k], dtype=torch.float32, device=dev) for k in STATE_KEYS},
+        **{k: torch.as_tensor(d[k], dtype=torch.float32, device=dev).to(getattr(state, k).dtype)
+           for k in STATE_KEYS},
         t=torch.tensor(float(d["t"]), dtype=torch.float32, device=dev),
         step=torch.tensor(int(d["step"]), dtype=torch.int32, device=dev))
 
@@ -73,7 +78,7 @@ def load_npz(path, state):
 def save_npz(path, s) -> Path:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **{k: getattr(s, k).cpu().numpy() for k in STATE_KEYS}, t=float(s.t),
+    np.savez(path, **{k: getattr(s, k).float().cpu().numpy() for k in STATE_KEYS}, t=float(s.t),
              step=int(s.step))
     return path
 
@@ -85,12 +90,10 @@ def run(n=1024, t_end=400.0, out=None, projection="chorin", resume=None, storage
     from cfdsim_tpu_torch.cases import lid_cavity_mac
     from cfdsim_tpu_torch.models.incompressible import make_chunk
 
-    if storage != "fp32":
-        raise NotImplementedError(f"storage={storage!r}: only 'fp32' is ported (the JAX "
-                                  "package measured bf16 storage and rejected it)")
     device = device_of(device)
     out = Path(out if out is not None else f"out/cavity_acc_{n}.npz")
-    case = lid_cavity_mac(n=n, Re=1000.0, projection=projection, device=device)
+    case = lid_cavity_mac(n=n, Re=1000.0, projection=projection, storage=storage,
+                          device=device)
     chunk = make_chunk(case.cfg, case.step, chunk_steps)
     s = case.state
     if resume:
@@ -125,7 +128,8 @@ def main(argv=None) -> dict:
                     help="the final state's npz (default out/cavity_acc_<n>.npz)")
     ap.add_argument("projection", nargs="?", default="chorin", choices=["chorin", "incremental"])
     ap.add_argument("resume", nargs="?", default=None, help="an npz to resume from")
-    ap.add_argument("storage", nargs="?", default="fp32", help="fp32 (the only one ported)")
+    ap.add_argument("storage", nargs="?", default="fp32", choices=["fp32", "bf16"],
+                    help="u and v between steps: fp32, or bf16 (computed in fp32)")
     ap.add_argument("--chunk-steps", type=int, default=5000)
     ap.add_argument("--report-every", type=float, default=25.0)
     ap.add_argument("--max-steps", type=int, default=None,

@@ -6,13 +6,11 @@ of 2, 4 and every rank, checks the physics agree, and reports each
 configuration's time for ``steps`` steps (the second of two runs from the
 same state: the first builds kernels, plans and groups).
 
-The JAX driver shards the single-device step with GSPMD
-(``make_sharded_step``), which the port does not have; here the
-distributed step is the explicit collocated step
-(``parallel/explicit.py::make_cavity_explicit_step``), whose pressure
-solve is the distributed red-black SOR, so both sides run the cavity with
-``PoissonConfig()``'s 100 RB-SOR sweeps (the JAX driver's case solves its
-default DCT). Each mesh is its own group of ranks through
+As the JAX driver, it shards the case's step with ``make_sharded_step``
+on ``shard_state`` blocks (``parallel/sharded.py``): here that is the
+explicit collocated step (``parallel/explicit.py``) with the case's
+default DCT projection through the pencil transforms, where the JAX
+driver jits the single-device step under GSPMD. Each mesh is its own group of ranks through
 ``parallel/launch.py::spawn``: ``--device cuda`` (the default) one NCCL
 rank per card, ``--device cpu`` gloo ranks. The single-device run is a
 ``make_chunk`` chunk (one captured CUDA graph on the card), the
@@ -38,9 +36,8 @@ from cfdsim_tpu_torch.examples._common import (
 
 def _case(n: int, device):
     from cfdsim_tpu_torch.cases import lid_cavity
-    from cfdsim_tpu_torch.solvers.poisson import PoissonConfig
 
-    return lid_cavity(n=n, Re=1000.0, poisson=PoissonConfig(), device=device)
+    return lid_cavity(n=n, Re=1000.0, device=device)
 
 
 def _timed(chunk, state):
@@ -62,11 +59,11 @@ def _timed(chunk, state):
 
 def _distributed(mesh, n: int, steps: int) -> dict:
     from cfdsim_tpu_torch.models.incompressible import make_chunk
-    from cfdsim_tpu_torch.parallel import block_state, gather_blocks, make_cavity_explicit_step
+    from cfdsim_tpu_torch.parallel import gather_blocks, make_sharded_step, shard_state
 
     case = _case(n, mesh.device)
-    step = make_cavity_explicit_step(case.cfg, mesh)
-    out, seconds = _timed(make_chunk(case.cfg, step, steps), block_state(case.state, mesh))
+    step = make_sharded_step(case.step, mesh)
+    out, seconds = _timed(make_chunk(case.cfg, step, steps), shard_state(case.state, mesh))
     return {"mesh": [mesh.py, mesh.px], "seconds": seconds,
             "u": gather_blocks(out.u, mesh).cpu()}
 

@@ -21,7 +21,12 @@ import torch
 def to_host(value) -> np.ndarray:
     """A field as a numpy array (a tensor is copied off its device). A
     complex field (the pseudo-spectral tier's ω̂) becomes the JAX package's
-    schema: float32 re/im planes stacked on a new leading axis, (2, ...)."""
+    schema: float32 re/im planes stacked on a new leading axis, (2, ...). A
+    bfloat16 field (``storage="bf16"``), which numpy lacks, is written as
+    float32, exactly; :func:`restore` rounds it back into the state's
+    dtype."""
+    if torch.is_tensor(value) and value.dtype == torch.bfloat16:
+        value = value.float()
     arr = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
     if np.iscomplexobj(arr):
         return np.stack([arr.real, arr.imag]).astype(np.float32)

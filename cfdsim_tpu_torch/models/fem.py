@@ -102,8 +102,8 @@ class FEMConfig:
     (0: diagonal scaling). ``pp_*`` and ``rotational`` tune the
     projection scheme's pressure solve; ``pp_pc`` is "2level",
     "2level_v" or "jacobi"; ``supg`` scales the projection predictor's
-    streamline-upwind term. ``gmres_method`` "incremental" is the one
-    ported.
+    streamline-upwind term. ``gmres_method``: jax.scipy's "incremental"
+    (the default) or "batched" (``solvers/krylov.py``).
     """
 
     nu: float = 0.01

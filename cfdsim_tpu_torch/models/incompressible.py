@@ -17,11 +17,13 @@ runs a chunk of steps: on a CUDA device as one captured device program (a
 CUDA graph, the counterpart of the JAX package's jitted ``lax.scan``),
 else as a Python loop.
 
-Not ported: ``storage="bf16"``, which raises ``NotImplementedError`` at
-build time. ``fused_predictor`` runs the CUDA kernel of
-``ops/kernels/predictor.py``. States and metrics may be nested NamedTuples
-(``models/transport.py``): the chunk works on their leaves
-(``utils/tree.py``).
+``storage="bf16"`` keeps u and v in bfloat16 between steps: the step
+upcasts them to float32 once at its start, computes everything in float32
+and rounds them once at its end; its metrics read the unrounded fields.
+``fused_predictor`` runs the CUDA kernel of ``ops/kernels/predictor.py``
+(on the upcast float32 fields, whatever the storage). States and metrics
+may be nested NamedTuples (``models/transport.py``): the chunk works on
+their leaves (``utils/tree.py``).
 """
 
 from __future__ import annotations
@@ -69,8 +71,8 @@ IMPLICIT_SOLVERS = ("auto", "dst", "jacobi")
 class IncompressibleState(NamedTuple):
     """Projection-solver state; all tensors on one device."""
 
-    u: torch.Tensor  # (ny, nx) float32 x-velocity
-    v: torch.Tensor  # (ny, nx) float32 y-velocity
+    u: torch.Tensor  # (ny, nx) float32 x-velocity (bfloat16 under storage="bf16")
+    v: torch.Tensor  # (ny, nx) float32 y-velocity (likewise)
     p: torch.Tensor  # (ny, nx) float32 pressure (projection potential)
     t: torch.Tensor  # 0-dim float32 simulated time
     step: torch.Tensor  # 0-dim int32
@@ -97,7 +99,7 @@ class StepMetrics(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class IncompressibleConfig:
     """Static solver configuration: the JAX package's fields, with the same
-    defaults. ``storage="bf16"`` is accepted here and refused by the step."""
+    defaults."""
 
     grid: Grid
     nu: float
@@ -135,22 +137,34 @@ class IncompressibleConfig:
     # into one pass: the hand-written CUDA kernel on the card. Requires
     # scheme="central", explicit diffusion, no LES, no forcing.
     fused_predictor: bool = False
-    storage: str = "fp32"
+    # inter-step u/v storage: "bf16" halves the state's bytes, computes in
+    # float32 and rounds u and v once a step (~4e-3 relative); p stays
+    # float32, as it warm-starts the solve
+    storage: str = "fp32"  # fp32 | bf16
+
+
+def storage_dtype(storage: str) -> torch.dtype:
+    """The dtype of u and v between steps for a config's ``storage``."""
+    if storage not in ("fp32", "bf16"):
+        raise ValueError(f"unknown storage {storage!r}")
+    return torch.bfloat16 if storage == "bf16" else torch.float32
 
 
 def init_state(cfg: IncompressibleConfig, u0=None, v0=None, p0=None, *, device):
-    """Zero state (or the given fields) on ``device``."""
+    """Zero state (or the given fields) on ``device``; u and v in the
+    storage dtype, p in float32."""
     g = cfg.grid
+    vdt = storage_dtype(cfg.storage)
 
-    def field(x):
+    def field(x, dtype):
         if x is None:
-            return g.zeros(device=device)
-        return torch.as_tensor(x, dtype=torch.float32, device=device).clone()
+            return g.zeros(dtype, device=device)
+        return torch.as_tensor(x, dtype=torch.float32, device=device).to(dtype).clone()
 
     return IncompressibleState(
-        u=field(u0),
-        v=field(v0),
-        p=field(p0),
+        u=field(u0, vdt),
+        v=field(v0, vdt),
+        p=field(p0, torch.float32),
         t=torch.zeros((), dtype=torch.float32, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -163,12 +177,7 @@ def _check_config(cfg: IncompressibleConfig) -> None:
         raise ValueError(f"unknown diffusion {cfg.diffusion!r}")
     if cfg.implicit_solver not in IMPLICIT_SOLVERS:
         raise ValueError(f"unknown implicit_solver {cfg.implicit_solver!r}")
-    if cfg.storage == "bf16":
-        raise NotImplementedError(
-            "storage='bf16' is not ported (only 'fp32'): the JAX package measured it as "
-            "a bandwidth experiment that freezes long runs; see ROADMAP.md slice 0")
-    if cfg.storage != "fp32":
-        raise ValueError(f"unknown storage {cfg.storage!r}")
+    storage_dtype(cfg.storage)
 
 
 def _cleanup_divergence(u, v, dx, dy, iters: int):
@@ -325,6 +334,9 @@ class IncompressibleStep(nn.Module):
         if not torch.is_tensor(cfl_scale):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
         u, v, p = state.u, state.v, state.p
+        if cfg.storage == "bf16":
+            # upcast once; everything below runs in float32
+            u, v = u.float(), v.float()
 
         # --- LES eddy viscosity: ν_eff is a field with it, a number without
         nu_t = None
@@ -389,8 +401,12 @@ class IncompressibleStep(nn.Module):
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
 
+        u_out, v_out = u_new, v_new
+        if cfg.storage == "bf16":
+            # round once a step; the metrics below read the float32 fields
+            u_out, v_out = u_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
         new_state = IncompressibleState(
-            u=u_new, v=v_new, p=phi, t=state.t + dt, step=state.step + 1)
+            u=u_out, v=v_out, p=phi, t=state.t + dt, step=state.step + 1)
 
         zero = self.zero
         if not cfg.compute_metrics:

@@ -26,7 +26,9 @@ ghost-cell IBM of ``ibm_ghost.py`` (a static body's stencils as buffers, or
 a moving body's rebuilt on the device from ``center(t)`` with
 ``moving_scheme="ghost"``), and the moving body's penalization masks.
 
-Not ported: ``storage="bf16"``, which raises ``NotImplementedError``.
+``storage="bf16"`` keeps u and v in bfloat16 between steps: the step
+upcasts them once before ``set_normal``, computes in float32 and rounds
+them once at its end; its metrics read the unrounded fields.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from torch import nn
 from cfdsim_tpu_torch.grid import Grid
 from cfdsim_tpu_torch.ibm import ibm_ramp
 from cfdsim_tpu_torch.ibm_ghost import GhostForcing2D, moving_ghost_forcing_2d
-from cfdsim_tpu_torch.models.incompressible import StepMetrics
+from cfdsim_tpu_torch.models.incompressible import StepMetrics, storage_dtype
 from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.solvers.autotune import resolve_poisson_config
 from cfdsim_tpu_torch.solvers.helmholtz import make_mac_helmholtz
@@ -53,8 +55,8 @@ from cfdsim_tpu_torch.solvers.poisson import PoissonConfig, PoissonSolver, poiss
 class MACState(NamedTuple):
     """Staggered state; all tensors on one device."""
 
-    u: torch.Tensor  # (ny, nx+1) float32
-    v: torch.Tensor  # (ny+1, nx) float32
+    u: torch.Tensor  # (ny, nx+1) float32 (bfloat16 under storage="bf16")
+    v: torch.Tensor  # (ny+1, nx) float32 (likewise)
     p: torch.Tensor  # (ny, nx) float32
     t: torch.Tensor  # 0-dim float32
     step: torch.Tensor  # 0-dim int32
@@ -63,7 +65,6 @@ class MACState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class MACConfig:
     """Static configuration: the JAX package's fields and defaults.
-    ``storage="bf16"`` is accepted here and refused by the step.
 
     projection: "chorin" (solve for the full pressure) or "incremental"
         (the predictor carries ∇pⁿ, the solve yields the increment)
@@ -81,7 +82,9 @@ class MACConfig:
     projection: str = "chorin"
     diffusion: str = "explicit"
     time_scheme: str = "euler"
-    storage: str = "fp32"
+    # inter-step u/v storage (p stays float32: it warm-starts the solve);
+    # see models/incompressible.py
+    storage: str = "fp32"  # fp32 | bf16
     adaptive_dt: bool = True
     cfl_target: float = 0.5
     dt_base: float = 1e-3
@@ -93,18 +96,20 @@ class MACConfig:
     compute_metrics: bool = True
 
 
-def _field(x, shape, device):
+def _field(x, shape, device, dtype=torch.float32):
     if x is None:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                           dtype=torch.float32, device=device).clone()
+                           dtype=torch.float32, device=device).to(dtype).clone()
 
 
-def mac_state(nx: int, ny: int, u0=None, v0=None, p0=None, *, device) -> MACState:
-    """A zero state (or the given fields) of ny × nx cells on ``device``."""
+def mac_state(nx: int, ny: int, u0=None, v0=None, p0=None, *, device,
+              velocity_dtype=torch.float32) -> MACState:
+    """A zero state (or the given fields) of ny × nx cells on ``device``;
+    u and v in ``velocity_dtype``, p in float32."""
     return MACState(
-        u=_field(u0, (ny, nx + 1), device),
-        v=_field(v0, (ny + 1, nx), device),
+        u=_field(u0, (ny, nx + 1), device, velocity_dtype),
+        v=_field(v0, (ny + 1, nx), device, velocity_dtype),
         p=_field(p0, (ny, nx), device),
         t=torch.zeros((), dtype=torch.float32, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
@@ -112,7 +117,8 @@ def mac_state(nx: int, ny: int, u0=None, v0=None, p0=None, *, device) -> MACStat
 
 
 def init_state(cfg: MACConfig, u0=None, v0=None, p0=None, *, device) -> MACState:
-    return mac_state(cfg.grid.nx, cfg.grid.ny, u0, v0, p0, device=device)
+    return mac_state(cfg.grid.nx, cfg.grid.ny, u0, v0, p0, device=device,
+                     velocity_dtype=storage_dtype(cfg.storage))
 
 
 # ---------------------------------------------------------------------------
@@ -385,18 +391,12 @@ def _add_interior(q, axis: int, delta):
 
 def check_mac_options(storage: str = "fp32", ibm_ghost=None, ibm_mask_u=None,
                       moving_scheme="penalize") -> None:
-    """Refuse the options of the MAC tiers that the JAX package refuses, and
-    ``storage="bf16"``, which the port lacks."""
+    """Refuse the options of the MAC tiers that the JAX package refuses."""
     if ibm_ghost is not None and ibm_mask_u is not None:
         raise ValueError("ibm_ghost and ibm_mask_* are mutually exclusive")
     if moving_scheme not in ("penalize", "ghost"):
         raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
-    if storage == "bf16":
-        raise NotImplementedError(
-            "storage='bf16' is not ported (only 'fp32'): the JAX package measured it as a "
-            "bandwidth experiment that freezes long runs; see ROADMAP.md slice 0")
-    if storage != "fp32":
-        raise ValueError(f"unknown MAC storage {storage!r}")
+    storage_dtype(storage)
 
 
 def moving_body_masks(body, Xu, Yu, Xv, Yv, taper: float, t):
@@ -622,7 +622,9 @@ class MACStep(nn.Module):
         if not torch.is_tensor(cfl_scale):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.u.device)
         bcs = self.bcs
-        u, v = bcs.set_normal(state.u.clone(), state.v.clone(), state.step, state.t)
+        # float32 copies of the fields (under bf16 storage, the upcast)
+        u, v = bcs.set_normal(state.u.to(torch.float32, copy=True),
+                              state.v.to(torch.float32, copy=True), state.step, state.t)
         ue, ve = bcs.extend(u, v, state.step, state.t)
         nu_t = nu_total = None
         if cfg.use_les:
@@ -648,7 +650,11 @@ class MACStep(nn.Module):
             fx = 0.5 * (fx + fx2)
             fy = 0.5 * (fy + fy2)
 
-        new_state = MACState(u=u_new, v=v_new, p=p, t=state.t + dt, step=state.step + 1)
+        u_out, v_out = u_new, v_new
+        if cfg.storage == "bf16":
+            # round once a step; the metrics below read the float32 fields
+            u_out, v_out = u_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
+        new_state = MACState(u=u_out, v=v_out, p=p, t=state.t + dt, step=state.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_state, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero,

@@ -28,10 +28,21 @@ step on it, every collective placed by hand:
   a pencil pipeline;
 - ``fem_explicit``: the unstructured FEM steps (monolithic, projection,
   steady Stokes) with element-partitioned assembly;
+- ``compressible_explicit``, ``compressible3d_explicit``,
+  ``spectral_explicit``, ``incompressible3d_explicit``: the tiers the JAX
+  package shards only through GSPMD (the wedge and supersonic cavity, the
+  3D blast, the stable-fluids Kolmogorov step, the 3D cavity with a
+  distributed multigrid, DCT or SOR pressure solve);
+- ``sharded``: the entry point (``shard_state``, ``make_sharded_step``,
+  which maps a single-device step module to its explicit counterpart) and
+  distributed red-black SOR; ``mac_sharded.make_sharded_mac_step`` lifts a
+  MAC step to the trimmed state;
 - ``launch``: gloo ranks on the CPU (``spawn``), for tests and the dry run.
 
-The JAX package's GSPMD half (``shard_state``, ``make_sharded_step``,
-``make_sharded_mac_step``) has no counterpart here.
+The JAX package reaches its GSPMD path by placing the state and jitting
+the single-device step; XLA's partitioner has no counterpart here, so
+``make_sharded_step`` returns a step written on blocks, never the
+single-device step run on every rank.
 """
 
 from cfdsim_tpu_torch.parallel.boussinesq_explicit import (
@@ -102,7 +113,14 @@ from cfdsim_tpu_torch.parallel.mac_stretched_explicit import (
     make_moving_body_stretched_explicit_step,
     make_stretched_mac_explicit_step,
 )
+from cfdsim_tpu_torch.parallel.compressible3d_explicit import make_blast3d_explicit_step
+from cfdsim_tpu_torch.parallel.compressible_explicit import make_compressible_explicit_step
+from cfdsim_tpu_torch.parallel.incompressible3d_explicit import (
+    DistributedPoisson3D,
+    make_cavity3d_explicit_step,
+)
 from cfdsim_tpu_torch.parallel.mac_sharded import (
+    make_sharded_mac_step,
     shard_trimmed_state,
     trim_state,
     untrim_state,
@@ -116,7 +134,13 @@ from cfdsim_tpu_torch.parallel.mesh import (
     local_block,
     make_grid_mesh,
 )
-from cfdsim_tpu_torch.parallel.sharded import make_sharded_poisson, rbsor_local
+from cfdsim_tpu_torch.parallel.sharded import (
+    make_sharded_poisson,
+    make_sharded_step,
+    rbsor_local,
+    shard_state,
+)
+from cfdsim_tpu_torch.parallel.spectral_explicit import make_spectral_explicit_step
 from cfdsim_tpu_torch.parallel.spectral_ps_explicit import (
     full_spectrum_state,
     half_spectrum_state,
@@ -209,4 +233,12 @@ __all__ = [
     "make_fem_explicit_step",
     "make_fem_projection_explicit_step",
     "solve_stokes_sharded",
+    "shard_state",
+    "make_sharded_step",
+    "make_sharded_mac_step",
+    "make_compressible_explicit_step",
+    "make_blast3d_explicit_step",
+    "make_spectral_explicit_step",
+    "make_cavity3d_explicit_step",
+    "DistributedPoisson3D",
 ]

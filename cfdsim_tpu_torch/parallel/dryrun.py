@@ -14,9 +14,12 @@ cylinder, their moving ghosts and the stretched moving sphere, (6d) the
 heated cavity and the heated cube, (7) the element-sharded FEM monolithic
 step and (7b) its projection step on the JAX dry run's ``cylinder_fem``
 (re 80, h_far 0.5, h_near 0.12), (8) the pencil-FFT pseudo-spectral step
-at ny = max(2n, py·px·max(py, px)); each one call on the mesh, held against
-the single-device solver or step from the same input (its steps 1, 3 and
-6e are GSPMD and have no counterpart here). ``--device cuda``
+at ny = max(2n, py·px·max(py, px)); and its GSPMD steps (1) the collocated
+cavity with its DCT projection, (3) the 3D cavity with multigrid and (6e)
+the MUSCL wedge, with the stable-fluids Kolmogorov step and the 3D blast,
+through ``sharded.make_sharded_step`` on ``shard_state`` blocks; each one
+call on the mesh, held against the single-device solver or step from the
+same input. ``--device cuda``
 (the default) runs one NCCL rank per card and needs ``--ranks`` cards;
 ``--device cpu`` runs gloo ranks on the CPU. Prints one JSON line per check
 and exits non-zero if a check fails.
@@ -109,7 +112,40 @@ def _dryrun(mesh):
          torch.stack([ref.u[:, :-1], ref.v[:-1, :], ref.theta]), n=n)
     rows += _dryrun_staggered_3d(mesh, n)
     rows += _dryrun_fem_spectral(mesh, n)
+    rows += _dryrun_gspmd_tiers(mesh, n)
     return {"mesh": [mesh.py, mesh.px], "rows": rows}
+
+
+def _dryrun_gspmd_tiers(mesh, n: int):
+    """Steps 1, 3 and 6e, which the JAX dry run runs through GSPMD, and the
+    other tiers the JAX package shards only that way, through
+    ``make_sharded_step``: one call each against the single-device step,
+    relative to the field's largest value."""
+    from cfdsim_tpu_torch.cases import build
+    from cfdsim_tpu_torch.parallel.mesh import gather_state
+    from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
+
+    dev = mesh.device
+    rows = []
+    for name, check, kw in (
+            ("cavity", "gspmd_cavity_step", dict(n=n, Re=100.0)),
+            ("cavity3d", "gspmd_cavity3d_step", dict(n=n, Re=100.0)),
+            ("wedge", "gspmd_wedge_step", dict(nx=2 * n, ny=n, reconstruction="muscl")),
+            ("kolmogorov", "gspmd_kolmogorov_step", dict(ny=n, aspect=2.0)),
+            ("blast3d", "gspmd_blast3d_step", dict(n=n))):
+        case = build(name, device=dev, **kw)
+        got = gather_state(make_sharded_step(case.step, mesh)(shard_state(case.state, mesh),
+                                                              1.0)[0], mesh)
+        want = case.step(case.state, 1.0)[0]
+        err = scale = 0.0
+        for f in want._fields:
+            a = getattr(want, f)
+            if a.ndim >= 2:
+                err = max(err, float((getattr(got, f) - a).abs().max()))
+                scale = max(scale, float(a.abs().max()))
+        rows.append({"check": check, "max_abs_err": err / max(scale, 1.0), "atol": ATOL,
+                     "shape": list(case.state[0].shape)})
+    return rows
 
 
 def _dryrun_fem_spectral(mesh, n: int):

@@ -13,7 +13,9 @@ Chorin projection step of ``models/incompressible.py`` on it:
 - BCs: edge writes on the ranks that hold a global edge (the mesh
   coordinates decide; no collective is skipped);
 - pressure: distributed red-black SOR (``sharded.rbsor_local``), masked in
-  solids when ``masked_poisson``;
+  solids when ``masked_poisson``, or the exact clamped-edge DCT solve
+  through the pencil transforms (``transforms.dct_poisson_local``; the
+  cavity's default, method "dct");
 - reductions (adaptive dt, the rhs mean, the metrics): a local reduction
   and an ``all_reduce`` over the world, the metrics' maxima in one MAX
   and their sums in one SUM (``mesh.pmax``/``mesh.psum``, differentiable).
@@ -59,7 +61,11 @@ from cfdsim_tpu_torch.parallel.halo import (
 )
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 from cfdsim_tpu_torch.parallel.sharded import rbsor_local, sweep_colours
-from cfdsim_tpu_torch.parallel.transforms import dst_helmholtz_local
+from cfdsim_tpu_torch.parallel.transforms import (
+    dct_inv_eigenvalues_local,
+    dct_poisson_local,
+    dst_helmholtz_local,
+)
 
 
 def step_device(mesh: GridMesh, device=None) -> torch.device:
@@ -91,11 +97,17 @@ class ExplicitStep(nn.Module):
                  use_ibm: bool = False, needs_y: bool = False, *, device=None):
         super().__init__()
         _check_config(cfg)
+        if cfg.storage != "fp32":
+            # the JAX package's explicit steps leave bf16 storage unimplemented
+            raise ValueError(f"the explicit sharded step stores fp32, not {cfg.storage!r}")
         if cfg.fused_predictor:
             raise ValueError("the distributed step has no fused predictor (its kernel works "
                              "on a whole grid)")
-        if cfg.poisson.method != "rbsor":
-            raise ValueError("the explicit step solves the pressure by distributed rbsor")
+        if cfg.poisson.method not in ("rbsor", "dct"):
+            raise ValueError("the explicit step solves the pressure by distributed rbsor or "
+                             f"the pencil DCT, not {cfg.poisson.method!r}")
+        if cfg.poisson.method == "dct" and cfg.masked_poisson:
+            raise ValueError("the DCT solve ignores a solid mask: masked_poisson needs rbsor")
         if cfg.poisson.tol > 0.0:
             raise ValueError("the explicit step's rbsor runs a fixed sweep budget (tol=0)")
         g = cfg.grid
@@ -122,6 +134,8 @@ class ExplicitStep(nn.Module):
         red, black = sweep_colours(self.local_shape, mesh)
         self.register_buffer("red", red)
         self.register_buffer("black", black)
+        self.register_buffer("ilam", dct_inv_eigenvalues_local(
+            self.local_shape, g.dx, g.dy, mesh) if cfg.poisson.method == "dct" else None)
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=self.device))
         self.register_buffer("warmup_dt", torch.tensor(cfg.warmup_dt, dtype=torch.float32,
@@ -271,9 +285,14 @@ class ExplicitStep(nn.Module):
         # --- pressure projection, warm-started from the last pressure
         div_star = self._stencil(lambda a, b: divergence(a, b, dx, dy), u_star, v_star)
         rhs = div_star / dt
-        rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
-        phi = rbsor_local(p, rhs, mesh, ax, ay, cfg.poisson.iters, cfg.poisson.omega,
-                          colours=colours)
+        if self.ilam is not None:
+            # exact: the k = 0 mode is dropped in-spectrum, as the
+            # single-device DCT drops it
+            phi = dct_poisson_local(rhs, dx, dy, mesh, self.ilam)
+        else:
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
+            phi = rbsor_local(p, rhs, mesh, ax, ay, cfg.poisson.iters, cfg.poisson.omega,
+                              colours=colours)
         gx, gy = self._stencil(lambda a: gradient(a, dx, dy), phi)
         u_new = u_star - dt * gx
         v_new = v_star - dt * gy
@@ -354,10 +373,8 @@ def make_explicit_step(cfg: IncompressibleConfig, mesh: GridMesh, bc_builder: Ca
 
 def make_cavity_explicit_step(cfg: IncompressibleConfig, mesh: GridMesh,
                               lid_velocity: float = 1.0, *, device=None):
-    """The explicit-communication step of the lid-driven cavity (the
-    Poisson sweeps from ``cfg.poisson.iters``/``omega``; method "rbsor")."""
-    if cfg.poisson.method != "rbsor":
-        raise ValueError("the explicit step uses distributed rbsor")
+    """The explicit-communication step of the lid-driven cavity (method
+    "rbsor": the sweeps from ``cfg.poisson.iters``/``omega``; or "dct")."""
     iy, ix, py, px = mesh.iy, mesh.ix, mesh.py, mesh.px
 
     def bc_builder(state, y_b, mesh_):

@@ -151,6 +151,23 @@ def halo_exchange_edges(block, mesh: GridMesh, width: int = 1):
                       torch.nn.functional.pad(hi_x, pad)], -1)
 
 
+def interior_window(block, mesh: GridMesh, width: int):
+    """``(window, (oy, ox))``: the block padded by ``width`` halo lines from
+    the neighbours (corners included) on the sides that face another block
+    and by nothing on the sides on the *global* boundary, so the window's
+    edge there is the global edge and a single-device operator that treats
+    its array's edge lines as the domain's edge (a finite-volume update, a
+    BC write) runs on it unchanged. The block is ``window[..., oy:oy +
+    ny_l, ox:ox + nx_l]``."""
+    padded = halo_exchange(block, mesh, width)
+    oy = width if mesh.iy > 0 else 0
+    ox = width if mesh.ix > 0 else 0
+    ny = padded.shape[-2] - (width - oy) - (0 if mesh.iy < mesh.py - 1 else width)
+    nx = padded.shape[-1] - (width - ox) - (0 if mesh.ix < mesh.px - 1 else width)
+    window = padded[..., width - oy:width - oy + ny, width - ox:width - ox + nx]
+    return window, (oy, ox)
+
+
 def clamp_global_edges(padded, mesh: GridMesh, width: int = 1):
     """Overwrite the halo lines that lie outside the *global* domain with
     the adjacent edge line (ghost = edge), the Neumann clamped-edge

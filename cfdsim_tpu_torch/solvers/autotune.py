@@ -104,12 +104,15 @@ def _ring_length(device, shape) -> int:
 def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
                          reps: int = 10) -> dict:
     """Milliseconds per solve of every exact variant the shape admits, on
-    ``device``: the median over ``turns`` turns, each timing ``reps``
-    solves of every variant in turn. On a card the ``reps`` solves of a
-    variant are one captured CUDA graph, replayed between two CUDA events,
-    which is how a step's chunk runs them (timed eagerly, a variant of many
-    small kernels would be charged its host dispatch); on the CPU they are
-    eager calls timed with ``perf_counter``."""
+    ``device``: the median over ``turns`` timings of ``reps`` solves. On a
+    card the ``reps`` solves of a variant are one captured CUDA graph,
+    replayed between two CUDA events, which is how a step's chunk runs them
+    (timed eagerly, a variant of many small kernels would be charged its
+    host dispatch); on the CPU they are eager calls timed with
+    ``perf_counter``. The variants are timed one after the other, each
+    program released before the next is captured: from 2048² on, replaying
+    a graph after another graph has captured the same cuFFT plan reads
+    freed memory (an illegal address on the card)."""
     from cfdsim_tpu_torch.solvers.poisson import NeumannDCT
     from cfdsim_tpu_torch.utils.graphs import CapturedProgram
 
@@ -122,7 +125,7 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
     for _ in range(_ring_length(device, shape)):
         r = rng.standard_normal(shape).astype(np.float32)
         ring.append(torch.tensor(r - r.mean(), device=device))
-    runs = {}
+    times = {}
     for v in _variants_for(shape):
         try:
             solver = NeumannDCT(shape, dx, dy, v, device=device)
@@ -133,12 +136,11 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
             for i in range(reps):
                 solver(ring[i % len(ring)])
 
-        runs[v] = CapturedProgram(run).replay if cuda else run
-    for run in runs.values():  # warm-up: cuFFT plans, the allocator, the graphs' upload
-        run()
-    times = {v: [] for v in runs}
-    for _ in range(turns):
-        for v, run in runs.items():
+        program = CapturedProgram(run) if cuda else None
+        run = program.replay if cuda else run
+        run()  # warm-up: cuFFT plans, the allocator, the graph's upload
+        times[v] = []
+        for _ in range(turns):
             if cuda:
                 start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
@@ -150,6 +152,7 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
                 t0 = time.perf_counter()
                 run()
                 times[v].append((time.perf_counter() - t0) * 1e3 / reps)
+        del run, program, solver
     return {v: statistics.median(t) for v, t in times.items()}
 
 

@@ -1,7 +1,7 @@
 """Matrix-free GMRES and preconditioned CG with the JAX package's
-iteration counts (``jax.scipy.sparse.linalg.gmres`` with
-``solve_method="incremental"`` and ``jax.scipy.sparse.linalg.cg``, which
-the FEM steps call).
+iteration counts (``jax.scipy.sparse.linalg.gmres`` with either
+``solve_method``, and ``jax.scipy.sparse.linalg.cg``, which the FEM steps
+call).
 
 Both take an operator ``A`` and a preconditioner ``M`` on a tensor or a
 tuple of tensors (the FEM (u, p) pair) and treat the tuple as one vector
@@ -25,15 +25,21 @@ kept of the JAX solvers, because it sets the iteration counts:
 - CG stops when r·r ≤ max(tol²·b·b, atol²) (r·z without M) or at
   ``maxiter``.
 
+``solve_method="batched"`` (jax.scipy's ``_gmres_batched``) runs all
+``restart`` Arnoldi steps of a restart with no exit test on the way, ends
+them early only at a breakdown (‖v‖ zeroed by the guard), and then solves
+the least-squares problem for y through the normal equations (H Hᵀ y =
+H β, Cholesky, as ``_lstsq``). A breakdown is carried on the device (the
+steps after it leave V and H as they are), so a whole restart, the solve
+for y and the new residual included, is one body.
+
 The exits depend on the data and a CUDA graph cannot hold them, so each
-exit test is read on the host: one read per GMRES setup and restart, one
-per Arnoldi step (its Hessenberg column, from which the host applies the
-Givens rotations and tests |β_{k+1}| in the system's dtype), one per CG
-setup and iteration. The Krylov vectors stay on the device. The solvers
-run without autograd: the FEM step's implicit adjoint
+exit test is read on the host: one read per GMRES setup and restart, and
+for "incremental" one per Arnoldi step (its Hessenberg column, from which
+the host applies the Givens rotations and tests |β_{k+1}| in the system's
+dtype); one per CG setup and iteration. The Krylov vectors stay on the
+device. The solvers run without autograd: the FEM step's implicit adjoint
 (``models/fem.py``) differentiates the solve, not its iterations.
-``solve_method="batched"`` (a TPU-only variant without a breakdown guard)
-is refused.
 """
 
 from __future__ import annotations
@@ -156,14 +162,14 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     ``b``'s structure. ``counts`` (a ``collections.Counter``) gains the
     matvecs, preconditioner applications, Arnoldi steps, restarts and host
     reads of the solve. ``A`` and ``M`` must read nothing on the host: on a
-    CUDA device the setup, an Arnoldi step and a restart's end are each
-    captured (once per ``workspace``, see :class:`Workspace`) and replayed;
-    ``capture=False`` runs them eagerly (the implicit adjoint's transposed
-    solve, whose operator is an autograd pull-back)."""
-    if solve_method != "incremental":
-        raise ValueError(
-            f"solve_method {solve_method!r}: only 'incremental' is ported ('batched' "
-            "has no float32 breakdown guard and is a TPU-only option)")
+    CUDA device the setup, an Arnoldi step and a restart's end ("batched":
+    the setup and a whole restart) are each captured (once per
+    ``workspace``, see :class:`Workspace`) and replayed; ``capture=False``
+    runs them eagerly (the implicit adjoint's transposed solve, whose
+    operator is an autograd pull-back)."""
+    if solve_method not in ("incremental", "batched"):
+        raise ValueError(f"invalid solve_method {solve_method!r}, must be either "
+                         "'incremental' or 'batched'")
     counts = Counter() if counts is None else counts
     pack, unpack = _flattener(b)
     bf = pack(b)
@@ -173,8 +179,9 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     dt = _dtype_of(bf)
     eps = np.finfo(dt).eps
     w = Workspace() if workspace is None else workspace
-    if w.bind(("gmres", A, M, n, restart, bf.dtype, bf.device, capture)):
-        _gmres_buffers(w, A, M, pack, unpack, bf, restart, eps, capture)
+    if w.bind(("gmres", solve_method, A, M, n, restart, bf.dtype, bf.device, capture)):
+        _gmres_buffers(w, A, M, pack, unpack, bf, restart, eps, capture,
+                       batched=solve_method == "batched")
     w.b.copy_(bf)
     if x0 is None:
         w.x.zero_()
@@ -191,6 +198,15 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     r_norm_h = r_norm_h if r_norm_h > eps else dt(0)
 
     restarts = 0
+    if solve_method == "batched":
+        while restarts < maxiter and r_norm_h > atol:
+            w.restart()
+            (r_norm_h,) = _host(w.norms[2:])
+            r_norm_h = r_norm_h if r_norm_h > eps else dt(0)
+            restarts += 1
+        counts.update(matvecs=restarts * (restart + 1), precond=restarts * (restart + 1) * pc,
+                      arnoldi=restarts * restart, restarts=restarts, host_reads=restarts)
+        return unpack(w.x.clone())
     while restarts < maxiter and r_norm_h > atol:
         # one restart: the Arnoldi process with incremental Givens QR on the
         # host, then x + V y and the new preconditioned residual
@@ -226,10 +242,31 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     return unpack(w.x.clone())
 
 
-def _gmres_buffers(w, A, M, pack, unpack, like, restart, eps, capture):
+def _spd_solve(a, b):
+    """y with a y = b for a symmetric positive definite (m, m) ``a``: the
+    Cholesky factor, then the two triangular solves, column by column in
+    tensor ops (no host read, so a CUDA graph can hold it)."""
+    m = a.shape[0]
+    L = torch.zeros_like(a)
+    for j in range(m):
+        d = a[j, j] - torch.dot(L[j, :j], L[j, :j])
+        L[j, j] = torch.sqrt(d)
+        if j + 1 < m:
+            L[j + 1:, j] = (a[j + 1:, j] - L[j + 1:, :j] @ L[j, :j]) / L[j, j]
+    z = torch.zeros_like(b)
+    for i in range(m):
+        z[i] = (b[i] - torch.dot(L[i, :i], z[:i])) / L[i, i]
+    y = torch.zeros_like(b)
+    for i in reversed(range(m)):
+        y[i] = (z[i] - torch.dot(L[i + 1:, i], y[i + 1:])) / L[i, i]
+    return y
+
+
+def _gmres_buffers(w, A, M, pack, unpack, like, restart, eps, capture, batched=False):
     """A GMRES workspace's buffers and bodies. The Krylov basis is one
     vector a row; rows past the current step are zero, so the projections
-    run over all of them (as JAX's do) and every step has the same shapes."""
+    run over all of them (as JAX's do) and every step has the same shapes.
+    ``batched``: the setup and one body per whole restart."""
     Af, Mf = _operators(A, M, pack, unpack)
     n = like.numel()
     w.b, w.x = torch.zeros_like(like), torch.zeros_like(like)
@@ -270,6 +307,32 @@ def _gmres_buffers(w, A, M, pack, unpack, like, restart, eps, capture):
         w.x.add_(w.y @ V)
         set_residual()
 
+    def batched_restart():
+        """``restart`` Arnoldi steps (the steps after a breakdown leave V and
+        H as they are), y from H Hᵀ y = H β, x + V y, the new residual."""
+        H = torch.eye(restart, restart + 1, dtype=like.dtype, device=like.device)
+        alive = torch.ones((), dtype=torch.bool, device=like.device)
+        for k in range(restart):
+            v = Mf(Af(V[k]))
+            n0 = _norm(v)
+            n0 = torch.where(n0 > eps, n0, 0.0)
+            h = V @ v  # classical Gram–Schmidt, one pass
+            v = v - h @ V
+            n1 = _norm(v)
+            use = n1 > eps * n0  # the guard: a breakdown zeroes the new vector
+            n1 = torch.where(use, n1, 0.0)
+            h[k + 1] = n1
+            V[k + 1] = torch.where(alive, torch.where(use, v / n1, 0.0), V[k + 1])
+            H[k] = torch.where(alive, h, H[k])
+            alive = alive & (n1 != 0)
+        beta0 = w.norms[2]  # the restart's residual norm: β = (‖r‖, 0, …, 0)
+        y = _spd_solve(H @ H.T, H[:, 0] * beta0)
+        w.x.add_(y @ V[:-1])
+        set_residual()
+
+    if batched:
+        w.start, w.restart = (_Body(f, like.device, capture) for f in (start, batched_restart))
+        return
     w.start, w.arnoldi, w.finish = (_Body(f, like.device, capture)
                                     for f in (start, arnoldi, finish))
 

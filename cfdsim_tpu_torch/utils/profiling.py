@@ -5,6 +5,7 @@ PyTorch's CUDA caching allocator.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import subprocess
 import time
@@ -121,3 +122,25 @@ class PerfTracker:
         if include_memory:
             out.update(device_memory_stats(self.device))
         return out
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir):
+    """Trace the block with ``torch.profiler`` (the CPU, and the card where
+    CUDA is present) and write a Chrome trace (``trace.json``) into
+    ``log_dir``; a no-op for ``None``."""
+    if log_dir is None:
+        yield
+        return
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))

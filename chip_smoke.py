@@ -36,9 +36,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    plain versions' bits, and each line says whether they do
 4. chunk routes: 10 steps through the captured chunk (one CUDA graph,
    ``make_chunk``'s route on the card) against 10 eager step calls from
-   the same state, metrics on, on the three paths below, on the
-   implicit cavity (DST, and with LES the Jacobi back end), the LES
-   cylinder and the coupled transport cavity of phases 9-12, on the
+   the same state, metrics on, on the three paths below (and the fused
+   DCT cavity with ``storage="bf16"``), on the implicit cavity (DST, and
+   with LES the Jacobi back end), the LES cylinder and the coupled
+   transport cavity of phases 9-12, on the
    twelve staggered cells of ``bench.mac_paths`` (phases 5c-5d, the three
    ghost-IBM cylinders included), the two 1024² heated cavities, the
    two 256³ cavities (5g-5h), the five full-width 3D bodies of 5i, the
@@ -227,6 +228,26 @@ and the final ``{"ok": true, ...}`` line is not printed:
    ``schafer_turek_2d2`` (10,752 triangles, projection, one
    50-step chunk): each report finite, its ``.csnap`` (or npz) read back at
    its last step, no kernel launched; wall and steps/s printed
+5t. bf16 storage (``phase_bf16_storage``, after phase 4): the collocated
+   (fused predictor) and MAC 1000-Re DCT cavities at 1024² and 4096², fp32
+   and ``storage="bf16"``, marginal cells/s between captured chunks of 100
+   and 600 steps (20 and 120 at 4096²; at 1024² in turns fp32, bf16, bf16,
+   fp32), the ratio of the means, u finite and in its
+   dtype, the bf16 run's largest |Δu| from the fp32 run after the long
+   chunk; the predictor's launches over the long chunks (4·long + the
+   warm-up) on the collocated tier, none on the MAC tier
+5u. GMRES (``phase_gmres_batched``, after 5m): ``bench.fem_paths``'
+   cylinder, monolithic and projection, 3 steps with
+   ``gmres_method="incremental"`` and 3 with ``"batched"`` from the case's
+   state: matvecs, host reads and restarts per step, relres, wall ms per
+   step; the iterates within 1e-2 of max|u|; no kernel launched
+5v. the GSPMD tiers (``phase_sharded_tiers``, after 5q, on the same NCCL
+   group): ``make_sharded_step`` on ``shard_state`` blocks of the MUSCL
+   wedge at 400×200 (5 steps), Kolmogorov at 640×360 (5, from 200 steps of
+   the captured chunk), ``cavity3d`` at 256³ (``mg:2``, 2) and the 256³
+   blast (2), each against its single-device step at the JAX tests'
+   tolerances (rtol 1e-4, atol 1e-5; Kolmogorov 1e-5, 1e-5), wall ms per
+   step beside the single-device loop's; no kernel launched
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -588,6 +609,24 @@ STUDY_KOLMOGOROV = {"stable": ["--t", "2", "--chunk", "200"],
 STUDY_ROSSITER_STEPS, STUDY_ACCURACY_N, STUDY_ACCURACY_CHUNK = 2000, 1024, 5000
 STUDY_FEM_CYLINDER_STEPS, STUDY_FEM_COARSE_STEPS, STUDY_SCHAFER_TUREK_STEPS = 10, 4, 50
 SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
+# bf16 inter-step storage (phase 5t): the bench driver's marginal cells/s
+# between a short and a long chunk, fp32 and bf16 (the driver's 100 and
+# 600 at 1024², 20 and 120 at 4096²)
+BF16_RUNS = {1024: (100, 600), 4096: (20, 120)}
+# GMRES "batched" beside "incremental" on the FEM cylinder (phase 5u): steps
+# per method from the case's state; the two iterates within 1e-2 of max|u|
+# (each solve stops at its own 1e-5 residual)
+GMRES_STEPS, GMRES_U_RTOL = 3, 1e-2
+# the tiers the JAX package shards only through GSPMD, at world size 1
+# (phase 5v): (case, builder arguments, developed steps, steps, the JAX
+# tests' rtol and atol (tests/test_parallel.py:96-97,115-116,251-252,
+# tests/test_3d.py:90-91), fields)
+SHARDED_TIERS = [
+    ("wedge", dict(reconstruction="muscl"), 0, 5, 1e-4, 1e-5, ("U",)),
+    ("kolmogorov", {}, 200, 5, 1e-5, 1e-5, ("u", "v")),
+    ("cavity3d", dict(n=256), 0, 2, 1e-4, 1e-5, ("u", "v", "w")),
+    ("blast3d", dict(n=256), 0, 2, 1e-4, 1e-5, ("U",)),
+]
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -914,7 +953,10 @@ def phase_chunk_routes():
     bodies = sphere_paths(compute_metrics=True, device="cuda")
     compressible = compressible_paths(compute_metrics=True, device="cuda")
     spectral = spectral_paths(compute_metrics=True, device="cuda")
-    paths = {**_paths(), **new_paths(compute_metrics=True), **macs,
+    bf16 = {"cavity1024_dct_fused_bf16": lid_cavity(
+        n=1024, Re=1000.0, poisson=POISSON, compute_metrics=True, fused_predictor=True,
+        storage="bf16", device="cuda")}
+    paths = {**_paths(), **bf16, **new_paths(compute_metrics=True), **macs,
              **boussinesq_paths(1024, device="cuda"), **threed, **bodies, **compressible,
              **spectral}
     # plain torch, cuFFT and cuBLAS only
@@ -2560,6 +2602,139 @@ def phase_distributed_tiers(card, mesh):
         raise AssertionError(f"a kernel ran on the distributed steps: {launches}")
 
 
+def phase_sharded_tiers(card, mesh):
+    """The explicit steps of the tiers the JAX package shards only through
+    GSPMD, through ``make_sharded_step`` on ``shard_state`` blocks, on the
+    NCCL group of world size 1 that ``phase_distributed`` opened, at their
+    cases' full sizes: the MUSCL wedge at 400×200, Kolmogorov at 640×360
+    (from 200 steps of the single-device chunk), the 256³ ``cavity3d``
+    (``mg:2``, the distributed multigrid) and the 256³ blast; each against
+    its single-device step at the JAX tests' tolerances, its wall ms per
+    step beside the single-device loop's; no kernel launched."""
+    from cfdsim_tpu_torch.parallel.mesh import gather_state
+    from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
+
+    _reset_counts()
+    for name, kw, developed, steps, rtol, atol, fields in SHARDED_TIERS:
+        case = build(name, device="cuda", **kw)
+        state = case.state
+        if developed:
+            state, _ = make_chunk(case.cfg, case.step, developed)(state, 1.0)
+        step = make_sharded_step(case.step, mesh)
+        d, md, d_ms = _timed_steps(step, shard_state(state, mesh), steps)
+        r, mr, r_ms = _timed_steps(case.step, state, steps)
+        got = gather_state(d, mesh)
+        for k, f in enumerate(fields):
+            facts = dict(shape=list(getattr(r, f).shape), steps=steps, card=card,
+                         explicit_step=type(step).__name__, ms_per_step=d_ms,
+                         single_device_ms_per_step=r_ms) if k == 0 else {}
+            _within(f"sharded_{name}_{f}", getattr(got, f), getattr(r, f), rtol, atol, **facts)
+        del case, state, step, d, r, got
+        torch.cuda.empty_cache()
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the sharded tiers: {launches}")
+
+
+def phase_bf16_storage(card):
+    """bf16 inter-step storage on the card (``examples/bf16_storage_bench``'s
+    cells and method): the collocated (fused predictor) and MAC 1000-Re
+    cavities at 1024² and 4096², fp32 and bf16, marginal cells/s between a
+    short and a long captured chunk (``BF16_RUNS``; at 1024² in turns fp32,
+    bf16, bf16, fp32), the ratio of the means, the long chunk's u finite
+    and in its storage dtype, and the bf16 run's largest |Δu| from the
+    fp32 run after the long chunk's steps from rest. The predictor's
+    launches are counted over each long chunk's four calls (a warm-up with
+    its capture, then three timed): 4·long + the capture's eager warm-up on
+    the collocated tier, none on the MAC tier. Returns the bf16 collocated
+    runs' launches by size."""
+    from cfdsim_tpu_torch.bench import _timed_chunk
+    from cfdsim_tpu_torch.examples.bf16_storage_bench import bench_case
+
+    launches = {}
+    for tier in ("collocated", "mac"):
+        for n, (short, long) in BF16_RUNS.items():
+            rows, u = {"fp32": [], "bf16": []}, {}
+            for storage in ("fp32", "bf16", "bf16", "fp32") if n == 1024 else ("fp32", "bf16"):
+                case = bench_case(tier, n, storage, device="cuda")
+                t1, _, _ = _timed_chunk(case, case.state, short)
+                _reset_counts()
+                t2, s, chunk = _timed_chunk(case, case.state, long)
+                counts = _counts()
+                want_dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+                finite = bool(torch.isfinite(s.u.float()).all()
+                              and torch.isfinite(s.v.float()).all())
+                want = 4 * long + chunk.steps_per_graph if tier == "collocated" else 0
+                row = dict(cells_per_s=n * n * (long - short) / (t2 - t1),
+                           ms_per_step=(t2 - t1) / (long - short) * 1e3, t_short_s=t1,
+                           t_long_s=t2, predictor_launches=counts["predictor"],
+                           route=chunk.mode, finite=finite, u_dtype=str(s.u.dtype))
+                rows[storage].append(row)
+                if (counts["predictor"] != want or any(v for k, v in counts.items()
+                                                       if k != "predictor")
+                        or not finite or s.u.dtype != want_dtype or chunk.mode != "graph"):
+                    raise AssertionError(f"bf16 storage {tier}{n} {storage}: {row}, "
+                                         f"launches {counts}, wanted {want}")
+                if tier == "collocated" and storage == "bf16":
+                    key = f"cavity_{n}_dct_bf16_storage"
+                    launches[key] = launches.get(key, 0) + counts["predictor"]
+                u[storage] = s.u.float()
+                del case, chunk, s
+            du = float((u["bf16"] - u["fp32"]).abs().max())
+            mean = {k: sum(r["cells_per_s"] for r in v) / len(v) for k, v in rows.items()}
+            say("bf16_storage", tier=tier, n=n, steps=[short, long], fp32=rows["fp32"],
+                bf16=rows["bf16"], ratio=mean["bf16"] / mean["fp32"], max_abs_du=du,
+                max_abs_u_fp32=float(u["fp32"].abs().max()), card=card)
+            del u
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gmres_batched(card):
+    """GMRES ``solve_method="batched"`` beside ``"incremental"`` on
+    ``bench.fem_paths``' cylinder, monolithic and projection
+    (``FEMConfig.gmres_method``): ``GMRES_STEPS`` steps each from the case's
+    state, their Krylov counts per step (matvecs, host reads, restarts),
+    the last step's relres and every step's wall ms (the first includes the
+    capture of the solver's bodies); both finite, the iterates within
+    ``GMRES_U_RTOL`` of max|u|; no kernel launched. Claims nothing."""
+    import dataclasses
+
+    from cfdsim_tpu_torch.models import fem as mfem
+
+    _reset_counts()
+    for path, case in fem_paths("cuda").items():
+        ops, g, fem_mesh = case.extras["ops"], case.extras["g"], case.extras["mesh"]
+        force = case.extras["spaces"].dirichlet_tag_nodes["cylinder"]
+        out, u = {}, {}
+        for method in ("incremental", "batched"):
+            cfg = dataclasses.replace(case.cfg, gmres_method=method)
+            if path.endswith("projection"):
+                step = mfem.make_projection_step(ops, cfg, g, fem_mesh.tags["outlet"],
+                                                 force_nodes=force)
+            else:
+                step = mfem.make_step(ops, cfg, g, force_nodes=force)
+            s, m, ms = _timed_steps(step, case.state, GMRES_STEPS)
+            if not all(bool(torch.isfinite(x).all()) for x in leaves(s)):
+                raise AssertionError(f"{path} with gmres_method={method}: non-finite state")
+            out[method] = dict(ms_per_step=ms, relres=float(m.poisson_res),
+                               per_step={k: v / GMRES_STEPS for k, v in step.counts.items()})
+            u[method] = s.u
+            del step, s
+        apart = float((u["batched"] - u["incremental"]).abs().max())
+        scale = float(u["incremental"].abs().max())
+        say("gmres_batched", path=path, steps=GMRES_STEPS, n_tris=fem_mesh.n_tris,
+            incremental=out["incremental"], batched=out["batched"], u_max_abs_apart=apart,
+            u_max_abs=scale, card=card)
+        if not apart <= GMRES_U_RTOL * scale:
+            raise AssertionError(f"{path}: the batched and incremental iterates differ by {apart}")
+        del case, u
+        torch.cuda.empty_cache()
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the FEM steps: {launches}")
+
+
 def phase_drivers(card):
     """Three example drivers on the card, as a user runs them: the
     reference-parity cylinder (``cylinder_reference_v5 --ref-parity --io
@@ -2973,6 +3148,7 @@ def main() -> int:
     err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
     phase = _timed_phases()
     phase(phase_chunk_routes)
+    bf16_launches = phase(phase_bf16_storage, card)
     phase(phase_golden)
     dct_table = phase(phase_dct_variants, card)
     phase(phase_fdm_precision)
@@ -2987,11 +3163,13 @@ def main() -> int:
     phase(phase_spectral, card)
     phase(phase_new_tiers_resume)
     phase(phase_fem, card)
+    phase(phase_gmres_batched, card)
     phase(phase_gradients, card)
     mesh = phase(phase_distributed, card)
     try:
         phase(phase_distributed_slices, card, mesh)
         phase(phase_distributed_tiers, card, mesh)
+        phase(phase_sharded_tiers, card, mesh)
     finally:
         torch.distributed.destroy_process_group()
     v5_a = phase(phase_drivers, card)
@@ -3007,7 +3185,8 @@ def main() -> int:
 
     launches = {
         "fused_predictor_central": {"cavity_1024_dct": pred_launches,
-                                    "transport_1024_split_run": transport_pred},
+                                    "transport_1024_split_run": transport_pred,
+                                    **bf16_launches},
         "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"],
                   "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"],
                   "cylinder_600x180_les": les_a,

@@ -282,12 +282,12 @@ def test_cylinder_state_round_trips_through_numpy():
 
 
 @pytest.mark.parametrize("kw, error", [
-    (dict(storage="bf16"), NotImplementedError),
+    (dict(storage="fp16"), ValueError),
     (dict(use_les=True, diffusion="implicit", implicit_solver="dst"), ValueError),
     (dict(diffusion="semi"), ValueError),
     (dict(scheme="upwinds"), ValueError),
     (dict(scheme="upwind", fused_predictor=True), ValueError),
-], ids=["bf16", "les-dst", "unknown-diffusion", "unknown-scheme", "fused-upwind"])
+], ids=["unknown-storage", "les-dst", "unknown-diffusion", "unknown-scheme", "fused-upwind"])
 def test_unported_options_raise(kw, error):
     with pytest.raises(error):
         build("cylinder", device="cpu", nx=60, ny=18, **kw)

@@ -220,10 +220,23 @@ def test_cavity_accuracy_1024_resume_is_bit_exact(tmp_path):
 
 @pytest.mark.parametrize("storage", ["bf16", "fp16"])
 def test_cavity_accuracy_1024_refuses_other_storage(tmp_path, storage):
+    """The ``storage`` argument takes the JAX driver's two values: bf16 runs
+    (u and v bfloat16 in the state, float32 in the npz, which resumes into
+    bfloat16); anything else is refused by the argument parser."""
     from cfdsim_tpu_torch.examples import cavity_accuracy_1024 as drv
 
-    with pytest.raises(NotImplementedError, match="only 'fp32'"):
-        drv.main(["16", "1", str(tmp_path / "x.npz"), "chorin", "", storage, "--device", "cpu"])
+    args = ["16", "1", str(tmp_path / "x.npz"), "chorin", "", storage, "--device", "cpu",
+            "--chunk-steps", "5", "--max-steps", "5", "--out", str(tmp_path / "out")]
+    if storage == "fp16":
+        with pytest.raises(SystemExit):
+            drv.main(args)
+        return
+    drv.main(args)
+    d = np.load(tmp_path / "x.npz")
+    assert d["u"].dtype == np.float32 and int(d["step"]) == 5
+    s = drv.run(16, 1e9, tmp_path / "y.npz", "chorin", tmp_path / "x.npz", "bf16",
+                device="cpu", chunk_steps=5, max_steps=10)[0]
+    assert s.u.dtype == torch.bfloat16 and s.p.dtype == torch.float32 and int(s.step) == 10
 
 
 def test_study_drivers_do_not_import_matplotlib(tmp_path):

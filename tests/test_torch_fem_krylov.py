@@ -1,5 +1,6 @@
 """``solvers/krylov.py`` against ``jax.scipy.sparse.linalg.gmres``
-(``solve_method="incremental"``) and ``cg`` on the same systems: a dense
+(``solve_method="incremental"``; "batched" in test_torch_krylov_batched.py)
+and ``cg`` on the same systems: a dense
 nonsymmetric (u (n, 2), p (m,)) pair with a diagonal preconditioner, an SPD
 matrix, and the FEM tier's own operators (a monolithic step's coupled
 system with its block preconditioner, the projection's pressure Poisson
@@ -119,10 +120,13 @@ def test_gmres_pair_matches_jax(dense_pair, restart, maxiter, tol):
 
 
 def test_gmres_refuses_batched(dense_pair):
+    """A ``solve_method`` other than jax.scipy's two is refused, as JAX
+    refuses it ("batched" itself is held to JAX in
+    test_torch_krylov_batched.py)."""
     A, d, b = dense_pair
     op_t, _ = _pair_ops(A, d, torch.from_numpy, torch.cat)
-    with pytest.raises(ValueError, match="batched"):
-        gmres(op_t, tuple(map(torch.from_numpy, b)), solve_method="batched")
+    with pytest.raises(ValueError, match="'incremental' or 'batched'"):
+        gmres(op_t, tuple(map(torch.from_numpy, b)), solve_method="batch")
 
 
 @pytest.mark.parametrize("maxiter", [400, 7])

@@ -291,13 +291,13 @@ def test_state_round_trips_and_step_leaves_its_input():
 
 
 @pytest.mark.parametrize("kw, error", [
-    (dict(storage="bf16"), NotImplementedError),
+    (dict(storage="fp16"), ValueError),
     (dict(time_scheme="rk3"), ValueError),
     (dict(projection="pressure"), ValueError),
     (dict(diffusion="implicit", use_les=True), ValueError),
     (dict(diffusion="implicit", time_scheme="rk2"), ValueError),
     (dict(scheme="quick"), ValueError),
-], ids=["bf16", "rk3", "projection", "implicit-les", "implicit-rk2", "scheme"])
+], ids=["unknown-storage", "rk3", "projection", "implicit-les", "implicit-rk2", "scheme"])
 def test_refused_options_raise(kw, error):
     with pytest.raises(error):
         case = build("cavity_mac", n=8, device="cpu", **kw)

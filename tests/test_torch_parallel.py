@@ -256,7 +256,9 @@ def test_boussinesq_trimmed_roundtrip_bitwise_exact():
 def test_dryrun_on_gloo_ranks(capsys):
     """``python -m cfdsim_tpu_torch.parallel.dryrun --ranks 4 --device cpu``:
     every check within its tolerance on a 2×2 gloo mesh, the FEM and
-    pseudo-spectral steps (JAX dry-run steps 7, 7b, 8) included."""
+    pseudo-spectral steps (JAX dry-run steps 7, 7b, 8) and the GSPMD steps'
+    counterparts through ``make_sharded_step`` (steps 1, 3, 6e, with the
+    Kolmogorov and blast tiers) included."""
     import json
 
     from cfdsim_tpu_torch.parallel.dryrun import main
@@ -271,7 +273,9 @@ def test_dryrun_on_gloo_ranks(capsys):
         "heated_sphere_stretched_step", "sphere_ghost_step", "heated_sphere_stretched_ghost_step",
         "moving_sphere_step", "moving_body_stretched_step", "moving_sphere_ghost_step",
         "moving_body_stretched_ghost_step", "moving_sphere_stretched_step", "heated_cube_step",
-        "fem_step", "fem_projection_step", "ps_step"]
+        "fem_step", "fem_projection_step", "ps_step", "gspmd_cavity_step",
+        "gspmd_cavity3d_step", "gspmd_wedge_step", "gspmd_kolmogorov_step",
+        "gspmd_blast3d_step"]
     assert all(r["ok"] for r in rows[:-1])
     assert rows[-1] == {"dryrun_ok": True, "ranks": 4, "mesh": [2, 2], "device": "cpu"}
 
