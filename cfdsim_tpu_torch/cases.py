@@ -176,6 +176,8 @@ def channel(
     )
     bc = boundary.channel_bcs(u_in, profile)
     step = make_step(cfg, bc, device=device)
+    step.explicit_spec = ("channel", {"u_in": u_in, "profile": (
+        None if profile is None else profile.detach().cpu().numpy())})
     state = init_state(cfg, device=device)
     return Case("channel", cfg, step, state, grid, {"profile": profile})
 
@@ -243,6 +245,9 @@ def cylinder(
     bc = boundary.cylinder_inflow_bcs(v_inf, grid.y_coords(), grid.y_max, perturb_amp=0.01,
                                       perturb_ramp_steps=1000, device=device)
     step = make_step(cfg, bc, solid_mask=solid, ibm_mask=ibm, device=device)
+    step.explicit_spec = ("cylinder", {
+        "v_inf": v_inf, "perturb_amp": 0.01, "perturb_ramp_steps": 1000, "ibm_mask": ibm,
+        "solid_mask": solid, "y": np.asarray(grid.y_coords(), np.float32)})
     u0, v0 = potential_flow_cylinder(grid, center, radius, v_inf, ibm)
     state = init_state(cfg, u0=u0, v0=v0, device=device)
     return Case("cylinder", cfg, step, state, grid,
@@ -275,6 +280,7 @@ def transport(
 
     tcfg = tr.TransportConfig(grid=base.grid, kappa=1.0 / Pe, scheme=scheme)
     step = tr.make_coupled_step(base.step, tcfg, theta_bc)
+    step.explicit_spec = ("transport", {**base.step.explicit_spec[1], "hot_lid": hot_lid})
     theta0 = theta_bc(base.grid.zeros(device=device))
     state = tr.init_coupled(base.state, theta0)
     return Case("transport", (base.cfg, tcfg), step, state, base.grid,
@@ -309,6 +315,8 @@ def cavity_stretched(
     cfg = ms.StretchedMACConfig(nx=n, ny=n, nu=lid_velocity / Re, scheme=scheme, **defaults)
     bcs = mac.cavity_bcs(lid_velocity)
     step = ms.make_step(cfg, bcs, xf, yf, device=device)
+    step.explicit_spec = ("cavity_stretched", {"x_faces": xf, "y_faces": yf,
+                                               "lid_velocity": lid_velocity})
     state = ms.init_state(cfg, device=device)
     grid = Grid(nx=n, ny=n, centering="cell")  # the nominal uniform descriptor
     return Case("cavity_stretched", cfg, step, state, grid,
@@ -370,6 +378,10 @@ def cylinder_stretched(
                                 device=device)
     step = ms.make_step(cfg, bcs, xf, yf, ibm_mask_u=mask_u, ibm_mask_v=mask_v,
                         ibm_ramp_steps=ibm_ramp_steps, device=device)
+    step.explicit_spec = ("cylinder_stretched", {
+        "x_faces": xf, "y_faces": yf, "v_inf": v_inf, "perturb_amp": 0.01,
+        "perturb_ramp_steps": perturb_ramp_steps, "ibm_ramp_steps": ibm_ramp_steps,
+        "ibm_mask_u": mask_u, "ibm_mask_v": mask_v})
     u0 = np.full((ny, nx + 1), v_inf, np.float32) * (np.float32(1.0) - mask_u)
     state = ms.init_state(cfg, u0=u0, device=device)
     grid = Grid(nx=nx, ny=ny, x_max=domain[0], y_max=domain[1], centering="cell")
@@ -435,6 +447,10 @@ def cylinder_mac(
     else:
         raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
     step = mac.make_step(cfg, bcs, ibm_ramp_steps=ibm_ramp_steps, device=device, **ibm_kwargs)
+    step.explicit_spec = ("cylinder_mac", {
+        "v_inf": v_inf, "perturb_amp": 0.01, "perturb_ramp_steps": perturb_ramp_steps,
+        "ibm_ramp_steps": ibm_ramp_steps, "ibm_scheme": ibm_scheme, "ibm_mask_u": mask_u,
+        "ibm_mask_v": mask_v})
     u0, v0 = potential_flow_cylinder_mac(grid, center, radius, v_inf, mask_u, mask_v)
     state = mac.init_state(cfg, u0=u0, v0=v0, device=device)
     return Case("cylinder_mac", cfg, step, state, grid,
@@ -502,6 +518,9 @@ def cylinder_oscillating(
         scfg = ms.StretchedMACConfig(nx=nx, ny=ny, nu=nu, scheme=scheme, **defaults)
         step = ms.make_step(scfg, bcs, xf, yf, moving_body=body, ibm_ramp_steps=ibm_ramp_steps,
                             moving_scheme=ibm_scheme, device=device)
+        step.explicit_spec = ("cylinder_oscillating", {
+            "body": body, "ibm_ramp_steps": ibm_ramp_steps, "moving_scheme": ibm_scheme,
+            "x_faces": xf, "y_faces": yf})
         state = ms.init_state(scfg, device=device)
         extras.update({"x_faces": xf, "y_faces": yf, "h_min": h_min})
         return Case("cylinder_oscillating", scfg, step, state, grid, extras)
@@ -515,6 +534,8 @@ def cylinder_oscillating(
     cfg = mac.MACConfig(grid=grid, nu=nu, scheme=scheme, poisson=pois, **defaults)
     step = mac.make_step(cfg, bcs, moving_body=body, ibm_ramp_steps=ibm_ramp_steps,
                          moving_scheme=ibm_scheme, device=device)
+    step.explicit_spec = ("cylinder_oscillating", {
+        "body": body, "ibm_ramp_steps": ibm_ramp_steps, "moving_scheme": ibm_scheme})
     state = mac.init_state(cfg, device=device)
     return Case("cylinder_oscillating", cfg, step, state, grid, extras)
 
@@ -541,6 +562,7 @@ def heated_cavity(
     cfg = bq.BoussinesqConfig(grid=grid, rayleigh=Ra, prandtl=Pr, theta_scheme=theta_scheme,
                               **cfg_overrides)
     step = bq.make_step(cfg, device=device)
+    step.explicit_spec = ("boussinesq", {})
     state = bq.init_state(cfg, device=device)
     return Case("heated_cavity", cfg, step, state, grid, {"Ra": Ra, "Pr": Pr})
 
@@ -571,6 +593,7 @@ def rayleigh_benard(
     cfg = bq.BoussinesqConfig(grid=grid, rayleigh=Ra, prandtl=Pr, heated_axis="y",
                               **cfg_overrides)
     step = bq.make_step(cfg, device=device)
+    step.explicit_spec = ("boussinesq", {})
     rng = np.random.default_rng(seed)
     yc = (np.arange(ny, dtype=np.float32) + 0.5) / ny
     conducting = (1.0 - yc)[:, None] * np.ones((ny, nx), np.float32)
@@ -679,6 +702,18 @@ def _sphere_ibm(ibm_scheme: str, xf, yf, zf, center, radius, masks, mask_c=None,
     raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
 
 
+def _sphere_spec(v_inf, ibm_ramp_steps, masks, ibm_kwargs, faces=None, perturb=0.0) -> dict:
+    """The explicit_spec of a sphere case: the inflow, the ramp, the
+    penalization masks (u, v, w[, θ]) or the whole-grid ghost tables, the
+    stretched face vectors, the inlet modulation's amplitude."""
+    spec = {"v_inf": v_inf, "ibm_ramp_steps": ibm_ramp_steps, "perturb": perturb,
+            "ibm_ghost": ibm_kwargs.get("ibm_ghost"), "ibm_ghost_c": ibm_kwargs.get("ibm_ghost_c"),
+            "ibm_masks": None if "ibm_ghost" in ibm_kwargs else masks}
+    if faces is not None:
+        spec.update(zip(("x_faces", "y_faces", "z_faces"), faces))
+    return spec
+
+
 def _ghost_extras(ibm_kwargs) -> dict:
     return {k: v for k, v in ibm_kwargs.items() if k in ("ibm_ghost", "ibm_ghost_c")}
 
@@ -732,6 +767,8 @@ def sphere_mac3d(
     bcs = mac3d.external_flow_bcs3d(v_inf, inlet_profile=_inlet_profile(perturb, yc, zc, domain),
                                     device=device)
     step = mac3d.make_step(cfg, bcs, ibm_ramp_steps=ibm_ramp_steps, device=device, **ibm_kwargs)
+    step.explicit_spec = ("sphere", _sphere_spec(v_inf, ibm_ramp_steps, masks, ibm_kwargs,
+                                                 perturb=perturb))
     u0, v0, w0 = potential_flow_sphere_mac3d(grid, center, radius, v_inf, *masks)
     state = mac3d.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     return Case("sphere_mac3d", cfg, step, state, grid,
@@ -789,6 +826,8 @@ def sphere_stretched(
                                     face_weights=fw, device=device)
     step = ms3.make_step(cfg, bcs, xf, yf, zf, ibm_ramp_steps=ibm_ramp_steps, device=device,
                          **ibm_kwargs)
+    step.explicit_spec = ("sphere_stretched", _sphere_spec(
+        v_inf, ibm_ramp_steps, masks, ibm_kwargs, (xf, yf, zf), perturb=perturb))
     u0, v0, w0 = potential_flow_sphere_faces(xf, yf, zf, center, radius, v_inf, *masks)
     state = ms3.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     grid = Grid3D(nx=nx, ny=ny, nz=nz, x_max=domain[0], y_max=domain[1], z_max=domain[2],
@@ -856,6 +895,8 @@ def heated_sphere(
                                theta_scheme=theta_scheme, body_diameter=2 * radius, **defaults)
     bcs = mac3d.external_flow_bcs3d(v_inf, device=device)
     step = t3.make_step(cfg, bcs, ibm_ramp_steps=ibm_ramp_steps, device=device, **ibm_kwargs)
+    step.explicit_spec = ("heated_sphere", _sphere_spec(v_inf, ibm_ramp_steps,
+                                                        (*masks, mask_c), ibm_kwargs))
     u0, v0, w0 = potential_flow_sphere_mac3d(grid, center, radius, v_inf, *masks)
     state = t3.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     return Case("heated_sphere", cfg, step, state, grid,
@@ -918,6 +959,8 @@ def heated_sphere_stretched(
     bcs = mac3d.external_flow_bcs3d(v_inf, face_weights=fw, device=device)
     step = t3.make_stretched_step(cfg, bcs, xf, yf, zf, ibm_ramp_steps=ibm_ramp_steps,
                                   device=device, **ibm_kwargs)
+    step.explicit_spec = ("heated_sphere_stretched", _sphere_spec(
+        v_inf, ibm_ramp_steps, (*masks, mask_c), ibm_kwargs, (xf, yf, zf)))
     u0, v0, w0 = potential_flow_sphere_faces(xf, yf, zf, center, radius, v_inf, *masks)
     state = t3.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     return Case("heated_sphere_stretched", cfg, step, state, grid,
@@ -951,6 +994,8 @@ def cavity3d_stretched(
     cfg = ms3.StretchedMAC3DConfig(nx=n, ny=n, nz=n, nu=lid_velocity / Re, **defaults)
     bcs = ms3.cavity3d_bcs(lid_velocity)
     step = ms3.make_step(cfg, bcs, xf, yf, zf, device=device)
+    step.explicit_spec = ("cavity3d_stretched", {"x_faces": xf, "y_faces": yf, "z_faces": zf,
+                                                 "lid_velocity": lid_velocity})
     state = ms3.init_state(cfg, device=device)
     grid = Grid3D(nx=n, ny=n, nz=n)  # the nominal uniform descriptor
     return Case("cavity3d_stretched", cfg, step, state, grid,
@@ -982,6 +1027,7 @@ def heated_cube(
     cfg = b3.Boussinesq3DConfig(grid=grid, rayleigh=Ra, prandtl=Pr, theta_scheme=theta_scheme,
                                 **cfg_overrides)
     step = b3.make_step(cfg, device=device)
+    step.explicit_spec = ("heated_cube", {})
     state = b3.init_state(cfg, device=device)
     return Case("heated_cube", cfg, step, state, grid, {"Ra": Ra, "Pr": Pr})
 

@@ -20,7 +20,9 @@ Chorin projection step of ``models/incompressible.py`` on it:
   and an ``all_reduce`` over the world, the metrics' maxima in one MAX
   and their sums in one SUM (``mesh.pmax``/``mesh.psum``, differentiable).
 
-Option for option the single-device step: every scheme, LES, implicit
+Option for option the single-device step: bf16 storage (u and v upcast
+once, rounded once at the end, the metrics read before the rounding),
+every scheme, LES, implicit
 diffusion (damped Jacobi, or the exact DST Helmholtz through the pencil
 transforms, with "auto" falling back to Jacobi where the blocks are not
 pencil-splittable), divergence cleanup, IBM damping, the masked Poisson
@@ -97,9 +99,6 @@ class ExplicitStep(nn.Module):
                  use_ibm: bool = False, needs_y: bool = False, *, device=None):
         super().__init__()
         _check_config(cfg)
-        if cfg.storage != "fp32":
-            # the JAX package's explicit steps leave bf16 storage unimplemented
-            raise ValueError(f"the explicit sharded step stores fp32, not {cfg.storage!r}")
         if cfg.fused_predictor:
             raise ValueError("the distributed step has no fused predictor (its kernel works "
                              "on a whole grid)")
@@ -229,6 +228,9 @@ class ExplicitStep(nn.Module):
             fluid_b = ~extras.pop(0).to(torch.bool)
             colours = (self.red & fluid_b, self.black & fluid_b)
         u, v, p = state.u, state.v, state.p
+        if cfg.storage == "bf16":
+            # upcast once; everything below runs in float32
+            u, v = u.float(), v.float()
         bc = self.bc_builder(state, y_b, mesh)
 
         # --- LES eddy viscosity: ν_eff a field with it, a number without
@@ -318,7 +320,11 @@ class ExplicitStep(nn.Module):
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
 
-        new_state = IncompressibleState(u=u_new, v=v_new, p=phi, t=state.t + dt,
+        u_out, v_out = u_new, v_new
+        if cfg.storage == "bf16":
+            # round once a step; the metrics below read the float32 fields
+            u_out, v_out = u_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
+        new_state = IncompressibleState(u=u_out, v=v_out, p=phi, t=state.t + dt,
                                         step=state.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
@@ -404,9 +410,9 @@ def make_cylinder_explicit_step(cfg: IncompressibleConfig, mesh: GridMesh, ibm_m
     Call as ``step(state, cfl_scale, ibm_b, y_b[, solid_b])`` with this
     rank's block of the global (ny, nx) Gaussian-shell mask, its rows of the
     global y coordinates and, iff ``cfg.masked_poisson``, its block of the
-    solid mask (``mesh.local_block``, ``mesh.local_rows``)."""
-    if cfg.poisson.method != "rbsor":
-        raise ValueError("the explicit step uses distributed rbsor")
+    solid mask (``mesh.local_block``, ``mesh.local_rows``). The pressure is
+    the distributed rbsor, or the pencil DCT where ``masked_poisson`` is off
+    (the case's default)."""
     del ibm_mask  # the mask is passed at call time as a block
     g = cfg.grid
     iy, ix, py, px = mesh.iy, mesh.ix, mesh.py, mesh.px
@@ -434,3 +440,40 @@ def make_cylinder_explicit_step(cfg: IncompressibleConfig, mesh: GridMesh, ibm_m
         return bc
 
     return make_explicit_step(cfg, mesh, bc_builder, use_ibm=True, needs_y=True, device=device)
+
+
+def make_channel_explicit_step(cfg: IncompressibleConfig, mesh: GridMesh, u_in: float = 1.0,
+                               profile=None, *, device=None):
+    """The explicit-communication step of the channel
+    (``boundary.channel_bcs(u_in, profile)``): the inflow on x_lo, uniform
+    ``u_in`` or this rank's rows of the global (ny,) ``profile`` (numpy or
+    tensor), the zero-gradient outflow on x_hi, no slip on y.
+    ``step(state, cfl_scale)``."""
+    iy, ix, py, px = mesh.iy, mesh.ix, mesh.py, mesh.px
+    dev = step_device(mesh, device)
+    inflow = u_in
+    if profile is not None:
+        from cfdsim_tpu_torch.parallel.mesh import local_rows
+
+        if torch.is_tensor(profile):
+            profile = profile.detach().cpu().numpy()
+        inflow = local_rows(np.asarray(profile, np.float32), mesh).to(dev)
+
+    def bc_builder(state, y_b, mesh_):
+        def bc(uu, vv):
+            if ix == 0:
+                uu[:, 0] = inflow
+                vv[:, 0] = 0.0
+            if ix == px - 1:
+                uu[:, -1] = uu[:, -2]
+                vv[:, -1] = vv[:, -2]
+            for f in (uu, vv):
+                if iy == 0:
+                    f[0, :] = 0.0
+                if iy == py - 1:
+                    f[-1, :] = 0.0
+            return uu, vv
+
+        return bc
+
+    return make_explicit_step(cfg, mesh, bc_builder, device=device)

@@ -30,6 +30,10 @@ step's float32 face coordinates, or, with ``moving_scheme="ghost"``, the
 ghost faces classified again on the block and their probes gathered from
 exchanged windows (``ibm_ghost_explicit.py``); its momentum sums over the
 mesh into the body force.
+
+``storage="bf16"`` keeps the trimmed u and v in bfloat16 between steps, as
+``models/mac.py`` does: upcast once, float32 inside, rounded once at the
+end; the metrics read the float32 fields.
 """
 
 from __future__ import annotations
@@ -299,8 +303,6 @@ class MACExplicitStep(nn.Module):
             raise ValueError("the explicit sharded MAC step implements projection='chorin'")
         if cfg.diffusion != "explicit":
             raise ValueError("the explicit sharded MAC step implements diffusion='explicit'")
-        if cfg.storage != "fp32":
-            raise ValueError(f"the explicit sharded MAC step stores fp32, not {cfg.storage!r}")
         self.cfg, self.mesh, self.bcs = cfg, mesh, bcs
         self.use_ibm, self.ibm_ramp_steps = use_ibm, ibm_ramp_steps
         self.device = step_device(mesh, device)
@@ -361,7 +363,8 @@ class MACExplicitStep(nn.Module):
             gr, gc = getattr(self, f"gr{w}"), getattr(self, f"gc{w}")
             return bcs.post_u(U, gr, gc, tstate, a), bcs.post_v(V, gr, gc, tstate, a), (gr, gc)
 
-        u_t, v_t, a = set_normal(tstate.u, tstate.v)
+        # float32 copies of the fields (under bf16 storage, the upcast)
+        u_t, v_t, a = set_normal(tstate.u.float(), tstate.v.float())
         U, V, (grP, gcP) = pad(u_t, v_t, a, 2)
 
         # --- staggered Smagorinsky LES (mac.smagorinsky_viscosity_mac and
@@ -470,7 +473,11 @@ class MACExplicitStep(nn.Module):
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
 
-        new_tstate = MACState(u=u_new, v=v_new, p=phi, t=tstate.t + dt, step=tstate.step + 1)
+        u_out, v_out = u_new, v_new
+        if cfg.storage == "bf16":
+            # round once a step; the metrics below read the float32 fields
+            u_out, v_out = u_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
+        new_tstate = MACState(u=u_out, v=v_out, p=phi, t=tstate.t + dt, step=tstate.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_tstate, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero,

@@ -8,8 +8,15 @@ slice of the whole-grid vector at clamped global indices, the z lines are
 local, and the control volumes, cell volumes and LES filter widths are the
 single-device step's float64 products cut to this rank's block. The
 projection is the distributed 3D fast diagonalization
-(``transforms.make_fdm_poisson3d_local``). Central scheme only, as in the
-JAX package.
+(``transforms.make_fdm_poisson3d_local``).
+
+The central scheme runs on width-1 padded blocks. Upwind and TVD (the
+sphere cases' default) run the single-device step's MUSCL donor fluxes on
+the width-2 windows of the uniform tier (``mac3d_explicit.py``), with this
+rank's window lines of the metric gaps, donor distances and interpolation
+weights, the van Leer slopes zeroed on the global boundary lines that run
+through a window (the single-device slopes end there), and crop to the
+owned faces. The JAX package's explicit stretched step is central only.
 
 LES (static Smagorinsky or dynamic Germano–Lilly) evaluates ν_t on the
 width-2 windows of the uniform tier with window lines of the metrics and
@@ -35,6 +42,7 @@ from cfdsim_tpu_torch.models.mac_stretched3d import (
     smagorinsky_viscosity_stretched3d,
 )
 from cfdsim_tpu_torch.ops.les_dynamic import ibm_fluid_mask_centers
+from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
 from cfdsim_tpu_torch.parallel.halo import halo_exchange, halo_exchange_edges
 from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
@@ -70,8 +78,8 @@ class Stretched3DExplicitStep(nn.Module):
         super().__init__()
         if ibm_ghost is not None and use_ibm:
             raise ValueError("ghost_halo and use_ibm are mutually exclusive")
-        if cfg.scheme != "central":
-            raise ValueError("the explicit stretched-3D step implements scheme='central'")
+        if cfg.scheme not in ("central", "upwind", "tvd"):
+            raise ValueError(f"unknown scheme {cfg.scheme!r}")
         if cfg.les_model not in ("smagorinsky", "dynamic"):
             raise ValueError(f"unknown les_model {cfg.les_model!r}")
         self.dynamic = cfg.use_les and cfg.les_model == "dynamic"
@@ -140,6 +148,28 @@ class Stretched3DExplicitStep(nn.Module):
         block("cv_u", hz * hy * mx.dfull[None, None, :])
         block("cv_v", hz * my.dfull[None, :, None] * hx)
         block("cv_w", mz.dfull[:, None, None] * hy * hx)
+        if cfg.scheme != "central":
+            # the window lines of the donor fluxes: window sample k along y
+            # (x) is the single-device sample gy0 − 2 + k (gx0 − 2 + k) of
+            # every array the fluxes read, faces, centres and ghost-extended
+            # centres alike
+            xf, yf, zf = (np.asarray(a, np.float64) for a in (x_faces, y_faces, z_faces))
+            wn_y, wn_x = ny_l + 4, nx_l + 4
+            for m, f, a, start, wn, ax in ((mx, xf, "x", gx0 - 2, wn_x, 2),
+                                          (my, yf, "y", gy0 - 2, wn_y, 1)):
+                gd = np.concatenate([[m.xc[0] - m.h[0]], m.xc, [m.xc[-1] + m.h[-1]]])
+                line(f"w_inv_h{a}", 1.0 / m.h, start, wn, ax)
+                line(f"w_inv_df{a}", 1.0 / m.dfull, start, wn + 1, ax)
+                line(f"w_d{a}l_c", m.xc - f[:-1], start, wn, ax)
+                line(f"w_d{a}r_c", f[1:] - m.xc, start, wn, ax)
+                line(f"w_d{a}l_f", f - gd[:-1], start, wn + 1, ax)
+                line(f"w_d{a}r_f", gd[1:] - f, start, wn + 1, ax)
+                line(f"w_wf{a}", np.concatenate([[0.5], m.wf, [0.5]]), start, wn + 1, ax)
+            gdz = np.concatenate([[mz.xc[0] - mz.h[0]], mz.xc, [mz.xc[-1] + mz.h[-1]]])
+            zline("dzl_c", mz.xc - zf[:-1])
+            zline("dzr_c", zf[1:] - mz.xc)
+            zline("dzl_f", zf - gdz[:-1])
+            zline("dzr_f", gdz[1:] - zf)
         if cfg.use_les:
             # the ±2-centre window's metric lines and Δ² (the single-device
             # float64 (hx hy hz)^{2/3} at clamped indices)
@@ -185,15 +215,14 @@ class Stretched3DExplicitStep(nn.Module):
                                                      device=dev))
         self.register_buffer("zero", torch.zeros((), dtype=torch.float32, device=dev))
 
-    def _nu_t(self, u_t, v_t, w_t, a, ts, extras):
-        """ν_t on the ±2-centre window (nz, ny_l+4, nx_l+4) and the window
-        arrays it was built from."""
-        cfg = self.cfg
-        mesh = self.mesh
-        bcs = self.bcs
+    def _windows(self, u_t, v_t, w_t, a, ts):
+        """The width-2 windows in the single-device layout (u (nz, NY,
+        NX+1), v (nz, NY+1, NX), w (nz+1, NY, NX), NY = ny_l+4, NX = nx_l+4)
+        and their ghost extensions; the zero lines appended feed only cropped
+        positions or slopes that the fix zeroes."""
         idx = self.idx
-        ny, nx = cfg.ny, cfg.nx
-        U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), mesh, 2).unbind(0)
+        bcs = self.bcs
+        U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), self.mesh, 2).unbind(0)
         U2, V2, W2 = bcs.win(U2, V2, W2, idx.r2, idx.c2, ts, a)
         u_win = torch.cat([U2, torch.zeros_like(U2[:, :, :1])], 2)
         v_win = torch.cat([V2, torch.zeros_like(V2[:, :1, :])], 1)
@@ -205,6 +234,102 @@ class Stretched3DExplicitStep(nn.Module):
 
         ghosts = (zpad(u_win, 1), bcs.zghost_u(u_win), zpad(v_win, 2), bcs.zghost_v(v_win),
                   zpad(w_win, 2), zpad(w_win, 1))
+        return u_win, v_win, w_win, ghosts
+
+    def _slope_fix(self, s, axis: int, first: int, ends):
+        """Zero the slopes of a window sample array along ``axis`` (1 y, 2 x)
+        whose sample k is global line ``first`` + k, on the global boundary
+        lines ``ends``."""
+        shape = [1, 1, 1]
+        shape[axis] = s.shape[axis]
+        i = first + torch.arange(s.shape[axis], device=s.device).reshape(shape)
+        return torch.where((i == ends[0]) | (i == ends[1]), 0.0, s)
+
+    def _muscl(self, q, inv_sp, d_lo, d_hi, axis: int, tvd: bool, fix=None):
+        """``models/mac_stretched3d._muscl_axis`` on a window: the slopes,
+        zero at the window's ends, also zeroed by ``fix`` = (first, ends) on
+        the global boundary lines inside it."""
+        n = q.shape[axis]
+        lo, hi = q.narrow(axis, 0, n - 1), q.narrow(axis, 1, n - 1)
+        if not tvd:
+            return lo, hi
+        dq = (hi - lo) * inv_sp
+        m = dq.shape[axis]
+        g = vanleer_slope(dq.narrow(axis, 0, m - 1), dq.narrow(axis, 1, m - 1))
+        pads = [0] * 6
+        pads[2 * (2 - axis)] = pads[2 * (2 - axis) + 1] = 1
+        g = F.pad(g, pads)
+        if fix is not None:
+            g = self._slope_fix(g, axis, *fix)
+        return lo + g.narrow(axis, 0, n - 1) * d_lo, hi - g.narrow(axis, 1, n - 1) * d_hi
+
+    def _advect_donor(self, u_win, v_win, w_win, ghosts):
+        """Upwind or TVD conservative advection (the single-device step's
+        donor fluxes) on the windows, cropped to the owned faces: (conv_u,
+        conv_v, conv_w), conv_w with a dummy z-face 0 as the central path
+        returns it."""
+        ny, nx = self.cfg.ny, self.cfg.nx
+        ny_l, nx_l = self.local_shape
+        gy0, gx0 = self.mesh.iy * ny_l, self.mesh.ix * nx_l
+        tvd = self.cfg.scheme == "tvd"
+        u_gy, u_gz, v_gx, v_gz, w_gx, w_gy = ghosts
+        wfx, wfy, wfz = self.w_wfx, self.w_wfy, self.wcz
+        u_y = (1.0 - wfy) * u_gy[:, :-1, :] + wfy * u_gy[:, 1:, :]
+        v_x = (1.0 - wfx) * v_gx[:, :, :-1] + wfx * v_gx[:, :, 1:]
+        u_z = (1.0 - wfz) * u_gz[:-1] + wfz * u_gz[1:]
+        w_x = (1.0 - wfx) * w_gx[:, :, :-1] + wfx * w_gx[:, :, 1:]
+        v_z = (1.0 - wfz) * v_gz[:-1] + wfz * v_gz[1:]
+        w_y = (1.0 - wfy) * w_gy[:, :-1, :] + wfy * w_gy[:, 1:, :]
+        uc = 0.5 * (u_win[:, :, :-1] + u_win[:, :, 1:])
+        vc = 0.5 * (v_win[:, :-1, :] + v_win[:, 1:, :])
+        wc = 0.5 * (w_win[:-1] + w_win[1:])
+        # the global boundary lines of each sample array: its first window
+        # sample's global line, and the two end samples of the single-device
+        # array (faces 0, n; ghost centres −1, n)
+        faces_x, cells_x = (gx0 - 2, (0, nx)), (gx0 - 3, (-1, nx))
+        faces_y, cells_y = (gy0 - 2, (0, ny)), (gy0 - 3, (-1, ny))
+
+        def flux(adv, q, inv_sp, d_lo, d_hi, axis, fix=None):
+            lo, hi = self._muscl(q, inv_sp, d_lo, d_hi, axis, tvd, fix)
+            return adv * torch.where(adv >= 0.0, lo, hi)
+
+        F_u = flux(uc, u_win, self.w_inv_hx, self.w_dxl_c, self.w_dxr_c, 2, faces_x)
+        G_u = flux(v_x, u_gy, self.w_inv_dfy, self.w_dyl_f, self.w_dyr_f, 1, cells_y)
+        H_u = flux(w_x, u_gz, self.inv_dfz, self.dzl_f, self.dzr_f, 0)
+        F_v = flux(u_y, v_gx, self.w_inv_dfx, self.w_dxl_f, self.w_dxr_f, 2, cells_x)
+        G_v = flux(vc, v_win, self.w_inv_hy, self.w_dyl_c, self.w_dyr_c, 1, faces_y)
+        H_v = flux(w_y, v_gz, self.inv_dfz, self.dzl_f, self.dzr_f, 0)
+        F_w = flux(u_z, w_gx, self.w_inv_dfx, self.w_dxl_f, self.w_dxr_f, 2, cells_x)
+        G_w = flux(v_z, w_gy, self.w_inv_dfy, self.w_dyl_f, self.w_dyr_f, 1, cells_y)
+        H_w = flux(wc, w_win, self.inv_hz, self.dzl_c, self.dzr_c, 0)
+        # owned crops: u rows are window centres (2 …), columns the x-faces
+        # gx0 + i; v rows the y-faces gy0 + j; w every interior z-face
+        conv_u = ((F_u[:, 2:2 + ny_l, 2:2 + nx_l] - F_u[:, 2:2 + ny_l, 1:1 + nx_l]) * self.dcx_f
+                  + (G_u[:, 3:3 + ny_l, 2:2 + nx_l] - G_u[:, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.hy_own
+                  + (H_u[1:, 2:2 + ny_l, 2:2 + nx_l] - H_u[:-1, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.inv_hz)
+        conv_v = ((F_v[:, 2:2 + ny_l, 3:3 + nx_l] - F_v[:, 2:2 + ny_l, 2:2 + nx_l]) * self.hx_own
+                  + (G_v[:, 2:2 + ny_l, 2:2 + nx_l] - G_v[:, 1:1 + ny_l, 2:2 + nx_l])
+                  * self.dcy_f
+                  + (H_v[1:, 2:2 + ny_l, 2:2 + nx_l] - H_v[:-1, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.inv_hz)
+        conv_w = ((F_w[1:-1, 2:2 + ny_l, 3:3 + nx_l] - F_w[1:-1, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.hx_own
+                  + (G_w[1:-1, 3:3 + ny_l, 2:2 + nx_l] - G_w[1:-1, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.hy_own
+                  + (H_w[1:, 2:2 + ny_l, 2:2 + nx_l] - H_w[:-1, 2:2 + ny_l, 2:2 + nx_l])
+                  * self.inv_dcz)
+        return conv_u, conv_v, torch.cat([torch.zeros_like(conv_w[:1]), conv_w], 0)
+
+    def _nu_t(self, windows, extras, u_t, v_t, w_t):
+        """ν_t on the ±2-centre window (nz, ny_l+4, nx_l+4) of ``windows``
+        (:meth:`_windows`)."""
+        cfg = self.cfg
+        mesh = self.mesh
+        idx = self.idx
+        ny, nx = cfg.ny, cfg.nx
+        u_win, v_win, w_win, ghosts = windows
         metrics = (self.hx_w, self.hy_w, self.inv_hz, self.dfx_w, self.dfy_w, self.inv_dfz)
         if self.dynamic:
             fluid = self.les_fluid
@@ -217,8 +342,7 @@ class Stretched3DExplicitStep(nn.Module):
         else:
             NUT = smagorinsky_viscosity_stretched3d(u_win, v_win, w_win, ghosts, *metrics,
                                                     self.cs2_delta2)
-        NUT = _roll_writes(NUT, idx.r2, idx.c2, ny, nx, 1.0, 1.0)  # the global edge clamp
-        return NUT, (u_win, v_win, w_win, ghosts)
+        return _roll_writes(NUT, idx.r2, idx.c2, ny, nx, 1.0, 1.0)  # the global edge clamp
 
     def forward(self, ts: MAC3DState, cfl_scale, *extras):
         cfg = self.cfg
@@ -252,8 +376,12 @@ class Stretched3DExplicitStep(nn.Module):
         UZG = bcs.zghost_u(U)
         VZG = bcs.zghost_v(V)
 
+        windows = None
+        if cfg.use_les or cfg.scheme != "central":
+            windows = self._windows(u_t, v_t, w_t, a, ts)
         if cfg.use_les:
-            NUT, (u_win, v_win, w_win, ghosts) = self._nu_t(u_t, v_t, w_t, a, ts, extras)
+            u_win, v_win, w_win, ghosts = windows
+            NUT = self._nu_t(windows, extras, u_t, v_t, w_t)
             nu_stab = cfg.nu + psum(NUT[:, 2:2 + ny_l, 2:2 + nx_l].sum(), mesh) / self.n_global
         if cfg.adaptive_dt:
             vel_max = pmax(torch.maximum(
@@ -273,35 +401,38 @@ class Stretched3DExplicitStep(nn.Module):
         wy, wx, wcz = self.wy, self.wx, self.wcz
         dcx_f, dcy_f, hx_own, hy_own = self.dcx_f, self.dcy_f, self.hx_own, self.hy_own
         inv_hz, inv_dcz, inv_dfz = self.inv_hz, self.inv_dcz, self.inv_dfz
-        UC = 0.5 * (U[:, :, :-1] + U[:, :, 1:])
-        VCC = 0.5 * (V[:, :-1, :] + V[:, 1:, :])
-        WCC = 0.5 * (Wz[:-1] + Wz[1:])
-        UY = (1.0 - wy) * U[:, :-1, :] + wy * U[:, 1:, :]
-        VX = (1.0 - wx) * V[:, :, :-1] + wx * V[:, :, 1:]
-        UZ = (1.0 - wcz) * UZG[:-1] + wcz * UZG[1:]
-        WX = (1.0 - wx) * Wz[:, :, :-1] + wx * Wz[:, :, 1:]
-        VZ = (1.0 - wcz) * VZG[:-1] + wcz * VZG[1:]
-        WY = (1.0 - wy) * Wz[:, :-1, :] + wy * Wz[:, 1:, :]
+        if cfg.scheme != "central":
+            conv_u, conv_v, conv_w = self._advect_donor(*windows)
+        else:
+            UC = 0.5 * (U[:, :, :-1] + U[:, :, 1:])
+            VCC = 0.5 * (V[:, :-1, :] + V[:, 1:, :])
+            WCC = 0.5 * (Wz[:-1] + Wz[1:])
+            UY = (1.0 - wy) * U[:, :-1, :] + wy * U[:, 1:, :]
+            VX = (1.0 - wx) * V[:, :, :-1] + wx * V[:, :, 1:]
+            UZ = (1.0 - wcz) * UZG[:-1] + wcz * UZG[1:]
+            WX = (1.0 - wx) * Wz[:, :, :-1] + wx * Wz[:, :, 1:]
+            VZ = (1.0 - wcz) * VZG[:-1] + wcz * VZG[1:]
+            WY = (1.0 - wy) * Wz[:, :-1, :] + wy * Wz[:, 1:, :]
 
-        # --- the conservative central fluxes on the per-axis gaps
-        FU = UC * UC
-        GU = VX[:, 1:, :] * UY[:, :, 1:]
-        HU = WX[:, 1:-1, :] * UZ[:, 1:-1, 1:]
-        conv_u = ((FU[:, 1:1 + ny_l, 1:] - FU[:, 1:1 + ny_l, :-1]) * dcx_f
-                  + ((GU[:, 1:, :] - GU[:, :-1, :]) * hy_own)[:, :, :nx_l]
-                  + ((HU[1:] - HU[:-1]) * inv_hz)[:, :, :nx_l])
-        GVC = VCC * VCC
-        HV = WY[:, :ny_l, 1:1 + nx_l] * VZ[:, 1:1 + ny_l, 1:1 + nx_l]
-        conv_v = (((GU[:, :, 1:] - GU[:, :, :-1]) * hx_own)[:, :ny_l, :]
-                  + ((GVC[:, 1:, :] - GVC[:, :-1, :]) * dcy_f)[:, :ny_l, 1:1 + nx_l]
-                  + (HV[1:] - HV[:-1]) * inv_hz)
-        FW = UZ[:, 1:-1, 1:] * WX[:, 1:-1, :]
-        GW = VZ[:, 1:, 1:1 + nx_l] * WY[:, :, 1:1 + nx_l]
-        HWC = WCC * WCC
-        dHW = F.pad((HWC[1:] - HWC[:-1]) * inv_dcz, (0, 0, 0, 0, 1, 0))
-        conv_w = (((FW[:, :, 1:] - FW[:, :, :-1]) * hx_own)[:nz]
-                  + ((GW[:, 1:, :] - GW[:, :-1, :]) * hy_own)[:nz]
-                  + dHW[:, 1:1 + ny_l, 1:1 + nx_l])
+            # --- the conservative central fluxes on the per-axis gaps
+            FU = UC * UC
+            GU = VX[:, 1:, :] * UY[:, :, 1:]
+            HU = WX[:, 1:-1, :] * UZ[:, 1:-1, 1:]
+            conv_u = ((FU[:, 1:1 + ny_l, 1:] - FU[:, 1:1 + ny_l, :-1]) * dcx_f
+                      + ((GU[:, 1:, :] - GU[:, :-1, :]) * hy_own)[:, :, :nx_l]
+                      + ((HU[1:] - HU[:-1]) * inv_hz)[:, :, :nx_l])
+            GVC = VCC * VCC
+            HV = WY[:, :ny_l, 1:1 + nx_l] * VZ[:, 1:1 + ny_l, 1:1 + nx_l]
+            conv_v = (((GU[:, :, 1:] - GU[:, :, :-1]) * hx_own)[:, :ny_l, :]
+                      + ((GVC[:, 1:, :] - GVC[:, :-1, :]) * dcy_f)[:, :ny_l, 1:1 + nx_l]
+                      + (HV[1:] - HV[:-1]) * inv_hz)
+            FW = UZ[:, 1:-1, 1:] * WX[:, 1:-1, :]
+            GW = VZ[:, 1:, 1:1 + nx_l] * WY[:, :, 1:1 + nx_l]
+            HWC = WCC * WCC
+            dHW = F.pad((HWC[1:] - HWC[:-1]) * inv_dcz, (0, 0, 0, 0, 1, 0))
+            conv_w = (((FW[:, :, 1:] - FW[:, :, :-1]) * hx_own)[:nz]
+                      + ((GW[:, 1:, :] - GW[:, :-1, :]) * hy_own)[:nz]
+                      + dHW[:, 1:1 + ny_l, 1:1 + nx_l])
 
         if cfg.use_les:
             # the variable-ν flux form replaces the molecular fluxes entirely

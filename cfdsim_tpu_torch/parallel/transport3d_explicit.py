@@ -256,13 +256,10 @@ def make_heated_sphere_stretched_explicit_step(cfg: Transport3DConfig, mesh: Gri
                                                ghost_c=None, *,
                                                device=None) -> HeatedSphereExplicitStep:
     """The stretched heated sphere (``transport3d.make_stretched_step``,
-    central momentum scheme): the distributed stretched momentum step (the
+    any momentum scheme): the distributed stretched momentum step (the
     FDM projection, the area-weighted outflow) and θ's metric-weighted
     fluxes; the call signatures of :func:`make_heated_sphere_explicit_step`."""
     _check(cfg, ghost, ghost_c)
-    if cfg.scheme != "central":
-        raise ValueError("the sharded stretched heated-sphere step implements scheme='central' "
-                         "(the sharded stretched momentum path)")
     g = cfg.grid
     device = mesh.device if device is None else torch.device(device)
     h_min = float(min(np.diff(np.asarray(f, np.float64)).min()

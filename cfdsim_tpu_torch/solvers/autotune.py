@@ -110,9 +110,10 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
     (timed eagerly, a variant of many small kernels would be charged its
     host dispatch); on the CPU they are eager calls timed with
     ``perf_counter``. The variants are timed one after the other, each
-    program released before the next is captured: from 2048² on, replaying
-    a graph after another graph has captured the same cuFFT plan reads
-    freed memory (an illegal address on the card)."""
+    program released before the next is captured, which keeps one
+    program's memory pool alive at a time. (Several live programs replay
+    correctly: the crash once met here was a cuFFT plan destroyed under a
+    live graph, which ``utils/graphs.py::CapturedProgram`` now prevents.)"""
     from cfdsim_tpu_torch.solvers.poisson import NeumannDCT
     from cfdsim_tpu_torch.utils.graphs import CapturedProgram
 

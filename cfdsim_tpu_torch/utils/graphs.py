@@ -12,6 +12,20 @@ import time
 
 import torch
 
+# a captured cuFFT execution runs on its plan's device memory: the plan must
+# outlive the graph. PyTorch's plan cache (``torch.backends.cuda.
+# cufft_plan_cache``, 4096 plans a device by default) destroys its least
+# recently used plan when it is full, and a replay of a graph whose plan was
+# destroyed reads freed memory (an illegal address, or a segfault). While a
+# program lives the cache may therefore not evict: a capture lifts its
+# max_size to PINNED_PLANS. Replaying after the cache was cleared or shrunk
+# raises instead (a best-effort check of its size).
+PINNED_PLANS = 1 << 30
+
+
+def _plan_cache():
+    return torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()]
+
 
 class CapturedProgram:
     """``fn()`` as one device program.
@@ -24,6 +38,11 @@ class CapturedProgram:
     raises. :meth:`replay` queues
     the program on the current stream without a synchronisation.
 
+    The cuFFT plans the program runs stay alive as long as it does: the
+    plan cache's eviction is lifted at capture (``PINNED_PLANS``), and a
+    replay after the cache was cleared or shrunk below its size at capture
+    raises ``RuntimeError``.
+
     ``capture_seconds`` is the host time of capture and instantiation.
     With ``keep_graph`` (PyTorch 2.8 or later) the graph is kept beside its
     executable, so that :attr:`nodes` can count its nodes; a caller that
@@ -31,6 +50,9 @@ class CapturedProgram:
     """
 
     def __init__(self, fn, keep_graph: bool = False):
+        self._plans = _plan_cache()
+        if self._plans.max_size < PINNED_PLANS:
+            self._plans.max_size = PINNED_PLANS
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -53,6 +75,7 @@ class CapturedProgram:
         if keep_graph:
             self.graph.instantiate()  # a kept graph is otherwise instantiated at its first replay
         self.capture_seconds = time.perf_counter() - t0
+        self.plans_at_capture = self._plans.size
         self.kept = keep_graph
         self.replays = 0
 
@@ -73,5 +96,10 @@ class CapturedProgram:
         return n.value
 
     def replay(self) -> None:
+        if self._plans.size < self.plans_at_capture:
+            raise RuntimeError(
+                f"the cuFFT plan cache holds {self._plans.size} plans, fewer than the "
+                f"{self.plans_at_capture} at this program's capture: it was cleared or shrunk, "
+                "and a plan the graph runs may be destroyed; capture the program again")
         self.graph.replay()
         self.replays += 1

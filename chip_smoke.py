@@ -167,7 +167,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    cavity's kernel wrapper refusing a field that requires grad (the kernels
    have no backward); the adjoint example
    (``cfdsim_tpu_torch/examples/adjoint_forcing.py``) at its default size (n =
-   48, 200 steps checkpointed per step) for 30 of its 60 Adam iterations: the
+   48, 200 steps checkpointed per step) for 10 of its 60 Adam iterations: the
    largest coefficient error under 0.2, printed with the seconds; no kernel
    launched
 5o. distributed (``phase_distributed``): a NCCL group of world size
@@ -216,7 +216,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    ``main`` with ``--device cuda --io native`` at its published grid:
    ``sphere_wake --n 12`` (192×96×96, one 100-step chunk), ``tgv3d_les --n
    64`` (one 200-step chunk), ``sphere_les_re3900`` (320×160×160, two
-   20-step chunks with ``--save``, then ``--resume`` for one more: the
+   10-step chunks with ``--save``, then ``--resume`` for one more: the
    series file holds every step), ``kolmogorov_spectrum --n 256`` (the
    stable tier, 200 steps, and the pseudo-spectral one with friction, 200),
    ``cavity_rossiter`` (600×180, one 2000-step chunk), ``cavity_accuracy_1024``
@@ -247,7 +247,17 @@ and the final ``{"ok": true, ...}`` line is not printed:
    the captured chunk), ``cavity3d`` at 256³ (``mg:2``, 2) and the 256³
    blast (2), each against its single-device step at the JAX tests'
    tolerances (rtol 1e-4, atol 1e-5; Kolmogorov 1e-5, 1e-5), wall ms per
-   step beside the single-device loop's; no kernel launched
+   step beside the single-device loop's; then the fifteen other cases
+   (``SHARDED_CASES``: channel, the cylinders, the stretched and
+   Boussinesq cases, the 3D bodies, transport) at their defaults and full
+   width, 2 steps each, u, v, w and θ (trimmed) at rtol 1e-4, atol 1e-5,
+   p's largest |Δ| printed beside max|p|; the bf16 collocated cavity at
+   1024² (one step from a seeded field) within one bf16 ulp, beyond the
+   float32 band (rtol 1e-4, atol 1e-5), of the single-device bf16 step
+   (the share of cells beyond one ulp printed); no kernel launched; and the autotuner check:
+   ``python -m cfdsim_tpu_torch.examples.dct_live_programs --matrix check``
+   in a child process (seven live captured DCT programs at 2048² with a
+   4-plan cache; every replay within 1e-4 of the eager solve)
 6. main path: the 1024² Re=1000 cavity (the bench's ``dct_variant="auto"``,
    resolved when the step is built) through runner.Simulation, 600
    steps in captured chunks of 100, health check on; finite, max |u| ≤
@@ -561,7 +571,7 @@ ST_BUDGET_S = 300.0
 ST_CD_MAX, ST_ST, ST_CL_AMP, ST_CL_RTOL = (3.22, 3.24), (0.295, 0.305), 1.09, 0.05
 ST_CD_MEAN, ST_CD_MEAN_RTOL = 3.19, 0.01
 ST_CHUNK = 50
-FEM_GHIA_TOL, FEM_GHIA_STEPS, FEM_REPRO_STEPS, FEM_PROFILE_STEPS = 0.01, 100, 20, 3
+FEM_GHIA_TOL, FEM_GHIA_STEPS, FEM_REPRO_STEPS, FEM_PROFILE_STEPS = 0.01, 100, 20, 2
 FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in other orders)
 # gradients: the 8-step cavity's gradient on the card against the
 # CPU's, 1e-4 of max|g| (the FEM adjoint's check held 1.4e-5 on the same
@@ -569,8 +579,10 @@ FEM_GRAD_RTOL = 1e-3  # the card's gradient against the CPU's (float32 sums in o
 # (tests/test_differentiability.py:109)
 GRAD_STEPS, GRAD_CARD_RTOL, ADJOINT_ERR = 8, 1e-4, 0.2
 # the adjoint example's Adam iterations (its default 60 ends 0.029 from the
-# coefficients on the card; 40 end 0.091 and 30 end 0.018 on the CPU)
-ADJOINT_ITERS = 30
+# coefficients on the card; 40 end 0.091 and 30 end 0.018 on the CPU, 30
+# 0.018 on the card too; Adam's error oscillates: 10 end 0.042 on the CPU,
+# a trough, with 0.104 at 9 and 0.128 at 12)
+ADJOINT_ITERS = 10
 # the distributed steps at world size 1: steps held against the single-device
 # step (the JAX tests' tolerances: tests/test_explicit_step.py:37-42,
 # tests/test_mac_explicit.py:74, tests/test_boussinesq.py:80-86)
@@ -581,9 +593,12 @@ DIST_STEPS, BQ_DIST_STEPS = 10, 20
 # FEM cells' profiled steps (5 before); then, for phases 5q and 5r, phase
 # 4's steps (20 before), the adjoint example's iterations (60) and phase
 # 5o's steps (20 and 40); for phase 5s the adjoint example's iterations
-# again (40)
+# again (40); for phase 5v's fifteen cases (a smoke of 1125 s on a slow
+# host) the adjoint example's iterations (30), the profiled chunks of
+# phase 13 (3 and 2), `bench --all`'s marginal chunks (5-15 and 2-6), the
+# FEM cells' profiled steps (3) and the Re = 3900 sphere's chunks (20)
 CHUNK_ROUTE_STEPS = 10
-PROFILE_STEPS, PROFILE_STEPS_3D = 3, 2
+PROFILE_STEPS, PROFILE_STEPS_3D = 2, 1
 # the 2D staggered and 3D distributed steps at world size 1 (phase 5p):
 # steps held against the single-device step, and the profiled steps
 DIST_SLICE_STEPS, DIST_SLICE_STEPS_CUBE, DIST_SLICE_PROFILE = 5, 10, 2
@@ -602,13 +617,13 @@ DRIVER_MAC_TIER_ATOL = {"2D MAC (DCT)": 1e-5, "2D stretched (FDM)": 1e-5,
                         "3D MAC (3D DCT)": 2e-5}
 # the study drivers at their published grids: one chunk each (two and a
 # resume for the Re = 3900 sphere and the 1024² accuracy run)
-STUDY_SPHERE_STEPS, STUDY_TGV_STEPS, STUDY_RE3900_CHUNK = 100, 200, 20
+STUDY_SPHERE_STEPS, STUDY_TGV_STEPS, STUDY_RE3900_CHUNK = 100, 200, 10
 STUDY_KOLMOGOROV = {"stable": ["--t", "2", "--chunk", "200"],
                     "ps": ["--dt", "0.002", "--t", "0.4", "--chunk", "200", "--alpha", "0.1",
                            "--noise", "0.05"]}
 STUDY_ROSSITER_STEPS, STUDY_ACCURACY_N, STUDY_ACCURACY_CHUNK = 2000, 1024, 5000
 STUDY_FEM_CYLINDER_STEPS, STUDY_FEM_COARSE_STEPS, STUDY_SCHAFER_TUREK_STEPS = 10, 4, 50
-SECONDARY_STEPS, SECONDARY_STEPS_3D = (5, 15), (2, 6)
+SECONDARY_STEPS, SECONDARY_STEPS_3D = (3, 9), (1, 3)
 # bf16 inter-step storage (phase 5t): the bench driver's marginal cells/s
 # between a short and a long chunk, fp32 and bf16 (the driver's 100 and
 # 600 at 1024², 20 and 120 at 4096²)
@@ -627,6 +642,22 @@ SHARDED_TIERS = [
     ("cavity3d", dict(n=256), 0, 2, 1e-4, 1e-5, ("u", "v", "w")),
     ("blast3d", dict(n=256), 0, 2, 1e-4, 1e-5, ("U",)),
 ]
+# the other fifteen cases through make_sharded_step at world size 1 (phase
+# 5v): their defaults at full width, SHARDED_CASE_STEPS steps each; u, v,
+# w, θ within the JAX GSPMD test's rtol and atol (tests/test_parallel.py:
+# 78-83), p's largest |Δ| printed beside max|p|
+SHARDED_CASES = ["channel", "cylinder", "cylinder_mac", "cylinder_oscillating",
+                 "cylinder_stretched", "cavity_stretched", "cavity3d_stretched", "heated_cavity",
+                 "rayleigh_benard", "heated_cube", "sphere", "sphere_stretched", "heated_sphere",
+                 "heated_sphere_stretched", "transport"]
+SHARDED_CASE_STEPS, SHARDED_CASE_RTOL, SHARDED_CASE_ATOL = 2, 1e-4, 1e-5
+# bf16 storage on the explicit collocated step: the 1024² cavity, one step
+# from a seeded field (a second would start from states that differ by the
+# first rounding's one-ulp flips), u and v within one bf16 ulp of the
+# single-device bf16 step's beyond the float32 band of the fp32 cases
+# (where |u| is small, one bf16 ulp is below the float32 fields' rounding
+# differences, ~1e-7 at 1024², which can cross a bf16 rounding boundary)
+SHARDED_BF16_N, SHARDED_BF16_STEPS = 1024, 1
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -2603,14 +2634,22 @@ def phase_distributed_tiers(card, mesh):
 
 
 def phase_sharded_tiers(card, mesh):
-    """The explicit steps of the tiers the JAX package shards only through
+    """The explicit steps of every case the JAX package shards only through
     GSPMD, through ``make_sharded_step`` on ``shard_state`` blocks, on the
     NCCL group of world size 1 that ``phase_distributed`` opened, at their
     cases' full sizes: the MUSCL wedge at 400×200, Kolmogorov at 640×360
     (from 200 steps of the single-device chunk), the 256³ ``cavity3d``
-    (``mg:2``, the distributed multigrid) and the 256³ blast; each against
-    its single-device step at the JAX tests' tolerances, its wall ms per
-    step beside the single-device loop's; no kernel launched."""
+    (``mg:2``, the distributed multigrid) and the 256³ blast, then the
+    fifteen cases of ``SHARDED_CASES`` at their defaults (the trimmed
+    fields of the staggered ones), each against its single-device step at
+    the JAX tests' tolerances, its wall ms per step beside the
+    single-device loop's; the bf16 collocated cavity at 1024² within one
+    bf16 ulp; no kernel launched. Then the autotuner's crash check
+    (``examples/dct_live_programs --matrix check``, seven live captured DCT
+    programs at 2048² with the plan cache evicting) in a child process,
+    whose failure fails the phase."""
+    import subprocess
+
     from cfdsim_tpu_torch.parallel.mesh import gather_state
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
 
@@ -2631,9 +2670,76 @@ def phase_sharded_tiers(card, mesh):
             _within(f"sharded_{name}_{f}", getattr(got, f), getattr(r, f), rtol, atol, **facts)
         del case, state, step, d, r, got
         torch.cuda.empty_cache()
+
+    for name in SHARDED_CASES:
+        t0 = time.perf_counter()
+        case = build(name, device="cuda")
+        step = make_sharded_step(case.step, mesh)
+        build_s = time.perf_counter() - t0
+        d, _, d_ms = _timed_steps(step, shard_state(case.state, mesh), SHARDED_CASE_STEPS)
+        r, _, r_ms = _timed_steps(case.step, case.state, SHARDED_CASE_STEPS)
+        got = dict(named_leaves(gather_state(d, mesh)))
+        want = dict(named_leaves(shard_state(r, mesh)))
+        inner = getattr(step, "inner", step)
+        facts = dict(steps=SHARDED_CASE_STEPS, card=card, explicit_step=type(inner).__name__,
+                     build_s=build_s, ms_per_step=d_ms, single_device_ms_per_step=r_ms)
+        for f, w in want.items():
+            if w.ndim < 2:
+                continue
+            if f.split(".")[-1] == "p":
+                say(f"sharded_{name}_p", max_abs_err=float((got[f] - w).abs().max()),
+                    max_abs_p=float(w.abs().max()))
+                continue
+            _within(f"sharded_{name}_{f}", got[f], w, SHARDED_CASE_RTOL, SHARDED_CASE_ATOL,
+                    shape=list(w.shape), **facts)
+            facts = {}
+        del case, step, d, r, got, want
+        torch.cuda.empty_cache()
+
+    # bf16 storage on the explicit collocated step, from a seeded field
+    n = SHARDED_BF16_N
+    case = lid_cavity(n=n, Re=1000.0, storage="bf16", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state = case.state._replace(
+        u=(0.1 * torch.randn(n, n, generator=gen, device="cuda")).to(torch.bfloat16),
+        v=(0.1 * torch.randn(n, n, generator=gen, device="cuda")).to(torch.bfloat16))
+    step = make_sharded_step(case.step, mesh)
+    blocks = shard_state(state, mesh)
+    step(blocks, 1.0), case.step(state, 1.0)  # warm-up calls: the timed ones repeat them
+    d, _, d_ms = _timed_steps(step, blocks, SHARDED_BF16_STEPS)
+    r, _, r_ms = _timed_steps(case.step, state, SHARDED_BF16_STEPS)
+    got = gather_state(d, mesh)
+    for f in ("u", "v"):
+        a, b = getattr(got, f).float(), getattr(r, f).float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30))) - 7)
+        band = SHARDED_CASE_ATOL + SHARDED_CASE_RTOL * b.abs()
+        excess = float(((a - b).abs() - ulp - band).max())
+        beyond_ulp = float(((a - b).abs() > ulp).float().mean())
+        say(f"sharded_bf16_cavity_{f}", n=n, steps=SHARDED_BF16_STEPS,
+            max_abs_err=float((a - b).abs().max()), exceeded_by=max(excess, 0.0),
+            share_beyond_one_ulp=beyond_ulp,
+            dtype=str(getattr(got, f).dtype), ms_per_step=d_ms, single_device_ms_per_step=r_ms,
+            card=card)
+        if excess > 0 or getattr(got, f).dtype != torch.bfloat16:
+            raise AssertionError(f"sharded bf16 cavity {f}: beyond one bf16 ulp and the float32 "
+                                 f"band by {excess}")
+    del case, state, step, d, r, got
+    torch.cuda.empty_cache()
     launches = _counts()
     if any(launches.values()):
         raise AssertionError(f"a kernel ran on the sharded tiers: {launches}")
+
+    # the autotuner's crash: seven live captured DCT programs, the plan cache
+    # evicting, each replay against the eager solve (a crash ends the child)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cfdsim_tpu_torch.examples.dct_live_programs",
+                           "--n", "2048", "--matrix", "check"], capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    say("dct_live_programs_check", rc=proc.returncode, rows=rows,
+        seconds=time.perf_counter() - t0, stderr_tail=proc.stderr.splitlines()[-5:], card=card)
+    if proc.returncode != 0:
+        raise AssertionError(f"live DCT programs at 2048²: rc {proc.returncode}")
 
 
 def phase_bf16_storage(card):

@@ -12,8 +12,8 @@ package, the twins of tests/test_parallel.py:60-99,121-130,175-198.
   within 1e-5 of the largest value.
 - ``make_sharded_mac_step`` on one device: 5 steps bit-equal to the plain
   MAC step (the JAX test's ``assert_array_equal``).
-- A ``ValueError`` for a step type with no counterpart and for a step whose
-  case left no description.
+- A ``ValueError`` for a step type with no counterpart and for an option
+  the explicit step does not implement (MAC ``time_scheme="rk2"``).
 
 The rank side (``run_sharded``) and the JAX side (``jax_run``) take a list
 of (case name, builder arguments, steps) and are shared with the tests of
@@ -229,9 +229,8 @@ def test_make_sharded_step_refuses_what_it_cannot_map():
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step
 
     mesh = GridMesh(1, 1, 0, "gloo", torch.device("cpu"), None, None)
-    heated = build("heated_cavity", n=16, device="cpu")
-    with pytest.raises(ValueError, match="BoussinesqStep"):
-        make_sharded_step(heated.step, mesh)
-    channel = build("channel", nx=32, ny=16, device="cpu")
-    with pytest.raises(ValueError, match="IncompressibleStep.*cavity"):
-        make_sharded_step(channel.step, mesh)
+    rk2 = build("cavity_mac", n=16, time_scheme="rk2", device="cpu")
+    with pytest.raises(ValueError, match="time_scheme"):
+        make_sharded_step(rk2.step, mesh)
+    with pytest.raises(ValueError, match="no sharded counterpart for a Identity step"):
+        make_sharded_step(torch.nn.Identity(), mesh)
