@@ -71,6 +71,10 @@
 // of 32 x 32 tiles. What bounds it at 1024^2 is the sweeps over the staged
 // tiles, then a load that all blocks make at once (the grid is one wave of
 // blocks, so a block has no second tile whose load could overlap them).
+// Its colours take a parity offset, the parity of the array's (0, 0) cell in
+// the indices of a larger grid, so a rank's block padded by a 2K halo runs
+// as one array: K sweeps of that grid on the block (parity 0 is the array's
+// own checkerboard).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -580,6 +584,7 @@ struct Tiles {
   int sh, sw;             // staged rows and columns: tr + 2h, tc + 2hc
   int arr;                // words per staged array, rounded up to 128 bytes
   int tiles_x;
+  int parity0;            // colour parity of cell (0, 0): 0 or 1
 };
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -688,9 +693,9 @@ rbsor_blocked_kernel(const __grid_constant__ CUtensorMap phi_map,
             const int li = li0 + u * prow;
             const int gi = gi0 + li;
             if (li >= g.sh || gi < 0 || gi >= g.ny) continue;
-            // (gi + gj) % 2 == colour with gj = gj0 + lj; & 1 is the parity
-            // of a negative int as well (two's complement)
-            const int lj = lj_base + ((gi + gj0 + colour) & 1);
+            // (gi + gj + parity0) % 2 == colour with gj = gj0 + lj; & 1 is
+            // the parity of a negative int as well (two's complement)
+            const int lj = lj_base + ((gi + gj0 + g.parity0 + colour) & 1);
             const int gj = gj0 + lj;
             if (gj < 0 || gj >= g.nx) continue;
             // a rim cell lacks a neighbour unless the domain edge clamps it
@@ -946,11 +951,12 @@ int cfd_rbsor(void* phi, const void* rhs, const void* mask, int ny, int nx,
 // Kernel B, one pass of `sweeps` sweeps from phi_in to phi_out (distinct
 // buffers, 16-byte aligned) on tiles of tile_rows x tile_cols with a
 // 2*sweeps halo, one block per tile (the plan of poisson_rb.py). route:
-// 0 = TMA (nx % 4 == 0), 1 = cp.async of 4 bytes.
+// 0 = TMA (nx % 4 == 0), 1 = cp.async of 4 bytes. parity0: the colour
+// parity of cell (0, 0) (red cells have (i + j + parity0) even).
 int cfd_rbsor_blocked(const void* phi_in, const void* rhs, void* phi_out, int ny, int nx,
                       int sweeps, int tile_rows, int tile_cols, int route, float ax, float ay,
-                      float denom_inv, float omega, float one_minus_omega, void* stream,
-                      void* launches) {
+                      float denom_inv, float omega, float one_minus_omega, int parity0,
+                      void* stream, void* launches) {
   Tiles g;
   g.ny = ny;
   g.nx = nx;
@@ -963,8 +969,10 @@ int cfd_rbsor_blocked(const void* phi_in, const void* rhs, void* phi_out, int ny
   g.sw = tile_cols + 2 * g.hc;
   g.arr = (g.sh * g.sw + 31) / 32 * 32;
   g.tiles_x = (nx + tile_cols - 1) / tile_cols;
+  g.parity0 = parity0 & 1;
   const int tiles = g.tiles_x * ((ny + tile_rows - 1) / tile_rows);
-  if (g.sw > 256 || g.sh > 256 || g.sw % 4 != 0 || (route == LOAD_TMA && nx % 4 != 0)) {
+  if (g.sw > 256 || g.sh > 256 || g.sw % 4 != 0 || (route == LOAD_TMA && nx % 4 != 0) ||
+      (parity0 != 0 && parity0 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // phi and rhs, then the TMA route's mbarrier

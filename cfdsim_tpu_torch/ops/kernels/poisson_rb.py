@@ -20,7 +20,10 @@ The port of ``cfdsim_tpu/ops/pallas/poisson_rb.py``:
   counterpart of ``rbsor_pallas_blocked``: Neumann, unmasked, temporally
   blocked, K = ``sweeps_per_pass`` sweeps per pass on tiles of
   ``rows_per_block`` × 128 cells with a 2K halo (:func:`plan_blocked`),
-  then an ``iters % K`` tail pass; exactly ``iters`` global sweeps.
+  then an ``iters % K`` tail pass; exactly ``iters`` global sweeps. Its
+  ``parity0`` is the colour parity of the array's (0, 0) cell in a larger
+  grid's indices: the distributed solve (``parallel/poisson2d_explicit.py``)
+  sweeps a rank's block padded by a 2K halo as one array.
 - :func:`rbsor_routed` keeps the JAX wrapper's routing rule: Neumann,
   unmasked and larger than :data:`MAX_ELEMS` goes to :func:`rbsor_blocked`,
   everything else to :func:`rbsor` (which has no size limit on the card,
@@ -95,8 +98,8 @@ KERNEL_B = CudaKernel(
     "rbsor.cu",
     "cfd_rbsor_blocked",
     # φ in, rhs, φ out, ny, nx, sweeps, tile rows, tile cols, route, ax, ay,
-    # denom_inv, ω, 1−ω, stream
-    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _p],
+    # denom_inv, ω, 1−ω, parity0, stream
+    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _i, _p],
 )
 KERNELS = (KERNEL_A, KERNEL_A_COOP, KERNEL_B)
 
@@ -227,12 +230,13 @@ def _coeffs(dx: float, dy: float):
     return ax, ay, 1.0 / (2.0 * (ax + ay))
 
 
-def _colours(shape, bc: str, solid_mask, device):
-    """(red, black) boolean masks of the updatable cells."""
+def _colours(shape, bc: str, solid_mask, device, parity0: int = 0):
+    """(red, black) boolean masks of the updatable cells; red cells have
+    i + j + ``parity0`` even."""
     ny, nx = shape
     i = torch.arange(ny, device=device)[:, None]
     j = torch.arange(nx, device=device)[None, :]
-    red = (i + j) % 2 == 0
+    red = (i + j + parity0) % 2 == 0
     upd = torch.ones(shape, dtype=torch.bool, device=device)
     if bc != "neumann":  # dirichlet: the frame is fixed
         upd = torch.zeros_like(upd)
@@ -265,11 +269,12 @@ def _sweeps_ref(phi, rhs, dx, dy, iters, omega, colours):
 
 def rbsor_ref(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
               bc: str = "neumann", solid_mask=None, tol: float = 0.0,
-              check_every: int = 8, chunks_run=None):
+              check_every: int = 8, chunks_run=None, parity0: int = 0):
     """Plain torch red-black SOR (the sweeps kernel A runs). With
     ``tol > 0``, the early exit; ``chunks_run`` (a 0-dim int32 tensor, or
-    None) is incremented by each chunk that runs."""
-    colours = _colours(tuple(phi0.shape), bc, solid_mask, phi0.device)
+    None) is incremented by each chunk that runs. ``parity0`` offsets the
+    colours (:func:`_colours`)."""
+    colours = _colours(tuple(phi0.shape), bc, solid_mask, phi0.device, parity0)
     if tol <= 0.0:
         return _sweeps_ref(phi0, rhs, dx, dy, iters, omega, colours)
     check = max(1, check_every)
@@ -285,10 +290,11 @@ def rbsor_ref(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 
 
 
 def rbsor_blocked_ref(phi0, rhs, dx: float, dy: float, iters: int = 100,
-                      omega: float = 1.7, rows_per_block=None, sweeps_per_pass: int = 8):
+                      omega: float = 1.7, rows_per_block=None, sweeps_per_pass: int = 8,
+                      parity0: int = 0):
     """Plain version of :func:`rbsor_blocked`: the blocked passes are
     defined to equal ``iters`` global Neumann sweeps, so it runs those."""
-    return rbsor_ref(phi0, rhs, dx, dy, iters=iters, omega=omega)
+    return rbsor_ref(phi0, rhs, dx, dy, iters=iters, omega=omega, parity0=parity0)
 
 
 def _field(name: str, t, device, shape):
@@ -399,14 +405,17 @@ def _aligned(t):
 
 
 def rbsor_blocked(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
-                  rows_per_block=None, sweeps_per_pass: int = 8):
+                  rows_per_block=None, sweeps_per_pass: int = 8, parity0: int = 0):
     """Temporally blocked Neumann red-black SOR through kernel B: ``iters //
     K`` passes of K = min(``sweeps_per_pass``, ``iters``) sweeps, then one
     pass of ``iters % K``; tiles of ``rows_per_block`` (default
-    :data:`TILE_ROWS`) × 128 cells, by :func:`plan_blocked`."""
+    :data:`TILE_ROWS`) × 128 cells, by :func:`plan_blocked`. Red cells
+    have i + j + ``parity0`` even (0: the array's own checkerboard)."""
+    if parity0 not in (0, 1):
+        raise ValueError(f"parity0 is 0 or 1, got {parity0!r}")
     if _on_cpu(phi0, rhs):
         return rbsor_blocked_ref(phi0, rhs, dx, dy, iters, omega, rows_per_block,
-                                 sweeps_per_pass)
+                                 sweeps_per_pass, parity0)
     _check_grid(phi0)
     device, shape = phi0.device, tuple(phi0.shape)
     rhs = _aligned(_field("rhs", rhs, device, shape))
@@ -427,7 +436,7 @@ def rbsor_blocked(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: floa
             dst, plan = bufs[n % 2], plans[sweeps]
             KERNEL_B(src.data_ptr(), rhs.data_ptr(), dst.data_ptr(), ny, nx, sweeps,
                      plan.tile_rows, plan.tile_cols, B_ROUTES[plan.route],
-                     ax, ay, denom_inv, omega, 1.0 - omega, stream)
+                     ax, ay, denom_inv, omega, 1.0 - omega, parity0, stream)
             report_cost(12 * ny * nx, FLOPS_PER_UPDATE * ny * nx * sweeps)  # φ, rhs in; φ out
             src = dst
     return src

@@ -9,6 +9,9 @@ step on it, every collective placed by hand:
 - ``halo``: the halo exchange (``batch_isend_irecv`` along a mesh axis,
   differentiable) and the global-index helpers;
 - ``sharded``: distributed red-black SOR;
+- ``poisson2d_explicit``: every 2D pressure solve on blocks
+  (``DistributedPoisson2D``; kernel B on windows for the unmasked
+  Neumann sweeps);
 - ``transforms``: pencil all-to-all DCT, FDM (2D and 3D) and DST
   Helmholtz solves;
 - ``explicit``: the collocated cavity and cylinder steps;
@@ -134,6 +137,7 @@ from cfdsim_tpu_torch.parallel.mesh import (
     local_block,
     make_grid_mesh,
 )
+from cfdsim_tpu_torch.parallel.poisson2d_explicit import DistributedPoisson2D
 from cfdsim_tpu_torch.parallel.sharded import (
     make_sharded_poisson,
     make_sharded_step,
@@ -241,4 +245,5 @@ __all__ = [
     "make_spectral_explicit_step",
     "make_cavity3d_explicit_step",
     "DistributedPoisson3D",
+    "DistributedPoisson2D",
 ]

@@ -5,7 +5,9 @@ The MAC faces ride the trimmed 3D blocks of ``parallel/mac3d_explicit.py``
 (z local, width-1 y/x halos, the no-slip box of ``cavity3d_bc_kit``), the
 temperature rides width-1 halos with its Dirichlet x walls and adiabatic y
 walls as global-index writes and local z ghosts, and the projection is the
-exact distributed 3D DCT. The central flow scheme (the validated
+distributed 3D solve of ``incompressible3d_explicit.DistributedPoisson3D``
+by the configured method (the pencil DCT by default, multigrid, SOR). The
+central flow scheme (the validated
 heated-cube configuration), as in the JAX package; buoyancy, the θ fluxes
 and the Nusselt numbers follow ``models/boussinesq3d.py`` term for term.
 """
@@ -19,6 +21,7 @@ from cfdsim_tpu_torch.models.boussinesq import BoussinesqMetrics
 from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DConfig, Boussinesq3DState
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
 from cfdsim_tpu_torch.parallel.halo import halo_exchange_edges
+from cfdsim_tpu_torch.parallel.incompressible3d_explicit import DistributedPoisson3D
 from cfdsim_tpu_torch.parallel.mac3d_explicit import (
     cavity3d_bc_kit,
     shard_trimmed_state3d,
@@ -26,7 +29,6 @@ from cfdsim_tpu_torch.parallel.mac3d_explicit import (
     untrim_state3d,
 )
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
-from cfdsim_tpu_torch.parallel.transforms import dct_poisson3d_local
 
 # the trimmed-state helpers are generic over a state with u/v/w faces (θ and
 # p are cell arrays, cut the same way)
@@ -43,8 +45,6 @@ class HeatedCubeExplicitStep(nn.Module):
         super().__init__()
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=2)
-        if cfg.poisson.method != "dct":
-            raise ValueError("explicit heated-cube step supports poisson 'dct'")
         if cfg.flow_scheme != "central":
             raise ValueError("the explicit sharded heated-cube step implements the central flow "
                              "scheme (upwind/tvd need width-2 halos)")
@@ -52,6 +52,8 @@ class HeatedCubeExplicitStep(nn.Module):
             raise ValueError(f"unknown theta_scheme {cfg.theta_scheme!r}")
         self.cfg, self.mesh = cfg, mesh
         self.device = step_device(mesh, device)
+        self.poisson = DistributedPoisson3D(g.shape, g.dx, g.dy, g.dz, cfg.poisson, mesh)
+        self.n_global = float(g.nx * g.ny * g.nz)
         self.reads_host = False
         self.collectives = True
         self.idx, self.set_normal, self.pad = cavity3d_bc_kit(g.nx, g.ny, mesh, self.local_shape)
@@ -151,12 +153,15 @@ class HeatedCubeExplicitStep(nn.Module):
         w_star = torch.cat([w_t[:1], w_t[1:] + dt * (nu * lap_w - conv_w + buoy * th_face)], 0)
         u_star, v_star, w_star = set_normal(u_star, v_star, w_star)
 
-        # --- the exact distributed 3D projection
+        # --- the distributed 3D projection, warm-started from the last pressure
         US, VS, WSz = pad(u_star, v_star, w_star, corners=False)
         div_star = ((US[:, 1:-1, 2:] - US[:, 1:-1, 1:-1]) * (1.0 / dx)
                     + (VS[:, 2:, 1:-1] - VS[:, 1:-1, 1:-1]) * (1.0 / dy)
                     + (WSz[1:, 1:-1, 1:-1] - WSz[:-1, 1:-1, 1:-1]) * (1.0 / dz))
-        phi = dct_poisson3d_local(div_star / dt, dx, dy, dz, mesh)
+        rhs = div_star / dt
+        if cfg.poisson.method != "dct":
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
+        phi = self.poisson(ts.p, rhs)
         PH = halo_exchange_edges(phi, mesh, 1)
         u_new = u_star + torch.where(
             co >= 1, -dt * (PH[:, 1:-1, 1:-1] - PH[:, 1:-1, :-2]) * (1.0 / dx), 0.0)

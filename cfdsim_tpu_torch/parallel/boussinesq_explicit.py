@@ -2,8 +2,10 @@
 the side-heated cavity and the bottom-heated Rayleigh–Bénard orientation.
 
 The MAC faces ride the trimmed blocks of ``parallel/mac_explicit.py``
-(width-2 halos, masked-write no-slip BCs, the exact pencil DCT projection)
-and the cell-centred temperature rides width-1 halos, its Dirichlet and
+(width-2 halos, masked-write no-slip BCs; the projection by any method of
+the single-device solver through ``poisson2d_explicit.DistributedPoisson2D``,
+the pencil DCT by default) and the cell-centred temperature rides width-1
+halos, its Dirichlet and
 adiabatic ghosts written by global-index masks. Buoyancy, the conservative
 finite-volume θ advection and the Nusselt numbers follow
 ``models/boussinesq.py`` term for term.
@@ -28,7 +30,7 @@ from cfdsim_tpu_torch.parallel.mac_explicit import (
     cavity_mac_local_bcs,
 )
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, block_state, pmax, psum
-from cfdsim_tpu_torch.parallel.transforms import dct_inv_eigenvalues_local, dct_poisson_local
+from cfdsim_tpu_torch.parallel.poisson2d_explicit import DistributedPoisson2D
 
 
 def trim_boussinesq_state(state: BoussinesqState) -> BoussinesqState:
@@ -54,23 +56,21 @@ class HeatedCavityExplicitStep(nn.Module):
         super().__init__()
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=4)
-        if cfg.poisson.method != "dct":
-            raise ValueError("explicit heated-cavity step supports poisson 'dct'")
         if cfg.heated_axis not in ("x", "y"):
             raise ValueError(f"unknown heated_axis {cfg.heated_axis!r}")
         if cfg.theta_scheme not in ("central", "upwind"):
             raise ValueError(f"unknown theta_scheme {cfg.theta_scheme!r}")
         self.cfg, self.mesh = cfg, mesh
         self.device = step_device(mesh, device)
-        self.reads_host = False
+        self.poisson = DistributedPoisson2D((g.ny, g.nx), g.dx, g.dy, cfg.poisson, mesh)
+        self.reads_host = self.poisson.reads_host
         self.collectives = True
+        self.n_global = float(g.ny * g.nx)
         self.bcs = cavity_mac_local_bcs(g.ny, g.nx, lid_velocity=0.0)
         for w in (0, 1, 2):
             gr, gc = global_indices(self.local_shape, mesh, w)
             self.register_buffer(f"gr{w}", gr.contiguous())
             self.register_buffer(f"gc{w}", gc.contiguous())
-        self.register_buffer("ilam", dct_inv_eigenvalues_local(self.local_shape, g.dx, g.dy,
-                                                               mesh))
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=self.device))
 
@@ -151,11 +151,14 @@ class HeatedCavityExplicitStep(nn.Module):
         v_star = v_t + torch.where(gr0 >= 1, dt * (nu * lap_v - conv_v + buoy * th_face), 0.0)
         u_star, v_star = bcs.pre(u_star, v_star, gc0, gr0, ts)
 
-        # --- the exact distributed projection
+        # --- the distributed projection, warm-started from the last pressure
         US, VS, _ = pad_faces(u_star, v_star, 1)
         div_star = (US[1:-1, 2:] - US[1:-1, 1:-1]) * (1.0 / dx) + (
             VS[2:, 1:-1] - VS[1:-1, 1:-1]) * (1.0 / dy)
-        phi = dct_poisson_local(div_star / dt, dx, dy, mesh, self.ilam)
+        rhs = div_star / dt
+        if cfg.poisson.method not in ("dct", "fft"):
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
+        phi = self.poisson(ts.p, rhs)
         PH = halo_exchange_edges(phi, mesh, 1)  # read by 5-point stencils only
         gx = (PH[1:-1, 1:-1] - PH[1:-1, :-2]) * (1.0 / dx)
         gy_ = (PH[1:-1, 1:-1] - PH[:-2, 1:-1]) * (1.0 / dy)

@@ -12,23 +12,31 @@ Chorin projection step of ``models/incompressible.py`` on it:
   edges for the TVD scheme's 5-point faces;
 - BCs: edge writes on the ranks that hold a global edge (the mesh
   coordinates decide; no collective is skipped);
-- pressure: distributed red-black SOR (``sharded.rbsor_local``), masked in
-  solids when ``masked_poisson``, or the exact clamped-edge DCT solve
-  through the pencil transforms (``transforms.dct_poisson_local``; the
-  cavity's default, method "dct");
+- pressure: every method of the single-device solver through
+  :class:`~cfdsim_tpu_torch.parallel.poisson2d_explicit.DistributedPoisson2D`
+  (the pencil DCT, the cavity's default; distributed red-black SOR, masked
+  in solids when ``masked_poisson``, with the ``tol`` early exit; Jacobi;
+  the periodic FFT; the DCT + SOR hybrid; multigrid; ``rbsor_pallas``
+  through kernel B on windows of the blocks);
+- the fused predictor: ``ops/kernels/predictor.py``'s kernel on each
+  rank's window ``halo.interior_window(·, mesh, 1)`` (edges only: the
+  5-point stencil reads no corner), cropped. The kernel updates its array's
+  interior only, so a global edge line passes through unchanged, as on one
+  device, and the halo lines it leaves are cropped away;
 - reductions (adaptive dt, the rhs mean, the metrics): a local reduction
   and an ``all_reduce`` over the world, the metrics' maxima in one MAX
   and their sums in one SUM (``mesh.pmax``/``mesh.psum``, differentiable).
 
 Option for option the single-device step: bf16 storage (u and v upcast
 once, rounded once at the end, the metrics read before the rounding),
-every scheme, LES, implicit
+every scheme, the fused predictor, every pressure solve, LES, implicit
 diffusion (damped Jacobi, or the exact DST Helmholtz through the pencil
 transforms, with "auto" falling back to Jacobi where the blocks are not
 pencil-splittable), divergence cleanup, IBM damping, the masked Poisson
 solve and the full metrics, the IBM body forces included. The step calls
 collectives, so :func:`~cfdsim_tpu_torch.models.incompressible.make_chunk`
-runs it on the loop route.
+runs it on the loop route; ``reads_host`` is the solver's (the early
+exit reads the residual on the host).
 """
 
 from __future__ import annotations
@@ -53,21 +61,18 @@ from cfdsim_tpu_torch.ops.convection import (
     convection_upwind,
     supg_tau_field,
 )
+from cfdsim_tpu_torch.ops.kernels.predictor import fused_predictor_central
 from cfdsim_tpu_torch.ops.les import smagorinsky_viscosity
 from cfdsim_tpu_torch.ops.stencil import curl, divergence, gradient, laplacian_coeff
 from cfdsim_tpu_torch.parallel.halo import (
-    clamp_global_edges,
     global_interior_mask,
     halo_exchange_edges,
+    interior_window,
     sharded_stencil,
 )
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
-from cfdsim_tpu_torch.parallel.sharded import rbsor_local, sweep_colours
-from cfdsim_tpu_torch.parallel.transforms import (
-    dct_inv_eigenvalues_local,
-    dct_poisson_local,
-    dst_helmholtz_local,
-)
+from cfdsim_tpu_torch.parallel.poisson2d_explicit import DistributedPoisson2D
+from cfdsim_tpu_torch.parallel.transforms import dst_helmholtz_local
 
 
 def step_device(mesh: GridMesh, device=None) -> torch.device:
@@ -99,24 +104,25 @@ class ExplicitStep(nn.Module):
                  use_ibm: bool = False, needs_y: bool = False, *, device=None):
         super().__init__()
         _check_config(cfg)
-        if cfg.fused_predictor:
-            raise ValueError("the distributed step has no fused predictor (its kernel works "
-                             "on a whole grid)")
-        if cfg.poisson.method not in ("rbsor", "dct"):
-            raise ValueError("the explicit step solves the pressure by distributed rbsor or "
-                             f"the pencil DCT, not {cfg.poisson.method!r}")
-        if cfg.poisson.method == "dct" and cfg.masked_poisson:
-            raise ValueError("the DCT solve ignores a solid mask: masked_poisson needs rbsor")
-        if cfg.poisson.tol > 0.0:
-            raise ValueError("the explicit step's rbsor runs a fixed sweep budget (tol=0)")
+        if cfg.fused_predictor and (cfg.scheme != "central" or cfg.diffusion != "explicit"
+                                    or cfg.use_les):
+            raise ValueError("fused_predictor requires scheme='central', explicit diffusion "
+                             "and no LES")
         g = cfg.grid
         self.cfg, self.mesh, self.bc_builder = cfg, mesh, bc_builder
         self.use_ibm, self.needs_y = use_ibm, needs_y
         self.device = step_device(mesh, device)
-        self.reads_host = False
         self.collectives = True
         self.local_shape = check_divisible(g, mesh, min_block=2 if cfg.scheme == "tvd" else 1)
         self.n_global = float(g.nx * g.ny)
+        self.poisson = DistributedPoisson2D((g.ny, g.nx), g.dx, g.dy, cfg.poisson, mesh,
+                                            masked=cfg.masked_poisson)
+        self.reads_host = self.poisson.reads_host
+        # the Neumann problem's solvability, as on one device: the direct
+        # solvers drop the k = 0 mode in-spectrum, the others take a
+        # mean-free rhs
+        self.subtract_mean = cfg.poisson.bc == "neumann" and cfg.poisson.method not in (
+            "dct", "fft")
         # the distributed DST needs pencil-splittable blocks; "auto" falls
         # back to Jacobi where they are not (an explicit "dst" still raises
         # the pencil error)
@@ -130,11 +136,6 @@ class ExplicitStep(nn.Module):
                              "with LES")
         self.register_buffer("imask", global_interior_mask(self.local_shape, mesh, 1))
         self.register_buffer("imask2", global_interior_mask(self.local_shape, mesh, 2))
-        red, black = sweep_colours(self.local_shape, mesh)
-        self.register_buffer("red", red)
-        self.register_buffer("black", black)
-        self.register_buffer("ilam", dct_inv_eigenvalues_local(
-            self.local_shape, g.dx, g.dy, mesh) if cfg.poisson.method == "dct" else None)
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=self.device))
         self.register_buffer("warmup_dt", torch.tensor(cfg.warmup_dt, dtype=torch.float32,
@@ -206,43 +207,25 @@ class ExplicitStep(nn.Module):
         conv = {"upwind": convection_upwind, "central": convection_central}[cfg.scheme]
         return self._stencil(lambda a, b: (conv(a, b, a, dx, dy), conv(a, b, b, dx, dy)), u, v)
 
-    def forward(self, state: IncompressibleState, cfl_scale, *extras):
+    def _fused_predictor(self, u, v, dt):
+        """The fused kernel's u*, v* (before the BCs) on this rank's window
+        (edges only: the 5-point stencil reads no corner), cropped."""
+        cfg = self.cfg
+        g = cfg.grid
+        ny_l, nx_l = self.local_shape
+        win, (oy, ox) = interior_window(torch.stack([u, v]), self.mesh, 1, corners=False)
+        u_s, v_s = fused_predictor_central(win[0].contiguous(), win[1].contiguous(), dt,
+                                           cfg.nu + cfg.artificial_viscosity, g.dx, g.dy)
+        return (u_s[oy:oy + ny_l, ox:ox + nx_l].contiguous(),
+                v_s[oy:oy + ny_l, ox:ox + nx_l].contiguous())
+
+    def _predictor(self, u, v, dt, nu_t, nu_eff, bc):
+        """u*, v*: convection and explicit or implicit diffusion, the BCs
+        written."""
         cfg = self.cfg
         mesh = self.mesh
-        g = cfg.grid
-        dx, dy = g.dx, g.dy
+        dx, dy = cfg.grid.dx, cfg.grid.dy
         ax, ay = 1.0 / (dx * dx), 1.0 / (dy * dy)
-        if state.u.device != self.device:
-            raise ValueError(f"step built for {self.device}, state on {state.u.device}")
-        if not torch.is_tensor(cfl_scale):
-            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
-        n_extras = int(self.use_ibm) + int(self.needs_y) + int(cfg.masked_poisson)
-        if len(extras) != n_extras:
-            raise ValueError(f"the step takes {n_extras} extra blocks, got {len(extras)}")
-        extras = list(extras)
-        ibm_b = extras.pop(0) if self.use_ibm else None
-        y_b = extras.pop(0) if self.needs_y else None
-        colours = (self.red, self.black)
-        fluid_b = None
-        if cfg.masked_poisson:
-            fluid_b = ~extras.pop(0).to(torch.bool)
-            colours = (self.red & fluid_b, self.black & fluid_b)
-        u, v, p = state.u, state.v, state.p
-        if cfg.storage == "bf16":
-            # upcast once; everything below runs in float32
-            u, v = u.float(), v.float()
-        bc = self.bc_builder(state, y_b, mesh)
-
-        # --- LES eddy viscosity: ν_eff a field with it, a number without
-        nu_t = None
-        nu_eff = self.nu_eff
-        if cfg.use_les:
-            nu_t = self._stencil(
-                lambda a, b: smagorinsky_viscosity(a, b, dx, dy, cfg.smagorinsky_constant), u, v)
-            nu_eff = cfg.nu + nu_t + cfg.artificial_viscosity
-        dt = self._dt(u, v, nu_t, state.step, cfl_scale)
-
-        # --- convection, diffusion, predictor
         conv_u, conv_v = self._convection(u, v, dt, nu_eff)
         if self.use_dst:
             # exact distributed Dirichlet Helmholtz by the pencil DST
@@ -275,6 +258,45 @@ class ExplicitStep(nn.Module):
             u_star = u + dt * (lap_u - conv_u)
             v_star = v + dt * (lap_v - conv_v)
             u_star, v_star = bc(u_star, v_star)
+        return u_star, v_star
+
+    def forward(self, state: IncompressibleState, cfl_scale, *extras):
+        cfg = self.cfg
+        mesh = self.mesh
+        g = cfg.grid
+        dx, dy = g.dx, g.dy
+        ax, ay = 1.0 / (dx * dx), 1.0 / (dy * dy)
+        if state.u.device != self.device:
+            raise ValueError(f"step built for {self.device}, state on {state.u.device}")
+        if not torch.is_tensor(cfl_scale):
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
+        n_extras = int(self.use_ibm) + int(self.needs_y) + int(cfg.masked_poisson)
+        if len(extras) != n_extras:
+            raise ValueError(f"the step takes {n_extras} extra blocks, got {len(extras)}")
+        extras = list(extras)
+        ibm_b = extras.pop(0) if self.use_ibm else None
+        y_b = extras.pop(0) if self.needs_y else None
+        fluid_b = ~extras.pop(0).to(torch.bool) if cfg.masked_poisson else None
+        u, v, p = state.u, state.v, state.p
+        if cfg.storage == "bf16":
+            # upcast once; everything below runs in float32
+            u, v = u.float(), v.float()
+        bc = self.bc_builder(state, y_b, mesh)
+
+        # --- LES eddy viscosity: ν_eff a field with it, a number without
+        nu_t = None
+        nu_eff = self.nu_eff
+        if cfg.use_les:
+            nu_t = self._stencil(
+                lambda a, b: smagorinsky_viscosity(a, b, dx, dy, cfg.smagorinsky_constant), u, v)
+            nu_eff = cfg.nu + nu_t + cfg.artificial_viscosity
+        dt = self._dt(u, v, nu_t, state.step, cfl_scale)
+
+        # --- convection, diffusion, predictor
+        if cfg.fused_predictor:
+            u_star, v_star = bc(*self._fused_predictor(u, v, dt))
+        else:
+            u_star, v_star = self._predictor(u, v, dt, nu_t, nu_eff, bc)
 
         # --- IBM on the predictor; the damped momentum is the force on the body
         sums = []
@@ -287,14 +309,9 @@ class ExplicitStep(nn.Module):
         # --- pressure projection, warm-started from the last pressure
         div_star = self._stencil(lambda a, b: divergence(a, b, dx, dy), u_star, v_star)
         rhs = div_star / dt
-        if self.ilam is not None:
-            # exact: the k = 0 mode is dropped in-spectrum, as the
-            # single-device DCT drops it
-            phi = dct_poisson_local(rhs, dx, dy, mesh, self.ilam)
-        else:
-            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
-            phi = rbsor_local(p, rhs, mesh, ax, ay, cfg.poisson.iters, cfg.poisson.omega,
-                              colours=colours)
+        if self.subtract_mean:
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global
+        phi = self.poisson(p, rhs, fluid_b if self.poisson.masked else None)
         gx, gy = self._stencil(lambda a: gradient(a, dx, dy), phi)
         u_new = u_star - dt * gx
         v_new = v_star - dt * gy
@@ -334,10 +351,7 @@ class ExplicitStep(nn.Module):
         # --- metrics: the maxima in one all_reduce, the sums in another
         div_post = self._stencil(lambda a, b: divergence(a, b, dx, dy), u_new, v_new)
         vort = self._stencil(lambda a, b: curl(a, b, dx, dy), u_new, v_new)
-        pp = clamp_global_edges(halo_exchange_edges(phi, mesh, 1), mesh, 1)
-        lap_n = (ax * (pp[1:-1, 2:] + pp[1:-1, :-2]) + ay * (pp[2:, 1:-1] + pp[:-2, 1:-1])
-                 - 2.0 * (ax + ay) * phi)
-        res = (lap_n - rhs).abs()
+        res = (self.poisson.lap(phi) - rhs).abs()
         if fluid_b is not None:
             res = torch.where(fluid_b, res, 0.0)
         maxima = pmax(torch.stack([

@@ -151,15 +151,16 @@ def halo_exchange_edges(block, mesh: GridMesh, width: int = 1):
                       torch.nn.functional.pad(hi_x, pad)], -1)
 
 
-def interior_window(block, mesh: GridMesh, width: int):
+def interior_window(block, mesh: GridMesh, width: int, corners: bool = True):
     """``(window, (oy, ox))``: the block padded by ``width`` halo lines from
     the neighbours (corners included) on the sides that face another block
     and by nothing on the sides on the *global* boundary, so the window's
     edge there is the global edge and a single-device operator that treats
     its array's edge lines as the domain's edge (a finite-volume update, a
     BC write) runs on it unchanged. The block is ``window[..., oy:oy +
-    ny_l, ox:ox + nx_l]``."""
-    padded = halo_exchange(block, mesh, width)
+    ny_l, ox:ox + nx_l]``. ``corners=False`` leaves the corners zero, one
+    round of messages, for an operator whose block cells read no corner."""
+    padded = (halo_exchange if corners else halo_exchange_edges)(block, mesh, width)
     oy = width if mesh.iy > 0 else 0
     ox = width if mesh.ix > 0 else 0
     ny = padded.shape[-2] - (width - oy) - (0 if mesh.iy < mesh.py - 1 else width)

@@ -8,7 +8,11 @@ layout), y and x ride the halo exchanges of ``halo.py`` (which pad the two
 trailing axes), the boundary faces and tangential ghosts are global-index
 masked writes (``MAC3DLocalBCs``), the z ghosts plain local
 concatenations. The projection is the exact distributed 3D DCT
-(``transforms.dct_poisson3d_local``).
+(``transforms.dct_poisson3d_local``), or the distributed multigrid or SOR of
+``incompressible3d_explicit.DistributedPoisson3D`` by the configured
+method. ``time_scheme="rk2"`` (Heun, one projection per stage, the body's
+second stage at t + dt) and ``projection="incremental"`` (p = p_warm + φ)
+follow ``models/mac3d.py``.
 
 Advection and diffusion run the *single-device* operators of
 ``models/mac3d.py`` on a width-2 halo window (the ±2-centre neighbourhood
@@ -61,8 +65,9 @@ from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
     moving_ghost_width_2d,
     partition_ghost_ibm3d,
 )
+from cfdsim_tpu_torch.parallel.mac_explicit import MACBlockStep
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, block_state, pmax, psum
-from cfdsim_tpu_torch.parallel.transforms import dct_poisson3d_local
+from cfdsim_tpu_torch.parallel.incompressible3d_explicit import DistributedPoisson3D
 
 
 def trim_state3d(state):
@@ -346,7 +351,16 @@ def ghost_tables(ibm_ghost, nx: int, ny: int, nz: int, mesh: GridMesh, device):
     return GhostTables({"u": tables.u, "v": tables.v, "w": tables.w}, device=device), width
 
 
-class MAC3DExplicitStep(nn.Module):
+class MAC3DBlockStep(MACBlockStep):
+    """The 3D MAC tiers' BC writes on trimmed blocks (``bcs``:
+    :class:`MAC3DLocalBCs`; ``idx``: their :class:`BoxIndices`)."""
+
+    def _set_normal(self, u_t, v_t, w_t, ts):
+        u_t, v_t, w_t = self.bcs.pre(u_t, v_t, w_t, self.idx.ro, self.idx.co, ts)
+        return u_t, v_t, w_t, self.bcs.aux(u_t, v_t, w_t, self.idx.ro, self.idx.co, ts)
+
+
+class MAC3DExplicitStep(MAC3DBlockStep):
     """``step(tstate, cfl_scale[, mask_u_t, mask_v_t, mask_w_t]) ->
     (tstate, StepMetrics)`` on this rank's trimmed (nz, ny_l, nx_l) blocks;
     see :func:`make_mac3d_explicit_step`."""
@@ -362,14 +376,12 @@ class MAC3DExplicitStep(nn.Module):
         g = cfg.grid
         nx, ny, nz = g.nx, g.ny, g.nz
         self.local_shape = check_divisible(g, mesh, min_block=2)
-        if cfg.poisson.method != "dct":
-            raise ValueError("explicit 3D MAC step supports poisson method 'dct'")
         if cfg.scheme not in ("central", "upwind", "tvd"):
             raise ValueError(f"unknown MAC3D scheme {cfg.scheme!r}")
-        if cfg.time_scheme != "euler":
-            raise ValueError("the explicit sharded 3D MAC step implements time_scheme='euler'")
-        if cfg.projection != "chorin":
-            raise ValueError("the explicit sharded step implements projection='chorin'")
+        if cfg.time_scheme not in ("euler", "rk2"):
+            raise ValueError(f"unknown MAC3D time scheme {cfg.time_scheme!r}")
+        if cfg.projection not in ("chorin", "incremental"):
+            raise ValueError(f"unknown MAC3D projection {cfg.projection!r}")
         if cfg.les_model not in ("smagorinsky", "dynamic"):
             raise ValueError(f"unknown les_model {cfg.les_model!r}")
         self.dynamic = cfg.use_les and cfg.les_model == "dynamic"
@@ -387,6 +399,7 @@ class MAC3DExplicitStep(nn.Module):
         self.collectives = True
         self.n_global = float(nx * ny * nz)
         self.idx = BoxIndices(self.local_shape, mesh)
+        self.poisson = DistributedPoisson3D(g.shape, g.dx, g.dy, g.dz, cfg.poisson, mesh)
         ny_l, nx_l = self.local_shape
         gy0, gx0 = mesh.iy * ny_l, mesh.ix * nx_l
         self.ghost, self.ghost_width = None, None
@@ -441,87 +454,65 @@ class MAC3DExplicitStep(nn.Module):
         i = base + torch.arange(s.shape[axis], device=s.device).reshape(shape)
         return torch.where((i == b0) | (i == b1), 0.0, s)
 
-    def forward(self, ts: MAC3DState, cfl_scale, *extras):
-        cfg = self.cfg
-        mesh = self.mesh
+    def _pad(self, u_t, v_t, w_t, a, ts):
+        """Width-1 padded blocks with every boundary write (the edges in
+        one round: their readers are plus-shaped)."""
+        U, V, W = halo_exchange_edges(torch.stack([u_t, v_t, w_t]), self.mesh, 1).unbind(0)
+        Wz = torch.cat([W, torch.zeros_like(W[:1])], 0)  # w z-face nz
+        return self.bcs.pad_writes(U, V, Wz, self.idx.rp, self.idx.cp, ts, a)
+
+    def _windows(self, u_t, v_t, w_t, a, ts):
+        """The width-2 windows in mac3d's layout and their ghosts: the
+        single-device operators run on them; the zero lines appended feed
+        only cropped positions or slope lines zeroed by _slope_fix."""
         bcs = self.bcs
-        idx = self.idx
-        g = cfg.grid
-        nx, ny, nz = g.nx, g.ny, g.nz
-        dx, dy, dz = g.dx, g.dy, g.dz
-        h = self.hb
-        ny_l, nx_l = self.local_shape
-        ro, co, rp, cp, r2, c2 = idx.ro, idx.co, idx.rp, idx.cp, idx.r2, idx.c2
-        if ts.u.device != self.device:
-            raise ValueError(f"step built for {self.device}, state on {ts.u.device}")
-        if len(extras) != (3 if self.use_ibm else 0):
-            raise ValueError(f"the step takes {3 if self.use_ibm else 0} extra blocks, got "
-                             f"{len(extras)}")
-        if not torch.is_tensor(cfl_scale):
-            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
-
-        def set_normal(u_t, v_t, w_t):
-            u_t, v_t, w_t = bcs.pre(u_t, v_t, w_t, ro, co, ts)
-            return u_t, v_t, w_t, bcs.aux(u_t, v_t, w_t, ro, co, ts)
-
-        def pad(u_t, v_t, w_t, a):
-            """Width-1 padded blocks with every boundary write (the edges in
-            one round: their readers are plus-shaped)."""
-            U, V, W = halo_exchange_edges(torch.stack([u_t, v_t, w_t]), mesh, 1).unbind(0)
-            Wz = torch.cat([W, torch.zeros_like(W[:1])], 0)  # w z-face nz
-            return bcs.pad_writes(U, V, Wz, rp, cp, ts, a)
-
-        u_t, v_t, w_t, a = set_normal(ts.u, ts.v, ts.w)
-
-        # --- the width-2 windows: the single-device operators run on them
-        U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), mesh, 2).unbind(0)
-        U2, V2, W2 = bcs.win(U2, V2, W2, r2, c2, ts, a)
+        U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), self.mesh, 2).unbind(0)
+        U2, V2, W2 = bcs.win(U2, V2, W2, self.idx.r2, self.idx.c2, ts, a)
 
         def zpad(q, axis):
             z = torch.zeros_like(q.narrow(axis, 0, 1))
             return torch.cat([z, q, z], axis)
 
-        # the window arrays in mac3d's layout; the zero lines appended feed
-        # only cropped positions or slope lines zeroed by _slope_fix
         u_win = torch.cat([U2, torch.zeros_like(U2[:, :, :1])], 2)  # (nz, NY, NX+1)
         v_win = torch.cat([V2, torch.zeros_like(V2[:, :1, :])], 1)  # (nz, NY+1, NX)
         w_win = torch.cat([W2, torch.zeros_like(W2[:1])], 0)  # (nz+1, NY, NX)
         ghosts = (zpad(u_win, 1), bcs.zghost_u(u_win), zpad(v_win, 2), bcs.zghost_v(v_win),
                   zpad(w_win, 2), zpad(w_win, 1))
+        return u_win, v_win, w_win, ghosts
 
-        # --- LES eddy viscosity on the window (valid on the ±1 ring around the
-        # owned cells, all the flux-form diffusion reads)
-        NUT = None
-        if cfg.use_les:
-            if self.dynamic:
-                delta_sq = (dx * dy * dz) ** (2.0 / 3.0)
-                fluid = self.les_fluid
-                if self.use_ibm:
-                    fluid = fluid_from_masks_local(*extras, mesh)
-                cs2 = dynamic_cs2_local(u_t, v_t, w_t, mesh, self.les_include, 0.5 / dx,
-                                        0.5 / dy, 0.5 / dz, delta_sq, fluid)
-                NUT = (cs2 * delta_sq) * strain_magnitude_mac3d(u_win, v_win, w_win, ghosts,
-                                                                dx, dy, dz)
-            else:
-                NUT = smagorinsky_viscosity_mac3d(u_win, v_win, w_win, ghosts, dx, dy, dz,
-                                                  cfg.smagorinsky_constant)
-            NUT = _roll_writes(NUT, r2, c2, ny, nx, 1.0, 1.0)  # the global edge clamp
-            nu_stab = cfg.nu + psum(NUT[:, 2:2 + ny_l, 2:2 + nx_l].sum(), mesh) / self.n_global
-
-        # --- adaptive dt (the maximum is exact: the reduction order is free)
-        if cfg.adaptive_dt:
-            vel_max = pmax(torch.maximum(
-                torch.maximum(u_t.abs().amax(), v_t.abs().amax()),
-                torch.maximum(w_t.abs().amax(), bcs.velmax_extra(u_t, a)).clamp(min=1e-10)),
-                mesh)
-            dt_cfl = cfg.cfl_target * cfl_scale * h / vel_max
-            if cfg.use_les:
-                dt = torch.minimum(dt_cfl, 0.125 * h * h / nu_stab)
-            else:
-                dt = dt_cfl.clamp(max=0.125 * h * h / cfg.nu)
-            dt = dt.clamp(cfg.dt_min, cfg.dt_max)
+    def _nut(self, windows, u_t, v_t, w_t, extras):
+        """LES eddy viscosity on the window (valid on the ±1 ring around the
+        owned cells, all the flux-form diffusion reads), the global edge
+        clamp emulated."""
+        cfg = self.cfg
+        g = cfg.grid
+        dx, dy, dz = g.dx, g.dy, g.dz
+        u_win, v_win, w_win, ghosts = windows
+        if self.dynamic:
+            delta_sq = (dx * dy * dz) ** (2.0 / 3.0)
+            fluid = self.les_fluid
+            if self.use_ibm:
+                fluid = fluid_from_masks_local(*extras, self.mesh)
+            cs2 = dynamic_cs2_local(u_t, v_t, w_t, self.mesh, self.les_include, 0.5 / dx,
+                                    0.5 / dy, 0.5 / dz, delta_sq, fluid)
+            NUT = (cs2 * delta_sq) * strain_magnitude_mac3d(u_win, v_win, w_win, ghosts,
+                                                            dx, dy, dz)
         else:
-            dt = self.dt_base
+            NUT = smagorinsky_viscosity_mac3d(u_win, v_win, w_win, ghosts, dx, dy, dz,
+                                              cfg.smagorinsky_constant)
+        return _roll_writes(NUT, self.idx.r2, self.idx.c2, g.ny, g.nx, 1.0, 1.0)
+
+    def _stage(self, ts, u_t, v_t, w_t, a, windows, NUT, p_warm, dt, extras):
+        """One projected Euler stage (``models/mac3d.py::MAC3DStep._stage``)
+        from BC-consistent trimmed (u, v, w) and their windows, the body at
+        ``ts``'s time: (u_new, v_new, w_new, a, p, body sums, div*)."""
+        cfg = self.cfg
+        mesh = self.mesh
+        g = cfg.grid
+        dx, dy, dz = g.dx, g.dy, g.dz
+        ny_l, nx_l = self.local_shape
+        ro, co = self.idx.ro, self.idx.co
+        u_win, v_win, w_win, ghosts = windows
 
         # --- the single-device advection and diffusion on the window, cropped
         conv_u, conv_v, conv_w = advect3d(u_win, v_win, w_win, ghosts, dx, dy, dz, cfg.scheme,
@@ -541,7 +532,16 @@ class MAC3DExplicitStep(nn.Module):
         u_star = u_t + torch.where(co >= 1, dt * du, 0.0)
         v_star = v_t + torch.where(ro >= 1, dt * dv, 0.0)
         w_star = torch.cat([w_t[:1], w_t[1:] + dt * dw], 0)
-        u_star, v_star, w_star, a = set_normal(u_star, v_star, w_star)
+        if cfg.projection == "incremental":
+            # the lagged pressure gradient; the projection solves for the increment
+            PW = halo_exchange_edges(p_warm, mesh, 1)
+            u_star = u_star + torch.where(
+                co >= 1, -dt * (PW[:, 1:-1, 1:-1] - PW[:, 1:-1, :-2]) * (1.0 / dx), 0.0)
+            v_star = v_star + torch.where(
+                ro >= 1, -dt * (PW[:, 1:-1, 1:-1] - PW[:, :-2, 1:-1]) * (1.0 / dy), 0.0)
+            w_star = torch.cat(
+                [w_star[:1], w_star[1:] + -dt * (p_warm[1:] - p_warm[:-1]) * (1.0 / dz)], 0)
+        u_star, v_star, w_star, a = self._set_normal(u_star, v_star, w_star, ts)
 
         # --- the bodies
         sums = []
@@ -562,28 +562,87 @@ class MAC3DExplicitStep(nn.Module):
                 (u_star, v_star, w_star), ts.t, ibm_ramp(ts.step, self.ibm_ramp_steps))
             sums += [d.sum() for d in d_mb]
 
-        # --- the exact distributed 3D projection
-        US, VS, WSz = pad(u_star, v_star, w_star, a)
+        # --- the distributed 3D projection
+        US, VS, WSz = self._pad(u_star, v_star, w_star, a, ts)
         div_star = ((US[:, 1:-1, 2:] - US[:, 1:-1, 1:-1]) * (1.0 / dx)
                     + (VS[:, 2:, 1:-1] - VS[:, 1:-1, 1:-1]) * (1.0 / dy)
                     + (WSz[1:, 1:-1, 1:-1] - WSz[:-1, 1:-1, 1:-1]) * (1.0 / dz))
-        phi = dct_poisson3d_local(div_star / dt, dx, dy, dz, mesh)
+        rhs = div_star / dt
+        if cfg.poisson.method != "dct":
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
+        warm = torch.zeros_like(p_warm) if cfg.projection == "incremental" else p_warm
+        phi = self.poisson(warm, rhs)
         PH = halo_exchange_edges(phi, mesh, 1)
         u_new = u_star + torch.where(
             co >= 1, -dt * (PH[:, 1:-1, 1:-1] - PH[:, 1:-1, :-2]) * (1.0 / dx), 0.0)
         v_new = v_star + torch.where(
             ro >= 1, -dt * (PH[:, 1:-1, 1:-1] - PH[:, :-2, 1:-1]) * (1.0 / dy), 0.0)
         w_new = torch.cat([w_star[:1], w_star[1:] + -dt * (phi[1:] - phi[:-1]) * (1.0 / dz)], 0)
-        u_new, v_new, w_new, a = set_normal(u_new, v_new, w_new)
+        u_new, v_new, w_new, a = self._set_normal(u_new, v_new, w_new, ts)
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         w_new = w_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        p_out = p_warm + phi if cfg.projection == "incremental" else phi
+        return u_new, v_new, w_new, a, p_out, sums, div_star
+
+    def _restage(self, ts, fields, a, p_warm, dt, extras):
+        windows = self._windows(*fields, a, ts)
+        NUT = self._nut(windows, *fields, extras) if self.cfg.use_les else None
+        u, v, w, _, p, sums, div_star = self._stage(ts, *fields, a, windows, NUT, p_warm, dt,
+                                                    extras)
+        return (u, v, w), p, sums, div_star
+
+    def forward(self, ts: MAC3DState, cfl_scale, *extras):
+        cfg = self.cfg
+        mesh = self.mesh
+        bcs = self.bcs
+        g = cfg.grid
+        nz = g.nz
+        dx, dy, dz = g.dx, g.dy, g.dz
+        h = self.hb
+        ny_l, nx_l = self.local_shape
+        ro = self.idx.ro
+        if ts.u.device != self.device:
+            raise ValueError(f"step built for {self.device}, state on {ts.u.device}")
+        if len(extras) != (3 if self.use_ibm else 0):
+            raise ValueError(f"the step takes {3 if self.use_ibm else 0} extra blocks, got "
+                             f"{len(extras)}")
+        if not torch.is_tensor(cfl_scale):
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
+
+        u_t, v_t, w_t, a = self._set_normal(ts.u, ts.v, ts.w, ts)
+        windows = self._windows(u_t, v_t, w_t, a, ts)
+        NUT = None
+        if cfg.use_les:
+            NUT = self._nut(windows, u_t, v_t, w_t, extras)
+            nu_stab = cfg.nu + psum(NUT[:, 2:2 + ny_l, 2:2 + nx_l].sum(), mesh) / self.n_global
+
+        # --- adaptive dt (the maximum is exact: the reduction order is free)
+        if cfg.adaptive_dt:
+            vel_max = pmax(torch.maximum(
+                torch.maximum(u_t.abs().amax(), v_t.abs().amax()),
+                torch.maximum(w_t.abs().amax(), bcs.velmax_extra(u_t, a)).clamp(min=1e-10)),
+                mesh)
+            dt_cfl = cfg.cfl_target * cfl_scale * h / vel_max
+            if cfg.use_les:
+                dt = torch.minimum(dt_cfl, 0.125 * h * h / nu_stab)
+            else:
+                dt = dt_cfl.clamp(max=0.125 * h * h / cfg.nu)
+            dt = dt.clamp(cfg.dt_min, cfg.dt_max)
+        else:
+            dt = self.dt_base
+
+        u_new, v_new, w_new, a, phi, sums, div_star = self._stage(
+            ts, u_t, v_t, w_t, a, windows, NUT, ts.p, dt, extras)
+        if cfg.time_scheme == "rk2":  # ν_t refreshed from the first stage
+            (u_new, v_new, w_new), a, phi, sums, div_star = self._heun(
+                ts, dt, (u_t, v_t, w_t), ((u_new, v_new, w_new), phi, sums), extras)
 
         new_ts = MAC3DState(u=u_new, v=v_new, w=w_new, p=phi, t=ts.t + dt, step=ts.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_ts, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero, zero)
-        UN, VN, WNz = pad(u_new, v_new, w_new, a)
+        UN, VN, WNz = self._pad(u_new, v_new, w_new, a, ts)
         div_post = ((UN[:, 1:-1, 2:] - UN[:, 1:-1, 1:-1]) * (1.0 / dx)
                     + (VN[:, 2:, 1:-1] - VN[:, 1:-1, 1:-1]) * (1.0 / dy)
                     + (WNz[1:, 1:-1, 1:-1] - WNz[:-1, 1:-1, 1:-1]) * (1.0 / dz))

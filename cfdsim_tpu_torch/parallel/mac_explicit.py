@@ -19,10 +19,14 @@ write*:
 The advection and diffusion mirror ``models/mac.py`` (the same
 divergence-form fluxes and van Leer MUSCL slopes), the single-device
 arrays' edge behaviour (zero slopes at the first and last face)
-reproduced by global-index masks. The pressure solve is the distributed
-red-black SOR (``sharded.rbsor_local``) or the exact pencil DCT
-(``transforms.dct_poisson_local``), with which the projection stays exact
-to float32 rounding across the mesh.
+reproduced by global-index masks. The pressure solve is any method of the
+single-device solver through ``poisson2d_explicit.DistributedPoisson2D``
+(the exact pencil DCT, with which the projection stays exact to float32
+rounding across the mesh, by default). ``time_scheme="rk2"`` is Heun's
+method with one projection per stage, the second stage's BCs and body at
+t + dt (``models/mac.py``); ``projection="incremental"`` carries the lagged
+pressure gradient in the predictor and solves for the increment from a
+zero start, p = p_warm + φ, p_warm this rank's block of the state's p.
 
 A moving body (``moving_body=``) is forced on each rank's block: its sharp
 face masks rebuilt every step from this rank's lines of the single-device
@@ -50,16 +54,10 @@ from cfdsim_tpu_torch.ibm import ibm_ramp
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
 from cfdsim_tpu_torch.models.mac import MACConfig, MACState, _face_value, _limited_slope
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
-from cfdsim_tpu_torch.parallel.halo import (
-    clamp_global_edges,
-    global_indices,
-    halo_exchange,
-    halo_exchange_edges,
-)
+from cfdsim_tpu_torch.parallel.halo import global_indices, halo_exchange, halo_exchange_edges
 from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import MovingBodyLocal, moving_ghost_width_2d
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
-from cfdsim_tpu_torch.parallel.sharded import rbsor_local, sweep_colours
-from cfdsim_tpu_torch.parallel.transforms import dct_inv_eigenvalues_local, dct_poisson_local
+from cfdsim_tpu_torch.parallel.poisson2d_explicit import DistributedPoisson2D
 
 
 class MACLocalBCs(NamedTuple):
@@ -280,7 +278,49 @@ def uniform_moving_body(body, scheme: str, g, mesh: GridMesh, local_shape, *,
                            device=device)
 
 
-class MACExplicitStep(nn.Module):
+class MACBlockStep(nn.Module):
+    """What the MAC tiers' steps on rank blocks share: Heun's rk2. A tier
+    gives ``_set_normal(*fields, ts) -> (*fields, a)`` (its BC writes on
+    the trimmed fields and the BC numbers of the post writes) and
+    ``_restage(ts, fields, a, p_warm, dt, extras) -> (fields, p, body
+    sums, aux)``: one projected stage from BC-consistent trimmed fields,
+    with the halos and ν_t it builds from them."""
+
+    def _heun(self, ts, dt, start, first, extras):
+        """``models/mac.py``'s rk2: the step's trimmed ``start`` fields
+        averaged with a second projected stage from the first stage's
+        ``first`` = (fields, p, body sums), with its BCs and body at t + dt;
+        p and the body sums averaged alike. Returns (fields, a, p, body
+        sums, the second stage's aux)."""
+        fields, p, sums = first
+        ts2 = ts._replace(t=ts.t + dt)
+        *f1, a1 = self._set_normal(*fields, ts2)
+        f2, p2, sums2, aux = self._restage(ts2, f1, a1, p, dt, extras)
+        *f, a = self._set_normal(*(0.5 * (x + y) for x, y in zip(start, f2)), ts2)
+        return f, a, 0.5 * (p + p2), [0.5 * (s1 + s2) for s1, s2 in zip(sums, sums2)], aux
+
+
+class MAC2DBlockStep(MACBlockStep):
+    """The 2D MAC tiers' BC writes and halo padding on trimmed blocks
+    (``bcs``: :class:`MACLocalBCs`; ``gr{w}``, ``gc{w}``: the global
+    indices of blocks padded by w)."""
+
+    def _set_normal(self, u_t, v_t, ts):
+        """The trimmed arrays' set_normal, and the BC numbers of the post
+        writes."""
+        u_t, v_t = self.bcs.pre(u_t, v_t, self.gc0, self.gr0, ts)
+        return u_t, v_t, self.bcs.aux(u_t, v_t, self.gc0, self.gr0, ts)
+
+    def _pad(self, u_t, v_t, a, w: int, ts):
+        """Halo-pad the trimmed fields (one exchange for both) and apply
+        the post BC writes → the full local MAC arrays."""
+        U, V = halo_exchange(torch.stack([u_t, v_t]), self.mesh, w).unbind(0)
+        gr, gc = getattr(self, f"gr{w}"), getattr(self, f"gc{w}")
+        return (self.bcs.post_u(U, gr, gc, ts, a), self.bcs.post_v(V, gr, gc, ts, a),
+                (gr, gc))
+
+
+class MACExplicitStep(MAC2DBlockStep):
     """``step(tstate, cfl_scale[, mask_u_t, mask_v_t]) -> (tstate,
     StepMetrics)`` on this rank's trimmed blocks; see
     :func:`make_mac_explicit_step`."""
@@ -293,20 +333,17 @@ class MACExplicitStep(nn.Module):
             raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=4)
-        if cfg.poisson.method not in ("rbsor", "dct"):
-            raise ValueError("explicit MAC step supports poisson method 'rbsor' or 'dct'")
-        if cfg.poisson.method == "rbsor" and cfg.poisson.tol > 0.0:
-            raise ValueError("explicit MAC rbsor runs a fixed sweep budget (tol=0)")
-        if cfg.time_scheme != "euler":
-            raise ValueError("the explicit sharded MAC step implements time_scheme='euler'")
-        if cfg.projection != "chorin":
-            raise ValueError("the explicit sharded MAC step implements projection='chorin'")
+        if cfg.time_scheme not in ("euler", "rk2"):
+            raise ValueError(f"unknown MAC time scheme {cfg.time_scheme!r}")
+        if cfg.projection not in ("chorin", "incremental"):
+            raise ValueError(f"unknown MAC projection {cfg.projection!r}")
         if cfg.diffusion != "explicit":
             raise ValueError("the explicit sharded MAC step implements diffusion='explicit'")
         self.cfg, self.mesh, self.bcs = cfg, mesh, bcs
         self.use_ibm, self.ibm_ramp_steps = use_ibm, ibm_ramp_steps
         self.device = step_device(mesh, device)
-        self.reads_host = False
+        self.poisson = DistributedPoisson2D((g.ny, g.nx), g.dx, g.dy, cfg.poisson, mesh)
+        self.reads_host = self.poisson.reads_host
         self.collectives = True
         self.n_global = float(g.ny * g.nx)
         for w in (0, 1, 2):  # global (row, col) indices of blocks padded by w
@@ -316,11 +353,6 @@ class MACExplicitStep(nn.Module):
         gri, gci = global_indices(self.local_shape, mesh, 1)  # ν_t's width-1 cell window
         self.register_buffer("gri", gri.contiguous())
         self.register_buffer("gci", gci.contiguous())
-        red, black = sweep_colours(self.local_shape, mesh)
-        self.register_buffer("red", red)
-        self.register_buffer("black", black)
-        self.register_buffer("ilam", dct_inv_eigenvalues_local(self.local_shape, g.dx, g.dy, mesh)
-                             if cfg.poisson.method == "dct" else None)
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=self.device))
         self.register_buffer("warmup_dt", torch.tensor(cfg.warmup_dt, dtype=torch.float32,
@@ -333,15 +365,129 @@ class MACExplicitStep(nn.Module):
             self.moving = uniform_moving_body(moving_body, moving_scheme, g, mesh,
                                               self.local_shape, device=self.device)
 
+    def _les(self, U, V):
+        """The staggered Smagorinsky LES (mac.smagorinsky_viscosity_mac on
+        the padded blocks): ν_t on a width-1 cell window around the owned
+        cells, the single-device edge padding of ν reproduced by global-index
+        roll substitutions at the domain's edges, with the gradients the
+        flux-form diffusion reads."""
+        cfg = self.cfg
+        g = cfg.grid
+        ny, nx, dx, dy = g.ny, g.nx, g.dx, g.dy
+        idx, idy = 1.0 / dx, 1.0 / dy
+        DUX0 = (U[:, 1:] - U[:, :-1]) * idx  # cells (gy0−2+r, gx0−2+c)
+        DVY0 = (V[1:, :] - V[:-1, :]) * idy
+        DUDY = (U[1:, :] - U[:-1, :]) * idy  # corners (gy0−1+r, ·)
+        DVDX = (V[:, 1:] - V[:, :-1]) * idx  # corners (·, gx0−1+c)
+        SH = DUDY[:, 1:] + DVDX[1:, :]  # the canonical corners
+        SHC = 0.25 * (SH[:-1, :-1] + SH[:-1, 1:] + SH[1:, :-1] + SH[1:, 1:])
+        DUXw = DUX0[1:-1, 1:]
+        DVYw = DVY0[1:, 1:-1]
+        s_mag = torch.sqrt(2.0 * (DUXw * DUXw + DVYw * DVYw) + SHC * SHC)
+        cs_d2 = (cfg.smagorinsky_constant * (dx * dy) ** 0.5) ** 2
+        NUT = cs_d2 * s_mag
+        NUT = torch.where(self.gri == -1, torch.roll(NUT, -1, 0), NUT)
+        NUT = torch.where(self.gri == ny, torch.roll(NUT, 1, 0), NUT)
+        NUT = torch.where(self.gci == -1, torch.roll(NUT, -1, 1), NUT)
+        NUT = torch.where(self.gci == nx, torch.roll(NUT, 1, 1), NUT)
+        return NUT, DUXw, DVYw, DUDY, DVDX
+
+    def _viscous(self, U, V, les):
+        """ν∇²u, ν∇²v at the owned faces, or with LES the flux-form
+        variable-ν diffusion (mac._diffuse_les on blocks)."""
+        cfg = self.cfg
+        dx, dy = cfg.grid.dx, cfg.grid.dy
+        ny_l, nx_l = self.local_shape
+        if les is None:
+            lap_u, lap_v = _laplacians(U, V, 1.0 / (dx * dx), 1.0 / (dy * dy))
+            return cfg.nu * lap_u, cfg.nu * lap_v
+        NUT, DUXw, DVYw, DUDY, DVDX = les
+        NUE = cfg.nu + NUT
+        NU_K = 0.25 * (NUE[:-1, :-1] + NUE[:-1, 1:] + NUE[1:, :-1] + NUE[1:, 1:])
+        FUX = NUE[1:-1, :] * DUXw[1:-1, :]
+        lap_u_x = (FUX[:, 1:1 + nx_l] - FUX[:, 0:nx_l]) * (1.0 / dx)
+        DUDYc = DUDY[:, 1:][1:ny_l + 2, 1:nx_l + 2]
+        FUY = NU_K * DUDYc
+        lap_u_y = ((FUY[1:, :] - FUY[:-1, :]) * (1.0 / dy))[:, :nx_l]
+        FVY = NUE[:, 1:-1] * DVYw[:, 1:-1]
+        lap_v_y = (FVY[1:1 + ny_l, :] - FVY[0:ny_l, :]) * (1.0 / dy)
+        DVDXc = DVDX[1:, :][1:ny_l + 2, 1:nx_l + 2]
+        FVX = NU_K * DVDXc
+        lap_v_x = (FVX[:ny_l, 1:] - FVX[:ny_l, :-1]) * (1.0 / dx)
+        return lap_u_x + lap_u_y, lap_v_x + lap_v_y
+
+    def _stage(self, ts, u_t, v_t, a, U, V, les, p_warm, dt, extras):
+        """One projected Euler stage (``models/mac.py::MACStep._stage``) from
+        BC-consistent trimmed (u, v) and their width-2 padding (U, V), the
+        BCs and the body at ``ts``'s time: (u_new, v_new, a, p, body sums,
+        (div*, rhs, φ))."""
+        cfg = self.cfg
+        mesh = self.mesh
+        g = cfg.grid
+        ny, nx, dx, dy = g.ny, g.nx, g.dx, g.dy
+        gr0, gc0 = self.gr0, self.gc0
+        grP, gcP = self.gr2, self.gc2
+        conv_u, conv_v = _advect_local(U, V, grP, gcP, grP, gcP, ny, nx, dx, dy, cfg.scheme)
+        visc_u, visc_v = self._viscous(U, V, les)
+        # the predictor on interior faces only (mac.py u[:, 1:-1], v[1:-1])
+        u_star = u_t + torch.where(gc0 >= 1, dt * (visc_u - conv_u), 0.0)
+        v_star = v_t + torch.where(gr0 >= 1, dt * (visc_v - conv_v), 0.0)
+        if cfg.projection == "incremental":
+            # the lagged pressure gradient; the projection solves for the increment
+            PW = halo_exchange_edges(p_warm, mesh, 1)
+            u_star = u_star + torch.where(
+                gc0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[1:-1, :-2]) * (1.0 / dx), 0.0)
+            v_star = v_star + torch.where(
+                gr0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[:-2, 1:-1]) * (1.0 / dy), 0.0)
+        u_star, v_star, a = self._set_normal(u_star, v_star, ts)
+
+        # --- IBM penalization and its body force
+        sums = []
+        if self.use_ibm:
+            mask_u_t, mask_v_t = extras
+            strength = ibm_ramp(ts.step, self.ibm_ramp_steps)
+            du_ibm = u_star * (strength * mask_u_t)
+            dv_ibm = v_star * (strength * mask_v_t)
+            u_star = u_star - du_ibm
+            v_star = v_star - dv_ibm
+            sums = [du_ibm.sum(), dv_ibm.sum()]
+        if self.moving is not None:
+            (u_star, v_star), d_mb = self.moving(
+                (u_star, v_star), ts.t, ibm_ramp(ts.step, self.ibm_ramp_steps))
+            sums += [d.sum() for d in d_mb]
+
+        # --- the projection (the adjoint MAC divergence and gradient)
+        US, VS, _ = self._pad(u_star, v_star, a, 1, ts)
+        div_star = (US[1:-1, 2:] - US[1:-1, 1:-1]) * (1.0 / dx) + (
+            VS[2:, 1:-1] - VS[1:-1, 1:-1]) * (1.0 / dy)
+        rhs = div_star / dt
+        if cfg.poisson.method not in ("dct", "fft"):
+            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global  # Neumann solvability
+        warm = torch.zeros_like(p_warm) if cfg.projection == "incremental" else p_warm
+        phi = self.poisson(warm, rhs)
+        PH = halo_exchange_edges(phi, mesh, 1)  # read by 5-point stencils only
+        u_new = u_star + torch.where(
+            gc0 >= 1, -dt * (PH[1:-1, 1:-1] - PH[1:-1, :-2]) * (1.0 / dx), 0.0)
+        v_new = v_star + torch.where(
+            gr0 >= 1, -dt * (PH[1:-1, 1:-1] - PH[:-2, 1:-1]) * (1.0 / dy), 0.0)
+        u_new, v_new, a = self._set_normal(u_new, v_new, ts)
+        u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        p_out = p_warm + phi if cfg.projection == "incremental" else phi
+        return u_new, v_new, a, p_out, sums, (div_star, rhs, phi)
+
+    def _restage(self, ts, fields, a, p_warm, dt, extras):
+        U, V, _ = self._pad(*fields, a, 2, ts)
+        les = self._les(U, V) if self.cfg.use_les else None
+        u, v, _, p, sums, aux = self._stage(ts, *fields, a, U, V, les, p_warm, dt, extras)
+        return (u, v), p, sums, aux
+
     def forward(self, tstate: MACState, cfl_scale, *extras):
         cfg = self.cfg
         mesh = self.mesh
-        bcs = self.bcs
         g = cfg.grid
         ny, nx = g.ny, g.nx
         dx, dy = g.dx, g.dy
-        ax, ay = 1.0 / (dx * dx), 1.0 / (dy * dy)
-        ny_l, nx_l = self.local_shape
         if tstate.u.device != self.device:
             raise ValueError(f"step built for {self.device}, state on {tstate.u.device}")
         if len(extras) != (2 if self.use_ibm else 0):
@@ -351,45 +497,13 @@ class MACExplicitStep(nn.Module):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
         gr0, gc0 = self.gr0, self.gc0
 
-        def set_normal(u_t, v_t):
-            """The trimmed arrays' set_normal, and the BC numbers of the post writes."""
-            u_t, v_t = bcs.pre(u_t, v_t, gc0, gr0, tstate)
-            return u_t, v_t, bcs.aux(u_t, v_t, gc0, gr0, tstate)
-
-        def pad(u_t, v_t, a, w: int):
-            """Halo-pad the trimmed fields (one exchange for both) and apply
-            the post BC writes → the full local MAC arrays."""
-            U, V = halo_exchange(torch.stack([u_t, v_t]), mesh, w).unbind(0)
-            gr, gc = getattr(self, f"gr{w}"), getattr(self, f"gc{w}")
-            return bcs.post_u(U, gr, gc, tstate, a), bcs.post_v(V, gr, gc, tstate, a), (gr, gc)
-
         # float32 copies of the fields (under bf16 storage, the upcast)
-        u_t, v_t, a = set_normal(tstate.u.float(), tstate.v.float())
-        U, V, (grP, gcP) = pad(u_t, v_t, a, 2)
-
-        # --- staggered Smagorinsky LES (mac.smagorinsky_viscosity_mac and
-        # _diffuse_les on the padded blocks): ν_t on a width-1 cell window
-        # around the owned cells, the single-device edge padding of ν
-        # reproduced by global-index roll substitutions at the domain's edges
+        u_t, v_t, a = self._set_normal(tstate.u.float(), tstate.v.float(), tstate)
+        U, V, (grP, gcP) = self._pad(u_t, v_t, a, 2, tstate)
+        les = self._les(U, V) if cfg.use_les else None
         nu_total = None
-        if cfg.use_les:
-            idx, idy = 1.0 / dx, 1.0 / dy
-            DUX0 = (U[:, 1:] - U[:, :-1]) * idx  # cells (gy0−2+r, gx0−2+c)
-            DVY0 = (V[1:, :] - V[:-1, :]) * idy
-            DUDY = (U[1:, :] - U[:-1, :]) * idy  # corners (gy0−1+r, ·)
-            DVDX = (V[:, 1:] - V[:, :-1]) * idx  # corners (·, gx0−1+c)
-            SH = DUDY[:, 1:] + DVDX[1:, :]  # the canonical corners
-            SHC = 0.25 * (SH[:-1, :-1] + SH[:-1, 1:] + SH[1:, :-1] + SH[1:, 1:])
-            DUXw = DUX0[1:-1, 1:]
-            DVYw = DVY0[1:, 1:-1]
-            s_mag = torch.sqrt(2.0 * (DUXw * DUXw + DVYw * DVYw) + SHC * SHC)
-            cs_d2 = (cfg.smagorinsky_constant * (dx * dy) ** 0.5) ** 2
-            NUT = cs_d2 * s_mag
-            NUT = torch.where(self.gri == -1, torch.roll(NUT, -1, 0), NUT)
-            NUT = torch.where(self.gri == ny, torch.roll(NUT, 1, 0), NUT)
-            NUT = torch.where(self.gci == -1, torch.roll(NUT, -1, 1), NUT)
-            NUT = torch.where(self.gci == nx, torch.roll(NUT, 1, 1), NUT)
-            nu_total = cfg.nu + psum(NUT[1:-1, 1:-1].sum(), mesh) / self.n_global
+        if les is not None:
+            nu_total = cfg.nu + psum(les[0][1:-1, 1:-1].sum(), mesh) / self.n_global
 
         # --- adaptive dt (mac._adaptive_dt); the max is exact, so the halo's
         # duplicated faces cost nothing
@@ -411,79 +525,24 @@ class MACExplicitStep(nn.Module):
         else:
             dt = self.dt_base
 
-        # --- advection and diffusion on the padded arrays
-        conv_u, conv_v = _advect_local(U, V, grP, gcP, grP, gcP, ny, nx, dx, dy, cfg.scheme)
-        if cfg.use_les:
-            # flux-form variable-ν diffusion (mac._diffuse_les on blocks)
-            NUE = cfg.nu + NUT
-            NU_K = 0.25 * (NUE[:-1, :-1] + NUE[:-1, 1:] + NUE[1:, :-1] + NUE[1:, 1:])
-            FUX = NUE[1:-1, :] * DUXw[1:-1, :]
-            lap_u_x = (FUX[:, 1:1 + nx_l] - FUX[:, 0:nx_l]) * (1.0 / dx)
-            DUDYc = DUDY[:, 1:][1:ny_l + 2, 1:nx_l + 2]
-            FUY = NU_K * DUDYc
-            lap_u_y = ((FUY[1:, :] - FUY[:-1, :]) * (1.0 / dy))[:, :nx_l]
-            visc_u = lap_u_x + lap_u_y
-            FVY = NUE[:, 1:-1] * DVYw[:, 1:-1]
-            lap_v_y = (FVY[1:1 + ny_l, :] - FVY[0:ny_l, :]) * (1.0 / dy)
-            DVDXc = DVDX[1:, :][1:ny_l + 2, 1:nx_l + 2]
-            FVX = NU_K * DVDXc
-            lap_v_x = (FVX[:ny_l, 1:] - FVX[:ny_l, :-1]) * (1.0 / dx)
-            visc_v = lap_v_x + lap_v_y
-        else:
-            lap_u, lap_v = _laplacians(U, V, ax, ay)
-            visc_u, visc_v = cfg.nu * lap_u, cfg.nu * lap_v
-
-        # the predictor on interior faces only (mac.py u[:, 1:-1], v[1:-1])
-        u_star = u_t + torch.where(gc0 >= 1, dt * (visc_u - conv_u), 0.0)
-        v_star = v_t + torch.where(gr0 >= 1, dt * (visc_v - conv_v), 0.0)
-        u_star, v_star, a = set_normal(u_star, v_star)
-
-        # --- IBM penalization and its body force
-        sums = []
-        if self.use_ibm:
-            mask_u_t, mask_v_t = extras
-            strength = ibm_ramp(tstate.step, self.ibm_ramp_steps)
-            du_ibm = u_star * (strength * mask_u_t)
-            dv_ibm = v_star * (strength * mask_v_t)
-            u_star = u_star - du_ibm
-            v_star = v_star - dv_ibm
-            sums = [du_ibm.sum(), dv_ibm.sum()]
-        if self.moving is not None:
-            (u_star, v_star), d_mb = self.moving(
-                (u_star, v_star), tstate.t, ibm_ramp(tstate.step, self.ibm_ramp_steps))
-            sums += [d.sum() for d in d_mb]
-
-        # --- the exact projection (the adjoint MAC divergence and gradient)
-        US, VS, _ = pad(u_star, v_star, a, 1)
-        div_star = (US[1:-1, 2:] - US[1:-1, 1:-1]) * (1.0 / dx) + (
-            VS[2:, 1:-1] - VS[1:-1, 1:-1]) * (1.0 / dy)
-        rhs = div_star / dt
-        if cfg.poisson.method == "dct":
-            phi = dct_poisson_local(rhs, dx, dy, mesh, self.ilam)
-        else:
-            rhs = rhs - psum(rhs.sum(), mesh) / self.n_global
-            phi = rbsor_local(tstate.p, rhs, mesh, ax, ay, cfg.poisson.iters,
-                              cfg.poisson.omega, colours=(self.red, self.black))
-        PH = halo_exchange_edges(phi, mesh, 1)  # read by 5-point stencils only
-        gx = (PH[1:-1, 1:-1] - PH[1:-1, :-2]) * (1.0 / dx)  # at the owned u-faces
-        gy_ = (PH[1:-1, 1:-1] - PH[:-2, 1:-1]) * (1.0 / dy)  # at the owned v-faces
-        u_new = u_star - torch.where(gc0 >= 1, dt * gx, 0.0)
-        v_new = v_star - torch.where(gr0 >= 1, dt * gy_, 0.0)
-        u_new, v_new, a = set_normal(u_new, v_new)
-        u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
-        v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        u_new, v_new, a, p, sums, aux = self._stage(tstate, u_t, v_t, a, U, V, les, tstate.p,
+                                                    dt, extras)
+        if cfg.time_scheme == "rk2":  # ν_t refreshed from the first stage
+            (u_new, v_new), a, p, sums, aux = self._heun(
+                tstate, dt, (u_t, v_t), ((u_new, v_new), p, sums), extras)
+        div_star, rhs, phi = aux
 
         u_out, v_out = u_new, v_new
         if cfg.storage == "bf16":
             # round once a step; the metrics below read the float32 fields
             u_out, v_out = u_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
-        new_tstate = MACState(u=u_out, v=v_out, p=phi, t=tstate.t + dt, step=tstate.step + 1)
+        new_tstate = MACState(u=u_out, v=v_out, p=p, t=tstate.t + dt, step=tstate.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_tstate, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero,
                                            zero)
 
-        UN, VN, (grn, gcn) = pad(u_new, v_new, a, 1)
+        UN, VN, (grn, gcn) = self._pad(u_new, v_new, a, 1, tstate)
         div_post = (UN[1:-1, 2:] - UN[1:-1, 1:-1]) * (1.0 / dx) + (
             VN[2:, 1:-1] - VN[1:-1, 1:-1]) * (1.0 / dy)
         ucc = 0.5 * (UN[1:-1, 1:-1] + UN[1:-1, 2:])
@@ -493,11 +552,8 @@ class MACExplicitStep(nn.Module):
         dvdx = (VN[1:-1, 1:-1] - VN[1:-1, :-2]) * (1.0 / dx)
         dudy = (UN[1:-1, 1:-1] - UN[:-2, 1:-1]) * (1.0 / dy)
         vort = torch.where((gr0 >= 1) & (gc0 >= 1), dvdx - dudy, 0.0)
-        # poisson_res: |lap_neumann(φ) − rhs| over all cells (PH holds the
-        # width-1 exchange of the correction)
-        PP = clamp_global_edges(PH, mesh, 1)
-        lap_n = (ax * (PP[1:-1, 2:] + PP[1:-1, :-2]) + ay * (PP[2:, 1:-1] + PP[:-2, 1:-1])
-                 - 2.0 * (ax + ay) * phi)
+        # poisson_res: |lap_neumann(φ) − rhs| over all cells, φ the last solve's
+        lap_n = self.poisson.lap(phi)
         real_un = (grn >= 0) & (grn < ny) & (gcn >= 0) & (gcn <= nx)
         real_vn = (grn >= 0) & (grn <= ny) & (gcn >= 0) & (gcn < nx)
         div_pre, div_post_m, max_vel, vort_max, poisson_res = pmax(torch.stack([

@@ -8,7 +8,9 @@ slice of the whole-grid vector at clamped global indices, the z lines are
 local, and the control volumes, cell volumes and LES filter widths are the
 single-device step's float64 products cut to this rank's block. The
 projection is the distributed 3D fast diagonalization
-(``transforms.make_fdm_poisson3d_local``).
+(``transforms.make_fdm_poisson3d_local``); rk2 (Heun, one projection per
+stage, the body's second stage at t + dt) and the incremental projection
+(p = p_warm + φ) follow ``models/mac_stretched3d.py``.
 
 The central scheme runs on width-1 padded blocks. Upwind and TVD (the
 sphere cases' default) run the single-device step's MUSCL donor fluxes on
@@ -31,7 +33,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from cfdsim_tpu_torch.ibm import ibm_ramp
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
@@ -52,6 +53,7 @@ from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
 )
 from cfdsim_tpu_torch.parallel.mac3d_explicit import (
     BoxIndices,
+    MAC3DBlockStep,
     MAC3DLocalBCs,
     _roll_writes,
     cavity3d_local_bcs,
@@ -67,7 +69,7 @@ from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 from cfdsim_tpu_torch.parallel.transforms import make_fdm_poisson3d_local
 
 
-class Stretched3DExplicitStep(nn.Module):
+class Stretched3DExplicitStep(MAC3DBlockStep):
     """``step(tstate, cfl_scale[, mask_u_t, mask_v_t, mask_w_t]) -> (tstate,
     StepMetrics)`` on this rank's trimmed blocks; see
     :func:`make_stretched3d_explicit_step`."""
@@ -86,10 +88,10 @@ class Stretched3DExplicitStep(nn.Module):
         if self.dynamic and moving_body is not None:
             raise ValueError("les_model='dynamic' does not support moving_body yet "
                              "(matches models/mac_stretched3d.py)")
-        if cfg.time_scheme != "euler":
-            raise ValueError("the explicit stretched-3D step implements time_scheme='euler'")
-        if cfg.projection != "chorin":
-            raise ValueError("the explicit sharded step implements projection='chorin'")
+        if cfg.time_scheme not in ("euler", "rk2"):
+            raise ValueError(f"unknown time scheme {cfg.time_scheme!r}")
+        if cfg.projection not in ("chorin", "incremental"):
+            raise ValueError(f"unknown projection {cfg.projection!r}")
         mx, my, mz = _metrics(x_faces), _metrics(y_faces), _metrics(z_faces)
         if (len(mx.h), len(my.h), len(mz.h)) != (cfg.nx, cfg.ny, cfg.nz):
             raise ValueError(f"faces for {len(mz.h)}×{len(my.h)}×{len(mx.h)} cells, config "
@@ -344,58 +346,38 @@ class Stretched3DExplicitStep(nn.Module):
                                                     self.cs2_delta2)
         return _roll_writes(NUT, idx.r2, idx.c2, ny, nx, 1.0, 1.0)  # the global edge clamp
 
-    def forward(self, ts: MAC3DState, cfl_scale, *extras):
+    def _pad(self, u_t, v_t, w_t, a, corners: bool, ts):
+        exchange = halo_exchange if corners else halo_exchange_edges
+        U, V, W = exchange(torch.stack([u_t, v_t, w_t]), self.mesh, 1).unbind(0)
+        return self.bcs.pad_writes(U, V, torch.cat([W, torch.zeros_like(W[:1])], 0),
+                                   self.idx.rp, self.idx.cp, ts, a)
+
+    def _inputs(self, u_t, v_t, w_t, a, ts, extras):
+        """What a stage reads of BC-consistent trimmed (u, v, w): the width-1
+        padded blocks with corners (the edge interpolants read them), their z
+        ghosts, the width-2 windows where the donor fluxes or the LES read
+        them, and ν_t."""
         cfg = self.cfg
-        mesh = self.mesh
-        bcs = self.bcs
-        idx = self.idx
-        nz = cfg.nz
-        ny_l, nx_l = self.local_shape
-        ro, co, rp, cp = idx.ro, idx.co, idx.rp, idx.cp
-        h = self.h_min
-        if ts.u.device != self.device:
-            raise ValueError(f"step built for {self.device}, state on {ts.u.device}")
-        if len(extras) != (3 if self.use_ibm else 0):
-            raise ValueError(f"the step takes {3 if self.use_ibm else 0} extra blocks, got "
-                             f"{len(extras)}")
-        if not torch.is_tensor(cfl_scale):
-            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
-
-        def set_normal(u_t, v_t, w_t):
-            u_t, v_t, w_t = bcs.pre(u_t, v_t, w_t, ro, co, ts)
-            return u_t, v_t, w_t, bcs.aux(u_t, v_t, w_t, ro, co, ts)
-
-        def pad(u_t, v_t, w_t, a, corners: bool):
-            exchange = halo_exchange if corners else halo_exchange_edges
-            U, V, W = exchange(torch.stack([u_t, v_t, w_t]), mesh, 1).unbind(0)
-            return bcs.pad_writes(U, V, torch.cat([W, torch.zeros_like(W[:1])], 0), rp, cp, ts,
-                                  a)
-
-        u_t, v_t, w_t, a = set_normal(ts.u, ts.v, ts.w)
-        U, V, Wz = pad(u_t, v_t, w_t, a, True)  # the edge interpolants read corners
-        UZG = bcs.zghost_u(U)
-        VZG = bcs.zghost_v(V)
-
-        windows = None
+        U, V, Wz = self._pad(u_t, v_t, w_t, a, True, ts)
+        windows = NUT = None
         if cfg.use_les or cfg.scheme != "central":
             windows = self._windows(u_t, v_t, w_t, a, ts)
         if cfg.use_les:
-            u_win, v_win, w_win, ghosts = windows
             NUT = self._nu_t(windows, extras, u_t, v_t, w_t)
-            nu_stab = cfg.nu + psum(NUT[:, 2:2 + ny_l, 2:2 + nx_l].sum(), mesh) / self.n_global
-        if cfg.adaptive_dt:
-            vel_max = pmax(torch.maximum(
-                torch.maximum(u_t.abs().amax(), v_t.abs().amax()),
-                torch.maximum(w_t.abs().amax(), bcs.velmax_extra(u_t, a)).clamp(min=1e-10)),
-                mesh)
-            dt_cfl = cfg.cfl_target * cfl_scale * h / vel_max
-            if cfg.use_les:
-                dt = torch.minimum(dt_cfl, 0.125 * h * h / nu_stab)
-            else:
-                dt = dt_cfl.clamp(max=0.125 * h * h / cfg.nu)
-            dt = dt.clamp(cfg.dt_min, cfg.dt_max)
-        else:
-            dt = self.dt_base
+        return U, V, Wz, self.bcs.zghost_u(U), self.bcs.zghost_v(V), windows, NUT
+
+    def _stage(self, ts, u_t, v_t, w_t, a, inputs, p_warm, dt, extras):
+        """One projected Euler stage (``models/mac_stretched3d.py``'s) from
+        BC-consistent trimmed (u, v, w) and :meth:`_inputs`, the body at
+        ``ts``'s time: (u_new, v_new, w_new, a, p, body sums, div*)."""
+        cfg = self.cfg
+        mesh = self.mesh
+        nz = cfg.nz
+        ny_l, nx_l = self.local_shape
+        ro, co = self.idx.ro, self.idx.co
+        U, V, Wz, UZG, VZG, windows, NUT = inputs
+        if cfg.use_les:
+            u_win, v_win, w_win, ghosts = windows
 
         # --- the edge interpolants with the metric corner weights
         wy, wx, wcz = self.wy, self.wx, self.wcz
@@ -469,7 +451,16 @@ class Stretched3DExplicitStep(nn.Module):
         u_star = u_t + torch.where(co >= 1, dt * du, 0.0)
         v_star = v_t + torch.where(ro >= 1, dt * dv, 0.0)
         w_star = torch.cat([w_t[:1], w_t[1:] + dt * dw], 0)
-        u_star, v_star, w_star, a = set_normal(u_star, v_star, w_star)
+        if cfg.projection == "incremental":
+            # the lagged pressure gradient; the projection solves for the increment
+            PW = halo_exchange_edges(p_warm, mesh, 1)
+            u_star = u_star + torch.where(
+                co >= 1, -dt * (PW[:, 1:-1, 1:-1] - PW[:, 1:-1, :-2]) * dcx_f, 0.0)
+            v_star = v_star + torch.where(
+                ro >= 1, -dt * (PW[:, 1:-1, 1:-1] - PW[:, :-2, 1:-1]) * dcy_f, 0.0)
+            w_star = torch.cat(
+                [w_star[:1], w_star[1:] + -dt * (p_warm[1:] - p_warm[:-1]) * inv_dcz], 0)
+        u_star, v_star, w_star, a = self._set_normal(u_star, v_star, w_star, ts)
 
         # --- the bodies; the momentum sinks weighted by the control volumes
         cv = (self.cv_u, self.cv_v, self.cv_w)
@@ -492,7 +483,7 @@ class Stretched3DExplicitStep(nn.Module):
             sums += [(d * c).sum() for d, c in zip(d_mb, cv)]
 
         # --- the exact distributed 3D FDM projection
-        US, VS, WSz = pad(u_star, v_star, w_star, a, False)
+        US, VS, WSz = self._pad(u_star, v_star, w_star, a, False, ts)
         div_star = ((US[:, 1:-1, 2:] - US[:, 1:-1, 1:-1]) * hx_own
                     + (VS[:, 2:, 1:-1] - VS[:, 1:-1, 1:-1]) * hy_own
                     + (WSz[1:, 1:-1, 1:-1] - WSz[:-1, 1:-1, 1:-1]) * inv_hz)
@@ -503,16 +494,67 @@ class Stretched3DExplicitStep(nn.Module):
         v_new = v_star + torch.where(ro >= 1, -dt * (PH[:, 1:-1, 1:-1] - PH[:, :-2, 1:-1]) * dcy_f,
                                      0.0)
         w_new = torch.cat([w_star[:1], w_star[1:] + -dt * (phi[1:] - phi[:-1]) * inv_dcz], 0)
-        u_new, v_new, w_new, a = set_normal(u_new, v_new, w_new)
+        u_new, v_new, w_new, a = self._set_normal(u_new, v_new, w_new, ts)
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         w_new = w_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        p_out = p_warm + phi if cfg.projection == "incremental" else phi
+        return u_new, v_new, w_new, a, p_out, sums, div_star
 
+    def _restage(self, ts, fields, a, p_warm, dt, extras):
+        u, v, w, _, p, sums, div_star = self._stage(
+            ts, *fields, a, self._inputs(*fields, a, ts, extras), p_warm, dt, extras)
+        return (u, v, w), p, sums, div_star
+
+
+    def forward(self, ts: MAC3DState, cfl_scale, *extras):
+        cfg = self.cfg
+        mesh = self.mesh
+        bcs = self.bcs
+        nz = cfg.nz
+        ny_l, nx_l = self.local_shape
+        ro = self.idx.ro
+        h = self.h_min
+        if ts.u.device != self.device:
+            raise ValueError(f"step built for {self.device}, state on {ts.u.device}")
+        if len(extras) != (3 if self.use_ibm else 0):
+            raise ValueError(f"the step takes {3 if self.use_ibm else 0} extra blocks, got "
+                             f"{len(extras)}")
+        if not torch.is_tensor(cfl_scale):
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
+
+        u_t, v_t, w_t, a = self._set_normal(ts.u, ts.v, ts.w, ts)
+        inputs = self._inputs(u_t, v_t, w_t, a, ts, extras)
+        if cfg.use_les:
+            NUT = inputs[-1]
+            nu_stab = cfg.nu + psum(NUT[:, 2:2 + ny_l, 2:2 + nx_l].sum(), mesh) / self.n_global
+        if cfg.adaptive_dt:
+            vel_max = pmax(torch.maximum(
+                torch.maximum(u_t.abs().amax(), v_t.abs().amax()),
+                torch.maximum(w_t.abs().amax(), bcs.velmax_extra(u_t, a)).clamp(min=1e-10)),
+                mesh)
+            dt_cfl = cfg.cfl_target * cfl_scale * h / vel_max
+            if cfg.use_les:
+                dt = torch.minimum(dt_cfl, 0.125 * h * h / nu_stab)
+            else:
+                dt = dt_cfl.clamp(max=0.125 * h * h / cfg.nu)
+            dt = dt.clamp(cfg.dt_min, cfg.dt_max)
+        else:
+            dt = self.dt_base
+
+        u_new, v_new, w_new, a, phi, sums, div_star = self._stage(
+            ts, u_t, v_t, w_t, a, inputs, ts.p, dt, extras)
+        if cfg.time_scheme == "rk2":  # ν_t refreshed from the first stage
+            (u_new, v_new, w_new), a, phi, sums, div_star = self._heun(
+                ts, dt, (u_t, v_t, w_t), ((u_new, v_new, w_new), phi, sums), extras)
+
+        dcy_f, hx_own, hy_own = self.dcy_f, self.hx_own, self.hy_own
+        inv_hz, inv_dcz = self.inv_hz, self.inv_dcz
         new_ts = MAC3DState(u=u_new, v=v_new, w=w_new, p=phi, t=ts.t + dt, step=ts.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_ts, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero, zero)
-        UN, VN, WNz = pad(u_new, v_new, w_new, a, False)
+        UN, VN, WNz = self._pad(u_new, v_new, w_new, a, False, ts)
         div_post = ((UN[:, 1:-1, 2:] - UN[:, 1:-1, 1:-1]) * hx_own
                     + (VN[:, 2:, 1:-1] - VN[:, 1:-1, 1:-1]) * hy_own
                     + (WNz[1:, 1:-1, 1:-1] - WNz[:-1, 1:-1, 1:-1]) * inv_hz)

@@ -8,7 +8,9 @@ the whole-grid vector at clamped global indices, built once on the host
 when the step is built (the JAX package's ``_lut`` slices, which work
 around a gather miscompile of its backend, are plain index reads here).
 The projection is the distributed fast diagonalization
-(``transforms.make_fdm_poisson_local``), exact across the mesh.
+(``transforms.make_fdm_poisson_local``), exact across the mesh; rk2 (Heun,
+one projection per stage, the second at t + dt) and the incremental
+projection (p = p_warm + φ) follow ``models/mac_stretched.py``.
 
 A moving body is forced as in ``mac_explicit.py`` with the stretched
 tier's taper and probe distance (the smallest spacing, 1.5 times it); its
@@ -22,7 +24,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from cfdsim_tpu_torch.ibm import ibm_ramp
 from cfdsim_tpu_torch.models.incompressible import StepMetrics
@@ -30,9 +31,10 @@ from cfdsim_tpu_torch.models.mac import MACState
 from cfdsim_tpu_torch.models.mac_stretched import StretchedMACConfig, _metrics
 from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
-from cfdsim_tpu_torch.parallel.halo import global_indices, halo_exchange
+from cfdsim_tpu_torch.parallel.halo import global_indices, halo_exchange_edges
 from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import MovingBodyLocal, clamped_line
 from cfdsim_tpu_torch.parallel.mac_explicit import (
+    MAC2DBlockStep,
     MACLocalBCs,
     cavity_mac_local_bcs,
     external_flow_mac_local_bcs,
@@ -42,7 +44,7 @@ from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 from cfdsim_tpu_torch.parallel.transforms import make_fdm_poisson_local
 
 
-class StretchedMACExplicitStep(nn.Module):
+class StretchedMACExplicitStep(MAC2DBlockStep):
     """``step(tstate, cfl_scale[, mask_u_t, mask_v_t]) -> (tstate,
     StepMetrics)`` on this rank's trimmed blocks; see
     :func:`make_stretched_mac_explicit_step`."""
@@ -51,10 +53,10 @@ class StretchedMACExplicitStep(nn.Module):
                  y_faces, use_ibm: bool = False, ibm_ramp_steps: int = 0, moving_body=None,
                  moving_scheme: str = "penalize", moving_ghost_halo: int = 5, *, device=None):
         super().__init__()
-        if cfg.time_scheme != "euler":
-            raise ValueError("the explicit sharded stretched step implements time_scheme='euler'")
-        if cfg.projection != "chorin":
-            raise ValueError("the explicit sharded step implements projection='chorin'")
+        if cfg.time_scheme not in ("euler", "rk2"):
+            raise ValueError(f"unknown time scheme {cfg.time_scheme!r}")
+        if cfg.projection not in ("chorin", "incremental"):
+            raise ValueError(f"unknown projection {cfg.projection!r}")
         if cfg.scheme not in ("central", "upwind", "tvd"):
             raise ValueError(f"unknown scheme {cfg.scheme!r}")
         if moving_scheme not in ("penalize", "ghost"):
@@ -141,47 +143,17 @@ class StretchedMACExplicitStep(nn.Module):
                 1.5 * self.h_min, int(moving_ghost_halo), mesh, self.local_shape,
                 device=self.device)
 
-    def forward(self, tstate: MACState, cfl_scale, *extras):
+    def _stage(self, ts, u_t, v_t, a, U, V, p_warm, dt, extras):
+        """One projected Euler stage (``models/mac_stretched.py``'s
+        ``_stage``) from BC-consistent trimmed (u, v) and their width-2
+        padding (U, V), the BCs and the body at ``ts``'s time: (u_new,
+        v_new, a, p, body sums, div*)."""
         cfg = self.cfg
         mesh = self.mesh
-        bcs = self.bcs
         ny, nx = cfg.ny, cfg.nx
         ny_l, nx_l = self.local_shape
-        if tstate.u.device != self.device:
-            raise ValueError(f"step built for {self.device}, state on {tstate.u.device}")
-        if len(extras) != (2 if self.use_ibm else 0):
-            raise ValueError(f"the step takes {2 if self.use_ibm else 0} extra blocks, got "
-                             f"{len(extras)}")
-        if not torch.is_tensor(cfl_scale):
-            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
         gr0, gc0 = self.gr0, self.gc0
-
-        def set_normal(u_t, v_t):
-            u_t, v_t = bcs.pre(u_t, v_t, gc0, gr0, tstate)
-            return u_t, v_t, bcs.aux(u_t, v_t, gc0, gr0, tstate)
-
-        def pad(u_t, v_t, a, w: int):
-            U, V = halo_exchange(torch.stack([u_t, v_t]), mesh, w).unbind(0)
-            gr, gc = getattr(self, f"gr{w}"), getattr(self, f"gc{w}")
-            return bcs.post_u(U, gr, gc, tstate, a), bcs.post_v(V, gr, gc, tstate, a), (gr, gc)
-
-        u_t, v_t, a = set_normal(tstate.u, tstate.v)
-        U, V, (grP, gcP) = pad(u_t, v_t, a, 2)
-
-        # --- adaptive dt (mac_stretched._adaptive_dt)
-        h = self.h_min
-        if cfg.adaptive_dt:
-            real_u = (grP >= 0) & (grP < ny) & (gcP >= 0) & (gcP <= nx)
-            real_v = (grP >= 0) & (grP <= ny) & (gcP >= 0) & (gcP < nx)
-            vel_max = pmax(torch.maximum(torch.where(real_u, U.abs(), 0.0).amax(),
-                                         torch.where(real_v, V.abs(), 0.0).amax()),
-                           mesh).clamp(min=1e-10)
-            dt = cfg.cfl_target * cfl_scale * h / vel_max
-            dt = dt.clamp(max=0.2 * h * h / cfg.nu).clamp(cfg.dt_min, cfg.dt_max)
-            if cfg.warmup_steps > 0:
-                dt = torch.where(tstate.step < cfg.warmup_steps, self.warmup_dt, dt)
-        else:
-            dt = self.dt_base
+        grP, gcP = self.gr2, self.gc2
 
         # --- advecting velocities with the metric corner weights
         UC = 0.5 * (U[:, :-1] + U[:, 1:])
@@ -242,13 +214,20 @@ class StretchedMACExplicitStep(nn.Module):
 
         u_star = u_t + torch.where(gc0 >= 1, dt * (cfg.nu * lap_u - conv_u), 0.0)
         v_star = v_t + torch.where(gr0 >= 1, dt * (cfg.nu * lap_v - conv_v), 0.0)
-        u_star, v_star, a = set_normal(u_star, v_star)
+        if cfg.projection == "incremental":
+            # the lagged pressure gradient; the projection solves for the increment
+            PW = halo_exchange_edges(p_warm, mesh, 1)
+            u_star = u_star + torch.where(
+                gc0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[1:-1, :-2]) * dcx_f, 0.0)
+            v_star = v_star + torch.where(
+                gr0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[:-2, 1:-1]) * dcy_f, 0.0)
+        u_star, v_star, a = self._set_normal(u_star, v_star, ts)
 
         # --- the bodies; their momentum sinks weighted by the face control volumes
         sums = []
         if self.use_ibm:
             mask_u_t, mask_v_t = extras
-            strength = ibm_ramp(tstate.step, self.ibm_ramp_steps)
+            strength = ibm_ramp(ts.step, self.ibm_ramp_steps)
             du_ibm = u_star * (strength * mask_u_t)
             dv_ibm = v_star * (strength * mask_v_t)
             u_star = u_star - du_ibm
@@ -256,29 +235,75 @@ class StretchedMACExplicitStep(nn.Module):
             sums += [(du_ibm * self.area_u).sum(), (dv_ibm * self.area_v).sum()]
         if self.moving is not None:
             (u_star, v_star), (du_mb, dv_mb) = self.moving(
-                (u_star, v_star), tstate.t, ibm_ramp(tstate.step, self.ibm_ramp_steps))
+                (u_star, v_star), ts.t, ibm_ramp(ts.step, self.ibm_ramp_steps))
             sums += [(du_mb * self.area_u).sum(), (dv_mb * self.area_v).sum()]
 
         # --- the exact distributed FDM projection
-        US, VS, _ = pad(u_star, v_star, a, 1)
+        US, VS, _ = self._pad(u_star, v_star, a, 1, ts)
         div_star = (US[1:-1, 2:] - US[1:-1, 1:-1]) * hx_own + (
             VS[2:, 1:-1] - VS[1:-1, 1:-1]) * hy_own
         phi = self.solve_p(div_star / dt)
-        PH = halo_exchange(phi, mesh, 1)
+        PH = halo_exchange_edges(phi, mesh, 1)  # read by 5-point stencils only
         u_new = u_star - torch.where(gc0 >= 1, dt * (PH[1:-1, 1:-1] - PH[1:-1, :-2]) * dcx_f,
                                      0.0)
         v_new = v_star - torch.where(gr0 >= 1, dt * (PH[1:-1, 1:-1] - PH[:-2, 1:-1]) * dcy_f,
                                      0.0)
-        u_new, v_new, a = set_normal(u_new, v_new)
+        u_new, v_new, a = self._set_normal(u_new, v_new, ts)
         u_new = u_new.clamp(-cfg.max_velocity, cfg.max_velocity)
         v_new = v_new.clamp(-cfg.max_velocity, cfg.max_velocity)
+        p_out = p_warm + phi if cfg.projection == "incremental" else phi
+        return u_new, v_new, a, p_out, sums, div_star
+
+    def _restage(self, ts, fields, a, p_warm, dt, extras):
+        U, V, _ = self._pad(*fields, a, 2, ts)
+        u, v, _, p, sums, div_star = self._stage(ts, *fields, a, U, V, p_warm, dt, extras)
+        return (u, v), p, sums, div_star
+
+
+    def forward(self, tstate: MACState, cfl_scale, *extras):
+        cfg = self.cfg
+        mesh = self.mesh
+        ny, nx = cfg.ny, cfg.nx
+        if tstate.u.device != self.device:
+            raise ValueError(f"step built for {self.device}, state on {tstate.u.device}")
+        if len(extras) != (2 if self.use_ibm else 0):
+            raise ValueError(f"the step takes {2 if self.use_ibm else 0} extra blocks, got "
+                             f"{len(extras)}")
+        if not torch.is_tensor(cfl_scale):
+            cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=self.device)
+        gr0, gc0 = self.gr0, self.gc0
+        dcx_f, dcy_f, hx_own, hy_own = self.dcx_f, self.dcy_f, self.hx_own, self.hy_own
+
+        u_t, v_t, a = self._set_normal(tstate.u, tstate.v, tstate)
+        U, V, (grP, gcP) = self._pad(u_t, v_t, a, 2, tstate)
+
+        # --- adaptive dt (mac_stretched._adaptive_dt)
+        h = self.h_min
+        if cfg.adaptive_dt:
+            real_u = (grP >= 0) & (grP < ny) & (gcP >= 0) & (gcP <= nx)
+            real_v = (grP >= 0) & (grP <= ny) & (gcP >= 0) & (gcP < nx)
+            vel_max = pmax(torch.maximum(torch.where(real_u, U.abs(), 0.0).amax(),
+                                         torch.where(real_v, V.abs(), 0.0).amax()),
+                           mesh).clamp(min=1e-10)
+            dt = cfg.cfl_target * cfl_scale * h / vel_max
+            dt = dt.clamp(max=0.2 * h * h / cfg.nu).clamp(cfg.dt_min, cfg.dt_max)
+            if cfg.warmup_steps > 0:
+                dt = torch.where(tstate.step < cfg.warmup_steps, self.warmup_dt, dt)
+        else:
+            dt = self.dt_base
+
+        u_new, v_new, a, phi, sums, div_star = self._stage(tstate, u_t, v_t, a, U, V, tstate.p,
+                                                           dt, extras)
+        if cfg.time_scheme == "rk2":
+            (u_new, v_new), a, phi, sums, div_star = self._heun(
+                tstate, dt, (u_t, v_t), ((u_new, v_new), phi, sums), extras)
 
         new_tstate = MACState(u=u_new, v=v_new, p=phi, t=tstate.t + dt, step=tstate.step + 1)
         zero = self.zero
         if not cfg.compute_metrics:
             return new_tstate, StepMetrics(dt, zero, zero, zero, zero, zero, zero, zero, zero,
                                            zero)
-        UN, VN, (grn, gcn) = pad(u_new, v_new, a, 1)
+        UN, VN, (grn, gcn) = self._pad(u_new, v_new, a, 1, tstate)
         div_post = (UN[1:-1, 2:] - UN[1:-1, 1:-1]) * hx_own + (
             VN[2:, 1:-1] - VN[1:-1, 1:-1]) * hy_own
         ucc = 0.5 * (UN[1:-1, 1:-1] + UN[1:-1, 2:])

@@ -14,8 +14,9 @@ its default options:
 single-device step            explicit step (this rank's blocks)
 ============================  ===========================================
 ``IncompressibleStep``        ``explicit.py``: the lid cavity, the channel,
-                              the IBM cylinder (rbsor, or the pencil DCT
-                              without ``masked_poisson``)
+                              the IBM cylinder (every pressure solve,
+                              ``poisson2d_explicit.py``; the fused
+                              predictor)
 ``CoupledStep``               ``transport_explicit.py`` (the cavity, θ)
 ``MACStep``                   ``mac_explicit.py``: the cavity, the
                               penalized cylinder, the moving body
@@ -44,19 +45,22 @@ whole-grid ghost tables, the compressible cases' ghost map, the FEM lift)
 is the ``explicit_spec`` the case builders of ``cases.py`` leave on the
 module; where the explicit step takes extra blocks (IBM masks, the y
 rows, a solid mask), the returned step holds this rank's blocks of them,
-cut once when it is built (:class:`BoundStep`). A step built without an
-``explicit_spec``, of any other type, or with an option its explicit step
-does not implement (``time_scheme="rk2"``, ``projection="incremental"``,
-MAC ``diffusion="implicit"``, the 2D static ghost-cell cylinder, a 3D
-inlet modulation) raises ``ValueError``: nothing runs the single-device
-step on every rank.
+cut once when it is built (:class:`BoundStep`). Every pressure solve of the
+single-device steps and the MAC tiers' ``time_scheme="rk2"`` and
+``projection="incremental"`` pass through to the explicit steps. A step
+built without an ``explicit_spec``, of any other type, or with an option
+its explicit step does not implement (MAC ``diffusion="implicit"``, the 2D
+static ghost-cell cylinder, a 3D inlet modulation, the heated cube's
+upwind/TVD flow, the heated spheres' TVD θ) raises ``ValueError``: nothing
+runs the single-device step on every rank.
 
 Distributed red-black SOR: each full sweep runs two halo exchanges, one per
 colour, so the black half reads the freshly updated red values of the
 neighbouring blocks: the Gauss–Seidel ordering of the single-device sweep,
 with the colours taken from the *global* checkerboard and the Neumann
-ghosts from clamped global edges. Plain torch: the RB-SOR kernels of
-``ops/kernels`` solve one whole grid and are not on this path.
+ghosts from clamped global edges. Plain torch; the unmasked Neumann sweeps
+of ``rbsor_pallas`` and the multigrid smoother run kernel B on windows of
+the blocks instead (``poisson2d_explicit.py``).
 """
 
 from __future__ import annotations

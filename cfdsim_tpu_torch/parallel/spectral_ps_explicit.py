@@ -49,13 +49,7 @@ from cfdsim_tpu_torch.models.spectral_ps import (
 )
 from cfdsim_tpu_torch.parallel.explicit import step_device
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, block_slices
-from cfdsim_tpu_torch.parallel.transforms import (
-    _check_pencil,
-    from_x_pencil,
-    from_y_pencil,
-    to_x_pencil,
-    to_y_pencil,
-)
+from cfdsim_tpu_torch.parallel.transforms import _check_pencil, fft2_pencil
 
 
 def full_spectrum_state(cfg: PseudoSpectralConfig, state: PSState) -> PSState:
@@ -75,23 +69,6 @@ def half_spectrum_state(cfg: PseudoSpectralConfig, state: PSState) -> PSState:
 def _with_spectrum(state: PSState, wc: np.ndarray) -> PSState:
     w_hat = torch.from_numpy(wc.astype(np.complex64)).to(state.w_hat.device)
     return PSState(w_hat=w_hat, t=state.t, step=state.step)
-
-
-def _a2a_complex(pencil_fn, z, mesh: GridMesh):
-    """One pencil all-to-all of a complex64 block, moved as its float32
-    (re, im) pairs."""
-    return torch.view_as_complex(pencil_fn(torch.view_as_real(z), mesh).contiguous())
-
-
-def fft2_pencil(z, mesh: GridMesh, inverse: bool = False):
-    """The distributed complex FFT2 (``torch.fft.fft2``, or ``ifft2`` with
-    its 1/N) of the global array, in block layout: x on full-x rows, then y
-    on full-y columns."""
-    fft = torch.fft.ifft if inverse else torch.fft.fft
-    z = _a2a_complex(to_x_pencil, z, mesh)
-    z = _a2a_complex(from_x_pencil, fft(z, dim=1), mesh)
-    z = _a2a_complex(to_y_pencil, z, mesh)
-    return _a2a_complex(from_y_pencil, fft(z, dim=0), mesh)
 
 
 def block_tables(cfg: PseudoSpectralConfig, mesh: GridMesh) -> dict:

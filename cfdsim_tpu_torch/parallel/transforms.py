@@ -18,7 +18,9 @@ through ``torch.distributed.nn.functional``, so gradients flow through it.
   stretched grids' fast diagonalization of ``solvers/fdm.py`` (float32
   products with TF32 off, in its order, on its float64 1/λ);
 - :func:`dst_helmholtz_local`: the Dirichlet implicit-viscous Helmholtz
-  solve of ``solvers/helmholtz.py``.
+  solve of ``solvers/helmholtz.py``;
+- :func:`fft2_pencil`: the complex FFT2 of the full spectrum in block
+  layout (the pseudo-spectral, stable-fluids and periodic Poisson solves).
 
 The 1D transforms are the single-device solvers' own (``_dct_fwd``,
 ``_dct_inv``, ``dst1``), cuFFT through ``torch.fft`` on the card. Layout:
@@ -90,6 +92,23 @@ def to_y_pencil(block, mesh: GridMesh):
 
 def from_y_pencil(pencil, mesh: GridMesh):
     return _a2a(pencil, mesh, "y", 0, 1)
+
+
+def _a2a_complex(pencil_fn, z, mesh: GridMesh):
+    """One pencil all-to-all of a complex64 block, moved as its float32
+    (re, im) pairs."""
+    return torch.view_as_complex(pencil_fn(torch.view_as_real(z), mesh).contiguous())
+
+
+def fft2_pencil(z, mesh: GridMesh, inverse: bool = False):
+    """The distributed complex FFT2 (``torch.fft.fft2``, or ``ifft2`` with
+    its 1/N) of the global array, in block layout: x on full-x rows, then y
+    on full-y columns."""
+    fft = torch.fft.ifft if inverse else torch.fft.fft
+    z = _a2a_complex(to_x_pencil, z, mesh)
+    z = _a2a_complex(from_x_pencil, fft(z, dim=1), mesh)
+    z = _a2a_complex(to_y_pencil, z, mesh)
+    return _a2a_complex(from_y_pencil, fft(z, dim=0), mesh)
 
 
 def dct2_local(block, mesh: GridMesh):

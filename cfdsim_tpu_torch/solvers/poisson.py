@@ -188,11 +188,12 @@ def _sweep(phi, rhs, dx: float, dy: float, colors, omega: float, bc: str):
     return phi
 
 
-def _iterate(sweep_fn, phi, rhs, cfg: PoissonConfig, dx, dy, solid_mask):
+def _iterate(sweep_fn, phi, rhs, cfg: PoissonConfig, dx, dy, solid_mask, chunks_run=None):
     """Run sweeps for a fixed budget, or until tol with periodic checks.
     The check reads the residual on the host (one synchronisation per
     ``check_every`` sweeps); the number of chunks run equals the JAX
-    package's while_loop."""
+    package's while_loop, and is added to ``chunks_run`` (a 0-dim int32
+    tensor, or None)."""
     if cfg.tol <= 0.0:
         for _ in range(cfg.iters):
             phi = sweep_fn(phi)
@@ -201,6 +202,8 @@ def _iterate(sweep_fn, phi, rhs, cfg: PoissonConfig, dx, dy, solid_mask):
     for _ in range(max(1, cfg.iters // check)):
         for _ in range(check):
             phi = sweep_fn(phi)
+        if chunks_run is not None:
+            chunks_run += 1
         if not bool(poisson_residual(phi, rhs, dx, dy, solid_mask, cfg.bc) > cfg.tol):
             break
     return phi
@@ -729,8 +732,8 @@ class PoissonSolver(nn.Module):
     solid mask. Its tables (colour masks, multigrid level masks, the DCT
     1/λ table and twiddles, the periodic symbol, the float solid mask the
     kernels read) are buffers built once on ``device``. ``chunks_run``
-    counts, on the device, the early-exit chunks that
-    ``method="rbsor_pallas"`` with ``tol > 0`` ran. ``reads_host`` says
+    counts, on the device, the early-exit chunks that a solve with
+    ``tol > 0`` ran (``rbsor_pallas``, ``jacobi``, ``rbsor``). ``reads_host`` says
     whether a solve waits for the host: only the streaming
     ``jacobi``/``rbsor`` early exit (``tol > 0``) does, once per
     ``check_every`` sweeps, so a step through it cannot be captured into a
@@ -860,7 +863,7 @@ class PoissonSolver(nn.Module):
         def sweep(p):
             return _sweep(p, rhs, dx, dy, colours, omega, cfg.bc)
 
-        return _iterate(sweep, phi0, rhs, cfg, dx, dy, self.solid)
+        return _iterate(sweep, phi0, rhs, cfg, dx, dy, self.solid, self.chunks_run)
 
 
 def solve_poisson(phi0, rhs, dx: float, dy: float, cfg: PoissonConfig = PoissonConfig(),

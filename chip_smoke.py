@@ -16,8 +16,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    (4096, 4096) and (4, 8); 8-byte at (1000, 1030); 4-byte at (37, 129),
    (3, 3), (4, 5) and at (48, 64) on a base pointer that is only 4-byte
    aligned, a slice of a longer buffer); max |Δ| ≤ 1e-6 and the boundary
-   frame bit-equal to the input; each line names its route. Then the
-   RB-SOR kernels:
+   frame bit-equal to the input; each line names its route; then on a
+   rank's window (a 1024² field's 514×513 block at an odd origin, and a
+   513×1024 edge window) within 1e-6 of its twin, the cropped block
+   beside the whole field's output. Then the RB-SOR kernels:
    kernel A (Neumann, Dirichlet, masked; 30 sweeps) on every route of its
    plan: a cluster of 1 at (32, 48), the problem of
    tests/test_pallas.py:12-28, of 2 at (37, 129), of 8 at (128, 256), of
@@ -29,8 +31,13 @@ and the final ``{"ok": true, ...}`` line is not printed:
    and (1024, 1024) with a tail pass, cp.async at (1000, 1030) and (65,
    33); the early exit on each route (48², and a tol reached after 3
    chunks at 180×600 and 360×1200, and at 180×600 with a residual check
-   after every sweep: the same chunk count as the plain version). Each
-   line names its route. Band 1e-6 for A and
+   after every sweep: the same chunk count as the plain version); kernel
+   B on rank windows (``parallel/poisson2d_explicit.py``): K sweeps of a
+   sub-array at an odd global origin with ``parity0`` = 1, bit for bit
+   against its twin, on the TMA (520×600, K = 2) and cp.async (515×601,
+   K = 3) routes, and a 1022² field cut 2×2 (511-cell blocks, windows of
+   parity 0 and 1), swept in windows with a 2K halo and stitched, bit for
+   bit against the kernel on the whole field. Each line names its route. Band 1e-6 for A and
    5e-6 for B (the bands of tests/test_pallas.py) at every size: the
    kernels spell out every rounding, so they are expected to give the
    plain versions' bits, and each line says whether they do
@@ -254,7 +261,20 @@ and the final ``{"ok": true, ...}`` line is not printed:
    p's largest |Δ| printed beside max|p|; the bf16 collocated cavity at
    1024² (one step from a seeded field) within one bf16 ulp, beyond the
    float32 band (rtol 1e-4, atol 1e-5), of the single-device bf16 step
-   (the share of cells beyond one ulp printed); no kernel launched; and the autotuner check:
+   (the share of cells beyond one ulp printed); no kernel launched; then
+   the options the entry point passes through to the explicit steps
+   (``SHARDED_OPTIONS``, 2 steps each at full width: the 1024² cavity with
+   ``mg:2``, ``rbsor_pallas`` and the fused predictor, the 600×180
+   reference-parity cylinder with its streaming ``rbsor`` and with the
+   masked ``rbsor_pallas`` (kernel A on the gathered grid, the early exit
+   on the device), the 1024² heated cavity with ``mg:2``, the 1024² MAC
+   cavity with rk2 and with the incremental projection, the 256³
+   ``cavity3d_mac`` with ``mg``), in the same band, bit equality printed,
+   each kernel's launches counted around the sharded and the single-device
+   runs: kernel B (and the multigrid's replicated 4² level, kernel A),
+   kernel A on the masked cylinder and the predictor on the sharded paths
+   that name them, no other kernel, and
+   as many RB-SOR and predictor launches as the single-device step; and the autotuner check:
    ``python -m cfdsim_tpu_torch.examples.dct_live_programs --matrix check``
    in a child process (seven live captured DCT programs at 2048² with a
    4-plan cache; every replay within 1e-4 of the eager solve)
@@ -448,6 +468,11 @@ PREDICTOR_CASES = [((48, 64), 0), ((1024, 1024), 0), ((1000, 1030), 0), ((37, 12
                    ((4096, 4096), 0), ((3, 3), 0), ((4, 5), 0), ((4, 8), 0), ((48, 64), 1)]
 RBSOR_A_ATOL = 1e-6  # tests/test_pallas.py:28
 RBSOR_B_ATOL = 5e-6  # tests/test_pallas.py:69-70
+# kernel B on rank windows: (global origin, window, K); both origins are
+# odd (parity0 = 1); 600 columns take the TMA route, 601 cp.async
+B_WINDOWS = [((3, 6), (520, 600), 2), ((5, 2), (515, 601), 3)]
+# the predictor on a rank's window: (origin, window) of a 1024² field
+PREDICTOR_WINDOWS = [((255, 511), (514, 513)), ((0, 0), (513, 1024))]
 # kernel A's grids, one route or more each on the H100 (max cluster 16):
 # (32, 48) the problem of tests/test_pallas.py:12-28, a cluster of 1;
 # (37, 129) 2; (128, 256) 8; the cylinder's (180, 600) and, at 40 sweeps,
@@ -658,6 +683,28 @@ SHARDED_CASE_STEPS, SHARDED_CASE_RTOL, SHARDED_CASE_ATOL = 2, 1e-4, 1e-5
 # (where |u| is small, one bf16 ulp is below the float32 fields' rounding
 # differences, ~1e-7 at 1024², which can cross a bf16 rounding boundary)
 SHARDED_BF16_N, SHARDED_BF16_STEPS = 1024, 1
+# the options make_sharded_step passes through since the explicit steps
+# took every pressure solve and MAC time scheme (phase 5v), at full width:
+# (label, case, builder arguments, the kernels the sharded step launches;
+# the multigrid's replicated 4² level runs the single-device smoother,
+# kernel A's cluster route)
+SHARDED_OPTIONS = [
+    ("cavity_1024_mg", "cavity", dict(n=1024, Re=1000.0, poisson="mg:2"),
+     ("rbsor_b", "rbsor_a")),
+    ("cavity_1024_rbsor_pallas", "cavity", dict(n=1024, Re=1000.0, poisson="rbsor_pallas"),
+     ("rbsor_b",)),
+    ("cavity_1024_fused", "cavity", dict(n=1024, Re=1000.0, fused_predictor=True),
+     ("predictor",)),
+    ("cylinder_ref_parity", "cylinder", dict(ref_parity=True), ()),
+    ("cylinder_ref_parity_rbsor_pallas", "cylinder",
+     dict(ref_parity=True, poisson=CYLINDER_KERNEL_POISSON), ("rbsor_a",)),
+    ("heated_cavity_1024_mg", "heated_cavity", dict(n=1024, Ra=1e4, poisson="mg:2"),
+     ("rbsor_b", "rbsor_a")),
+    ("cavity_mac_1024_rk2", "cavity_mac", dict(n=1024, Re=1000.0, time_scheme="rk2"), ()),
+    ("cavity_mac_1024_incremental", "cavity_mac",
+     dict(n=1024, Re=1000.0, projection="incremental"), ()),
+    ("cavity3d_mac_256_mg", "cavity3d_mac", dict(n=256, poisson="mg"), ()),
+]
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12
@@ -710,6 +757,27 @@ def phase_kernel_vs_plain():
         worst = max(worst, err)
     if widths != {1, 2, 4}:
         raise AssertionError(f"the predictor ran vector widths {sorted(widths)}, not 1, 2 and 4")
+    # a rank's window (its block padded by one line, parallel/explicit.py):
+    # against the twin on the window, and its cropped block against the
+    # whole field's kernel output
+    rng = np.random.default_rng(17)
+    u, v = (_cuda(rng.standard_normal((1024, 1024)).astype(np.float32)) for _ in range(2))
+    dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    whole = pred.fused_predictor_central(u, v, dt, 0.01, 0.02, 0.03)
+    for (y0, x0), (wy, wx) in PREDICTOR_WINDOWS:
+        wu, wv = (q[y0:y0 + wy, x0:x0 + wx].contiguous() for q in (u, v))
+        got = pred.fused_predictor_central(wu, wv, dt, 0.01, 0.02, 0.03)
+        ref = pred.fused_predictor_central_ref(wu, wv, dt, 0.01, 0.02, 0.03)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        block = all(torch.equal(g[1:-1, 1:-1], w[y0 + 1:y0 + wy - 1, x0 + 1:x0 + wx - 1])
+                    for g, w in zip(got, whole))
+        say("predictor_window_vs_plain", window_origin=[y0, x0], window=[wy, wx],
+            route=pred.plan_predictor((wy, wx), pred.pointer_alignment(wu, wv)).route,
+            max_abs_err=err, atol=KERNEL_ATOL, block_bit_equal_to_whole_field=block)
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"fused predictor on a {wy}×{wx} window: {err}")
+        worst = max(worst, err)
     return worst
 
 
@@ -794,6 +862,7 @@ def phase_rbsor_vs_plain():
     if routes_b != set(rb.B_ROUTES):
         raise AssertionError(f"kernel B took the routes {sorted(routes_b)}, not all of "
                              f"{sorted(rb.B_ROUTES)}")
+    worst_b = max(worst_b, _window_checks())
     # the early exit, one solve per route: a tol the 48² problem reaches,
     # then on the cylinder's grid (a cluster of 16) and at twice its
     # resolution (cooperative) the residual the plain version has after 3
@@ -825,6 +894,53 @@ def phase_rbsor_vs_plain():
         if chunks[0] != chunks[1] or not chunks[0] < 4000 // check:
             raise AssertionError(f"early exit at {shape} ran {chunks} chunks (kernel, plain)")
     return worst_a, worst_b
+
+
+def _window_checks():
+    """Kernel B on rank windows (``parallel/poisson2d_explicit.py``): K
+    sweeps of a sub-array whose global origin is odd (``parity0`` = 1),
+    bit for bit against its plain twin with the same offset, on both load
+    routes; then a 1022² field cut 2×2 (511-cell blocks, so two windows
+    start at odd origins), each block padded by 2K lines on the sides
+    facing another, K sweeps a pass, cropped and stitched, bit for bit
+    against the kernel's sweeps of the whole field."""
+    worst = 0.0
+    rs = np.random.RandomState(3)
+    phi, rhs = (_cuda(rs.randn(1024, 1024).astype(np.float32)) for _ in range(2))
+    for (y0, x0), (wy, wx), k in B_WINDOWS:
+        win, rwin = (q[y0:y0 + wy, x0:x0 + wx].contiguous() for q in (phi, rhs))
+        parity0 = (y0 + x0) & 1
+        got = rb.rbsor_blocked(win, rwin, 0.02, 0.03, k, 1.7, None, k, parity0)
+        want = rb.rbsor_blocked_ref(win, rwin, 0.02, 0.03, k, 1.7, None, k, parity0)
+        worst = max(worst, _check("rbsor_b_window_vs_plain", got, want, RBSOR_B_ATOL,
+                                  window_origin=[y0, x0], window=[wy, wx], sweeps=k,
+                                  parity0=parity0, route=rb.plan_blocked((wy, wx), k).route))
+        if parity0 != 1 or not torch.equal(got, want):
+            raise AssertionError(f"windowed kernel B at {(y0, x0)}: not bit-equal to its twin")
+    n, k, iters = 1022, 2, 6
+    phi, rhs = phi[:n, :n].contiguous(), rhs[:n, :n].contiguous()
+    want = rb.rbsor_blocked(phi, rhs, 0.02, 0.03, iters, 1.7, None, k)
+    b = n // 2
+    parities = set()
+    for _ in range(iters // k):
+        out = torch.empty_like(phi)
+        for iy in range(2):
+            for ix in range(2):
+                y0, x0 = iy * b - (2 * k if iy else 0), ix * b - (2 * k if ix else 0)
+                y1, x1 = y0 + b + 2 * k, x0 + b + 2 * k
+                parities.add((y0 + x0) & 1)
+                got = rb.rbsor_blocked(phi[y0:y1, x0:x1].contiguous(),
+                                       rhs[y0:y1, x0:x1].contiguous(), 0.02, 0.03, k, 1.7, None,
+                                       k, (y0 + x0) & 1)
+                oy, ox = iy * b - y0, ix * b - x0
+                out[iy * b:(iy + 1) * b, ix * b:(ix + 1) * b] = got[oy:oy + b, ox:ox + b]
+        phi = out
+    worst = max(worst, _check("rbsor_b_windows_stitched_vs_whole", phi, want, RBSOR_B_ATOL,
+                              shape=[n, n], split=[2, 2], sweeps_per_pass=k, sweeps=iters,
+                              parities=sorted(parities)))
+    if parities != {0, 1} or not torch.equal(phi, want):
+        raise AssertionError("kernel B's stitched windows differ from its whole-field sweeps")
+    return worst
 
 
 def _reset_counts():
@@ -2728,6 +2844,7 @@ def phase_sharded_tiers(card, mesh):
     launches = _counts()
     if any(launches.values()):
         raise AssertionError(f"a kernel ran on the sharded tiers: {launches}")
+    option_launches = _sharded_options(card, mesh)
 
     # the autotuner's crash: seven live captured DCT programs, the plan cache
     # evicting, each replay against the eager solve (a crash ends the child)
@@ -2740,6 +2857,59 @@ def phase_sharded_tiers(card, mesh):
         seconds=time.perf_counter() - t0, stderr_tail=proc.stderr.splitlines()[-5:], card=card)
     if proc.returncode != 0:
         raise AssertionError(f"live DCT programs at 2048²: rc {proc.returncode}")
+    return option_launches
+
+
+def _sharded_options(card, mesh):
+    """The options that pass through ``make_sharded_step`` since the
+    explicit steps took every pressure solve and MAC time scheme
+    (``SHARDED_OPTIONS``), at full width, 2 steps each from the case's
+    state on the world-size-1 group, against the single-device step: u, v,
+    w, θ (trimmed) in the JAX GSPMD band, whether they are bit-equal, p's
+    largest |Δ| beside max|p|; each kernel's launches on both sides, counted
+    from 0 around each run: the kernels ``SHARDED_OPTIONS`` names launched
+    on the sharded step and no other, and as many RB-SOR launches (A + B)
+    and predictor launches as on the single-device step. Returns each
+    sharded path's launches."""
+    from cfdsim_tpu_torch.parallel.mesh import gather_state
+    from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
+
+    out = {}
+    for label, name, kw, kernels in SHARDED_OPTIONS:
+        case = build(name, device="cuda", **kw)
+        step = make_sharded_step(case.step, mesh)
+        _reset_counts()
+        d, _, d_ms = _timed_steps(step, shard_state(case.state, mesh), SHARDED_CASE_STEPS)
+        dist_launches = _counts()
+        _reset_counts()
+        r, _, r_ms = _timed_steps(case.step, case.state, SHARDED_CASE_STEPS)
+        single_launches = _counts()
+        got = dict(named_leaves(gather_state(d, mesh)))
+        want = dict(named_leaves(shard_state(r, mesh)))
+        facts = dict(steps=SHARDED_CASE_STEPS, card=card, ms_per_step=d_ms,
+                     single_device_ms_per_step=r_ms, launches=dist_launches,
+                     single_device_launches=single_launches)
+        for f, w in want.items():
+            if w.ndim < 2:
+                continue
+            if f.split(".")[-1] == "p":
+                say(f"sharded_option_{label}_p", max_abs_err=float((got[f] - w).abs().max()),
+                    max_abs_p=float(w.abs().max()), bit_equal=bool(torch.equal(got[f], w)))
+                continue
+            _within(f"sharded_option_{label}_{f}", got[f], w, SHARDED_CASE_RTOL,
+                    SHARDED_CASE_ATOL, shape=list(w.shape), **facts)
+            facts = {}
+        ran = {k for k, n in dist_launches.items() if n}
+        rbsor = ("rbsor_a", "rbsor_a_cooperative", "rbsor_b")
+        if ran != set(kernels) or sum(dist_launches[k] for k in rbsor) != sum(
+                single_launches[k] for k in rbsor) or (dist_launches["predictor"]
+                                                       != single_launches["predictor"]):
+            raise AssertionError(f"sharded {label} launched {dist_launches} (expected "
+                                 f"{sorted(kernels)}; single device {single_launches})")
+        out[label] = dist_launches
+        del case, step, d, r, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_bf16_storage(card):
@@ -3275,7 +3445,7 @@ def main() -> int:
     try:
         phase(phase_distributed_slices, card, mesh)
         phase(phase_distributed_tiers, card, mesh)
-        phase(phase_sharded_tiers, card, mesh)
+        option_launches = phase(phase_sharded_tiers, card, mesh)
     finally:
         torch.distributed.destroy_process_group()
     v5_a = phase(phase_drivers, card)
@@ -3289,10 +3459,14 @@ def main() -> int:
     transport_pred = phase(phase_transport_resume)
     times = phase(phase_timings, card)
 
+    def sharded(kernel):
+        return {f"sharded_{label}_world1": n[kernel] for label, n in option_launches.items()
+                if n[kernel]}
+
     launches = {
         "fused_predictor_central": {"cavity_1024_dct": pred_launches,
                                     "transport_1024_split_run": transport_pred,
-                                    **bf16_launches},
+                                    **bf16_launches, **sharded("predictor")},
         "rbsor": {"cylinder_600x180": cyl_a, "cavity_1024_mg": mg["rbsor_a"],
                   "cavity_1024_mg_cooperative": mg["rbsor_a_cooperative"],
                   "cylinder_600x180_les": les_a,
@@ -3303,11 +3477,13 @@ def main() -> int:
                   "cavity_mac_1024_mg_cooperative": mac_mg["rbsor_a_cooperative"],
                   "cylinder_mac_720x240": mac_cyl["rbsor_a"],
                   "heated_cavity_1024_mg": bq_mg["rbsor_a"],
-                  "heated_cavity_1024_mg_cooperative": bq_mg["rbsor_a_cooperative"]},
+                  "heated_cavity_1024_mg_cooperative": bq_mg["rbsor_a_cooperative"],
+                  **sharded("rbsor_a")},
         "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"],
                           "cavity_1024_implicit_mg": implicit_mg["rbsor_b"],
                           "cavity_mac_1024_mg": mac_mg["rbsor_b"],
-                          "heated_cavity_1024_mg": bq_mg["rbsor_b"]},
+                          "heated_cavity_1024_mg": bq_mg["rbsor_b"],
+                          **sharded("rbsor_b")},
     }
     info = {
         "fused_predictor_central": ("cfdsim_tpu_torch/csrc/predictor.cu",

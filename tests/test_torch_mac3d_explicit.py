@@ -492,10 +492,10 @@ GUARDS = {
                       "unknown moving_scheme"),
     "not_divisible": (dict(), dict(), (3, 1), "not divisible"),
     "small_blocks": (dict(n=(8, 4, 8)), dict(), (4, 1), "at least 2x2"),
-    "poisson": (dict(poisson="mg"), dict(), (2, 2), "poisson method 'dct'"),
+    "poisson": (dict(poisson="sor"), dict(), (2, 2), "unknown 3D poisson method"),
     "scheme": (dict(scheme="quick"), dict(), (2, 2), "unknown MAC3D scheme"),
-    "time_scheme": (dict(time_scheme="rk2"), dict(), (2, 2), "time_scheme='euler'"),
-    "projection": (dict(projection="incremental"), dict(), (2, 2), "projection='chorin'"),
+    "time_scheme": (dict(time_scheme="rk3"), dict(), (2, 2), "unknown MAC3D time scheme"),
+    "projection": (dict(projection="pressure"), dict(), (2, 2), "unknown MAC3D projection"),
     "les_model": (dict(use_les=True, les_model="wale"), dict(), (2, 2), "unknown les_model"),
     "dynamic_moving_body": (dict(use_les=True, les_model="dynamic"), dict(moving_body="body"),
                             (2, 2), "does not support moving_body"),
@@ -512,7 +512,10 @@ GUARDS = {
 def test_mac3d_explicit_step_refusals(guard):
     """Each refusal of the JAX package's ``make_mac3d_explicit_step``
     (mac3d_explicit.py:510-582) raises in the port (its dynamic-LES guards
-    are tests/test_mac3d_explicit.py:328)."""
+    are tests/test_mac3d_explicit.py:328), but three: the port's step takes
+    every 3D pressure method, rk2 and the incremental projection
+    (tests/test_torch_sharded_options.py), so those cases hold an unknown
+    method, time scheme and projection to a refusal."""
     from cfdsim_tpu_torch.grid import Grid3D
     from cfdsim_tpu_torch.ibm import oscillating_sphere
     from cfdsim_tpu_torch.models import mac3d

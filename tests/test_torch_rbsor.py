@@ -373,3 +373,59 @@ def test_kernel_early_exit_matches_plain_on_card():
     torch.cuda.synchronize()
     assert int(counts[0]) == int(counts[1]) < 80
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-6 * float(outs[1].abs().max())
+
+
+def _stitched_window_sweeps(phi, rhs, split, k, iters, h):
+    """``iters`` sweeps of the whole grid done as the distributed solve does
+    them (``parallel/poisson2d_explicit.py``): each block of a (py, px)
+    split padded by 2K lines on the sides that face another block, K plain
+    blocked sweeps on that window with its origin's colour parity, the
+    block cropped and the blocks stitched back, pass after pass."""
+    ny, nx = phi.shape
+    py, px = split
+    by, bx = ny // py, nx // px
+    for done in range(0, iters, k):
+        sweeps = min(k, iters - done)
+        out = torch.empty_like(phi)
+        for iy in range(py):
+            for ix in range(px):
+                y0 = iy * by - (2 * k if iy > 0 else 0)
+                x0 = ix * bx - (2 * k if ix > 0 else 0)
+                y1 = (iy + 1) * by + (2 * k if iy < py - 1 else 0)
+                x1 = (ix + 1) * bx + (2 * k if ix < px - 1 else 0)
+                got = rb.rbsor_blocked(phi[y0:y1, x0:x1].contiguous(),
+                                       rhs[y0:y1, x0:x1].contiguous(), h, h, iters=sweeps,
+                                       omega=1.7, sweeps_per_pass=sweeps,
+                                       parity0=(y0 + x0) & 1)
+                oy, ox = iy * by - y0, ix * bx - x0
+                out[iy * by:(iy + 1) * by, ix * bx:(ix + 1) * bx] = got[oy:oy + by, ox:ox + bx]
+        phi = out
+    return phi
+
+
+@pytest.mark.parametrize("shape, split, k, iters", [
+    ((42, 38), (2, 2), 2, 6),  # blocks 21×19: odd window origins, parity0 = 1
+    ((42, 38), (2, 2), 3, 7),  # a remainder pass
+    ((48, 36), (3, 2), 4, 8),  # 16×18 blocks, K = 4 (2K = 8 of 16)
+    ((30, 44), (1, 4), 5, 10),  # 11-column blocks, 2K = 10
+])
+def test_windowed_plain_sweeps_stitch_to_global_sweeps(shape, split, k, iters):
+    """The windows of a split, swept with the plain twin and the window's
+    parity0, stitch back to ``rbsor_ref`` on the whole grid bit for bit."""
+    rng = np.random.default_rng(11)
+    phi0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    want = rb.rbsor_ref(phi0, rhs, 0.05, 0.05, iters=iters, omega=1.7)
+    got = _stitched_window_sweeps(phi0, rhs, split, k, iters, 0.05)
+    assert torch.equal(got, want)
+
+
+def test_parity_offset_swaps_the_colours():
+    """parity0 = 1 makes the array's (0, 0) cell black: the colours of an
+    array shifted by one column."""
+    red0, black0 = rb._colours((6, 9), "neumann", None, "cpu")
+    red1, black1 = rb._colours((6, 9), "neumann", None, "cpu", parity0=1)
+    assert torch.equal(red1, black0) and torch.equal(black1, red0)
+    t = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="parity0"):
+        rb.rbsor_blocked(t, t, 0.1, 0.1, 2, parity0=2)

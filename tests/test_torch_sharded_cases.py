@@ -236,25 +236,17 @@ def test_sharded_bf16_within_one_ulp(results, key):
 
 
 # options the single-device steps have and the explicit steps do not
-# implement (ROADMAP item 27): make_sharded_step raises a ValueError that
-# names each
+# implement (ROADMAP item 27b): make_sharded_step raises a ValueError that
+# names each (the pressure solves, the fused predictor, rk2 and the
+# incremental projection pass through: tests/test_torch_sharded_options.py)
 REFUSED = [
-    ("mac_rk2", "cavity_mac", dict(n=16, time_scheme="rk2"), "time_scheme"),
-    ("mac_incremental", "cavity_mac", dict(n=16, projection="incremental"), "projection"),
     ("mac_implicit", "cavity_mac", dict(n=16, diffusion="implicit"), "diffusion"),
-    ("stretched_rk2", "cavity_stretched", dict(n=16, time_scheme="rk2"), "time_scheme"),
-    ("stretched3d_incremental", "cavity3d_stretched", dict(n=8, projection="incremental"),
-     "projection"),
     ("cylinder_mac_ghost", "cylinder_mac", dict(nx=48, ny=32, ibm_scheme="ghost"),
      "ibm_scheme"),
     ("sphere_inlet", "sphere", dict(_BOX, perturb=0.05), "perturb"),
-    ("fused_predictor", "cavity", dict(n=16, fused_predictor=True), "fused predictor"),
-    ("cavity_mg", "cavity", dict(n=16, poisson="mg:2"), "rbsor or the pencil DCT, not 'mg'"),
-    ("cylinder_ref_parity", "cylinder", dict(nx=48, ny=32, ref_parity=True), "tol=0"),
     ("heated_cube_tvd", "heated_cube", dict(n=8, flow_scheme="tvd"), "central flow"),
     ("heated_sphere_theta_tvd", "heated_sphere", dict(_BOX, theta_scheme="tvd"),
      "theta_scheme"),
-    ("heated_cavity_mg", "heated_cavity", dict(n=16, poisson="mg:2"), "poisson 'dct'"),
 ]
 
 

@@ -229,8 +229,8 @@ def test_make_sharded_step_refuses_what_it_cannot_map():
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step
 
     mesh = GridMesh(1, 1, 0, "gloo", torch.device("cpu"), None, None)
-    rk2 = build("cavity_mac", n=16, time_scheme="rk2", device="cpu")
-    with pytest.raises(ValueError, match="time_scheme"):
-        make_sharded_step(rk2.step, mesh)
+    implicit = build("cavity_mac", n=16, diffusion="implicit", device="cpu")
+    with pytest.raises(ValueError, match="diffusion"):
+        make_sharded_step(implicit.step, mesh)
     with pytest.raises(ValueError, match="no sharded counterpart for a Identity step"):
         make_sharded_step(torch.nn.Identity(), mesh)
