@@ -450,7 +450,7 @@ def cylinder_mac(
     step.explicit_spec = ("cylinder_mac", {
         "v_inf": v_inf, "perturb_amp": 0.01, "perturb_ramp_steps": perturb_ramp_steps,
         "ibm_ramp_steps": ibm_ramp_steps, "ibm_scheme": ibm_scheme, "ibm_mask_u": mask_u,
-        "ibm_mask_v": mask_v})
+        "ibm_mask_v": mask_v, "ibm_ghost": ibm_kwargs.get("ibm_ghost")})
     u0, v0 = potential_flow_cylinder_mac(grid, center, radius, v_inf, mask_u, mask_v)
     state = mac.init_state(cfg, u0=u0, v0=v0, device=device)
     return Case("cylinder_mac", cfg, step, state, grid,
@@ -702,11 +702,13 @@ def _sphere_ibm(ibm_scheme: str, xf, yf, zf, center, radius, masks, mask_c=None,
     raise ValueError(f"unknown ibm_scheme {ibm_scheme!r}")
 
 
-def _sphere_spec(v_inf, ibm_ramp_steps, masks, ibm_kwargs, faces=None, perturb=0.0) -> dict:
+def _sphere_spec(v_inf, ibm_ramp_steps, masks, ibm_kwargs, faces=None,
+                 inlet_profile=None) -> dict:
     """The explicit_spec of a sphere case: the inflow, the ramp, the
     penalization masks (u, v, w[, θ]) or the whole-grid ghost tables, the
-    stretched face vectors, the inlet modulation's amplitude."""
-    spec = {"v_inf": v_inf, "ibm_ramp_steps": ibm_ramp_steps, "perturb": perturb,
+    stretched face vectors, the (nz, ny) inlet modulation (None without
+    one)."""
+    spec = {"v_inf": v_inf, "ibm_ramp_steps": ibm_ramp_steps, "inlet_profile": inlet_profile,
             "ibm_ghost": ibm_kwargs.get("ibm_ghost"), "ibm_ghost_c": ibm_kwargs.get("ibm_ghost_c"),
             "ibm_masks": None if "ibm_ghost" in ibm_kwargs else masks}
     if faces is not None:
@@ -764,11 +766,11 @@ def sphere_mac3d(
         **defaults)
     yc = (np.arange(ny) + 0.5) * (domain[1] / ny)
     zc = (np.arange(nz) + 0.5) * (domain[2] / nz)
-    bcs = mac3d.external_flow_bcs3d(v_inf, inlet_profile=_inlet_profile(perturb, yc, zc, domain),
-                                    device=device)
+    profile = _inlet_profile(perturb, yc, zc, domain)
+    bcs = mac3d.external_flow_bcs3d(v_inf, inlet_profile=profile, device=device)
     step = mac3d.make_step(cfg, bcs, ibm_ramp_steps=ibm_ramp_steps, device=device, **ibm_kwargs)
     step.explicit_spec = ("sphere", _sphere_spec(v_inf, ibm_ramp_steps, masks, ibm_kwargs,
-                                                 perturb=perturb))
+                                                 inlet_profile=profile))
     u0, v0, w0 = potential_flow_sphere_mac3d(grid, center, radius, v_inf, *masks)
     state = mac3d.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     return Case("sphere_mac3d", cfg, step, state, grid,
@@ -822,12 +824,12 @@ def sphere_stretched(
     zc = 0.5 * (zf[:-1] + zf[1:])
     # the x-face areas h_y⊗h_z weight the outflow's mass balance
     fw = np.diff(zf)[:, None] * np.diff(yf)[None, :]
-    bcs = mac3d.external_flow_bcs3d(v_inf, inlet_profile=_inlet_profile(perturb, yc, zc, domain),
-                                    face_weights=fw, device=device)
+    profile = _inlet_profile(perturb, yc, zc, domain)
+    bcs = mac3d.external_flow_bcs3d(v_inf, inlet_profile=profile, face_weights=fw, device=device)
     step = ms3.make_step(cfg, bcs, xf, yf, zf, ibm_ramp_steps=ibm_ramp_steps, device=device,
                          **ibm_kwargs)
     step.explicit_spec = ("sphere_stretched", _sphere_spec(
-        v_inf, ibm_ramp_steps, masks, ibm_kwargs, (xf, yf, zf), perturb=perturb))
+        v_inf, ibm_ramp_steps, masks, ibm_kwargs, (xf, yf, zf), inlet_profile=profile))
     u0, v0, w0 = potential_flow_sphere_faces(xf, yf, zf, center, radius, v_inf, *masks)
     state = ms3.init_state(cfg, u0=u0, v0=v0, w0=w0, device=device)
     grid = Grid3D(nx=nx, ny=ny, nz=nz, x_max=domain[0], y_max=domain[1], z_max=domain[2],

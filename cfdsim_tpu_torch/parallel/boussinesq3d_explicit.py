@@ -7,9 +7,14 @@ temperature rides width-1 halos with its Dirichlet x walls and adiabatic y
 walls as global-index writes and local z ghosts, and the projection is the
 distributed 3D solve of ``incompressible3d_explicit.DistributedPoisson3D``
 by the configured method (the pencil DCT by default, multigrid, SOR). The
-central flow scheme (the validated
-heated-cube configuration), as in the JAX package; buoyancy, the θ fluxes
-and the Nusselt numbers follow ``models/boussinesq3d.py`` term for term.
+central flow scheme (the validated heated-cube configuration) runs on the
+width-1 padded blocks; upwind and TVD run the single-device
+``mac3d.advect3d`` on the width-2 windows of ``mac3d_explicit.py`` (the
+closed box's writes of ``cavity3d_local_bcs``, its no-slip reflection for
+the tangential ghosts and the slopes zeroed on the global boundary lines,
+where the single-device slopes end) and crop to the owned faces. Buoyancy,
+the θ fluxes and the Nusselt numbers follow ``models/boussinesq3d.py`` term
+for term.
 """
 
 from __future__ import annotations
@@ -18,15 +23,19 @@ import torch
 from torch import nn
 
 from cfdsim_tpu_torch.models.boussinesq import BoussinesqMetrics
+from cfdsim_tpu_torch.models.mac3d import advect3d
 from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DConfig, Boussinesq3DState
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
 from cfdsim_tpu_torch.parallel.halo import halo_exchange_edges
 from cfdsim_tpu_torch.parallel.incompressible3d_explicit import DistributedPoisson3D
 from cfdsim_tpu_torch.parallel.mac3d_explicit import (
     cavity3d_bc_kit,
+    cavity3d_local_bcs,
+    flow_windows,
     shard_trimmed_state3d,
     trim_state3d,
     untrim_state3d,
+    window_slope_fix,
 )
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 
@@ -45,9 +54,8 @@ class HeatedCubeExplicitStep(nn.Module):
         super().__init__()
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=2)
-        if cfg.flow_scheme != "central":
-            raise ValueError("the explicit sharded heated-cube step implements the central flow "
-                             "scheme (upwind/tvd need width-2 halos)")
+        if cfg.flow_scheme not in ("central", "upwind", "tvd"):
+            raise ValueError(f"unknown flow_scheme {cfg.flow_scheme!r}")
         if cfg.theta_scheme not in ("central", "upwind"):
             raise ValueError(f"unknown theta_scheme {cfg.theta_scheme!r}")
         self.cfg, self.mesh = cfg, mesh
@@ -57,6 +65,7 @@ class HeatedCubeExplicitStep(nn.Module):
         self.reads_host = False
         self.collectives = True
         self.idx, self.set_normal, self.pad = cavity3d_bc_kit(g.nx, g.ny, mesh, self.local_shape)
+        self.box = cavity3d_local_bcs(g.nx, g.ny, 0.0)  # the windows' writes
         self.register_buffer("dt_base", torch.tensor(cfg.dt_base, dtype=torch.float32,
                                                      device=self.device))
 
@@ -72,6 +81,55 @@ class HeatedCubeExplicitStep(nn.Module):
         te = torch.where(rp == -1, torch.roll(te, -1, 1), te)
         te = torch.where(rp == ny, torch.roll(te, 1, 1), te)
         return torch.cat([te[:1], te, te[-1:]], 0)
+
+    def _central(self, U, V, Wz, UZG, VZG):
+        """The central conservative advection on the width-1 padded blocks
+        (corners included): (conv_u, conv_v, conv_w) at the owned faces."""
+        g = self.cfg.grid
+        nz, dx, dy, dz = g.nz, g.dx, g.dy, g.dz
+        ny_l, nx_l = self.local_shape
+        UC = 0.5 * (U[:, :, :-1] + U[:, :, 1:])
+        VCC = 0.5 * (V[:, :-1, :] + V[:, 1:, :])
+        WCC = 0.5 * (Wz[:-1] + Wz[1:])
+        UY = 0.5 * (U[:, :-1, :] + U[:, 1:, :])
+        VX = 0.5 * (V[:, :, :-1] + V[:, :, 1:])
+        UZ = 0.5 * (UZG[:-1] + UZG[1:])
+        WX = 0.5 * (Wz[:, :, :-1] + Wz[:, :, 1:])
+        VZ = 0.5 * (VZG[:-1] + VZG[1:])
+        WY = 0.5 * (Wz[:, :-1, :] + Wz[:, 1:, :])
+        FU = UC * UC
+        GU = VX[:, 1:, :] * UY[:, :, 1:]
+        HU = WX[:, 1:-1, :] * UZ[:, 1:-1, 1:]
+        conv_u = ((FU[:, 1:1 + ny_l, 1:] - FU[:, 1:1 + ny_l, :-1]) * (1.0 / dx)
+                  + ((GU[:, 1:, :] - GU[:, :-1, :]) * (1.0 / dy))[:, :, :nx_l]
+                  + ((HU[1:] - HU[:-1]) * (1.0 / dz))[:, :, :nx_l])
+        GVC = VCC * VCC
+        HV = WY[:, :ny_l, 1:1 + nx_l] * VZ[:, 1:1 + ny_l, 1:1 + nx_l]
+        conv_v = (((GU[:, :, 1:] - GU[:, :, :-1]) * (1.0 / dx))[:, :ny_l, :]
+                  + ((GVC[:, 1:, :] - GVC[:, :-1, :]) * (1.0 / dy))[:, :ny_l, 1:1 + nx_l]
+                  + (HV[1:] - HV[:-1]) * (1.0 / dz))
+        FW = UZ[:, 1:-1, 1:] * WX[:, 1:-1, :]
+        GW = VZ[:, 1:, 1:1 + nx_l] * WY[:, :, 1:1 + nx_l]
+        HWC = WCC * WCC
+        # at the interior z-faces 1 … nz−1
+        conv_w = (((FW[:, :, 1:] - FW[:, :, :-1]) * (1.0 / dx))[1:nz]
+                  + ((GW[:, 1:, :] - GW[:, :-1, :]) * (1.0 / dy))[1:nz]
+                  + ((HWC[1:] - HWC[:-1]) * (1.0 / dz))[:, 1:1 + ny_l, 1:1 + nx_l])
+        return conv_u, conv_v, conv_w
+
+    def _muscl(self, u_t, v_t, w_t):
+        """The upwind or TVD advection of ``mac3d.advect3d`` on the width-2
+        windows, cropped to the owned faces (u at its interior x faces, w at
+        the interior z faces)."""
+        g = self.cfg.grid
+        ny_l, nx_l = self.local_shape
+        windows = flow_windows(u_t, v_t, w_t, self.box, self.idx, self.mesh, None, ())
+        conv_u, conv_v, conv_w = advect3d(
+            *windows, g.dx, g.dy, g.dz, self.cfg.flow_scheme,
+            slope_fix=lambda name, s: window_slope_fix(name, s, g.ny, g.nx, self.local_shape,
+                                                       self.mesh))
+        return (conv_u[:, 2:2 + ny_l, 1:1 + nx_l], conv_v[:, 1:1 + ny_l, 2:2 + nx_l],
+                conv_w[:, 2:2 + ny_l, 2:2 + nx_l])
 
     def forward(self, ts: Boussinesq3DState, cfl_scale):
         cfg = self.cfg
@@ -104,34 +162,10 @@ class HeatedCubeExplicitStep(nn.Module):
         else:
             dt = self.dt_base
 
-        # --- central conservative advection and diffusion on the padded blocks
-        UC = 0.5 * (U[:, :, :-1] + U[:, :, 1:])
-        VCC = 0.5 * (V[:, :-1, :] + V[:, 1:, :])
-        WCC = 0.5 * (Wz[:-1] + Wz[1:])
-        UY = 0.5 * (U[:, :-1, :] + U[:, 1:, :])
-        VX = 0.5 * (V[:, :, :-1] + V[:, :, 1:])
-        UZ = 0.5 * (UZG[:-1] + UZG[1:])
-        WX = 0.5 * (Wz[:, :, :-1] + Wz[:, :, 1:])
-        VZ = 0.5 * (VZG[:-1] + VZG[1:])
-        WY = 0.5 * (Wz[:, :-1, :] + Wz[:, 1:, :])
-        FU = UC * UC
-        GU = VX[:, 1:, :] * UY[:, :, 1:]
-        HU = WX[:, 1:-1, :] * UZ[:, 1:-1, 1:]
-        conv_u = ((FU[:, 1:1 + ny_l, 1:] - FU[:, 1:1 + ny_l, :-1]) * (1.0 / dx)
-                  + ((GU[:, 1:, :] - GU[:, :-1, :]) * (1.0 / dy))[:, :, :nx_l]
-                  + ((HU[1:] - HU[:-1]) * (1.0 / dz))[:, :, :nx_l])
-        GVC = VCC * VCC
-        HV = WY[:, :ny_l, 1:1 + nx_l] * VZ[:, 1:1 + ny_l, 1:1 + nx_l]
-        conv_v = (((GU[:, :, 1:] - GU[:, :, :-1]) * (1.0 / dx))[:, :ny_l, :]
-                  + ((GVC[:, 1:, :] - GVC[:, :-1, :]) * (1.0 / dy))[:, :ny_l, 1:1 + nx_l]
-                  + (HV[1:] - HV[:-1]) * (1.0 / dz))
-        FW = UZ[:, 1:-1, 1:] * WX[:, 1:-1, :]
-        GW = VZ[:, 1:, 1:1 + nx_l] * WY[:, :, 1:1 + nx_l]
-        HWC = WCC * WCC
-        # at the interior z-faces 1 … nz−1
-        conv_w = (((FW[:, :, 1:] - FW[:, :, :-1]) * (1.0 / dx))[1:nz]
-                  + ((GW[:, 1:, :] - GW[:, :-1, :]) * (1.0 / dy))[1:nz]
-                  + ((HWC[1:] - HWC[:-1]) * (1.0 / dz))[:, 1:1 + ny_l, 1:1 + nx_l])
+        if cfg.flow_scheme == "central":
+            conv_u, conv_v, conv_w = self._central(U, V, Wz, UZG, VZG)
+        else:
+            conv_u, conv_v, conv_w = self._muscl(u_t, v_t, w_t)
 
         ax, ay, az = 1.0 / dx**2, 1.0 / dy**2, 1.0 / dz**2
 

@@ -1,7 +1,8 @@
 """The ghost-cell IBM on rank blocks (``cfdsim_tpu.parallel.ibm_ghost_explicit``).
 
-A static body's ghost tables (``ibm_ghost.GhostIBM3D``, built on the host
-for the whole grid) are cut into the tables of one rank when a step is
+A static body's ghost tables (``ibm_ghost.GhostIBM3D``, or the 2D
+``GhostIBM2D`` lifted to one z plane; built on the host for the whole
+grid) are cut into the tables of one rank when a step is
 built: a ghost face belongs to the rank whose block of the *trimmed* face
 array holds it, and its trilinear probe corners, which may lie in a
 neighbour's block, are re-encoded as flat indices into this rank's block
@@ -73,6 +74,15 @@ class ShardedGhostIBM3D(NamedTuple):
     w: ShardedGhostSet
 
 
+class ShardedGhostIBM2D(NamedTuple):
+    """A 2D body's tables in the 3D layout of one z plane: ``solid`` (1,
+    ny_l, nx_l), ``gz`` zeros, ``pidx`` into the (1, ny_l + 2·width, nx_l +
+    2·width) window, so the 3D apply runs them on (1, ny_l, nx_l) planes."""
+
+    u: ShardedGhostSet
+    v: ShardedGhostSet
+
+
 def _np(t):
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
@@ -95,6 +105,17 @@ def _excursion(gs, full_dims, ny_l: int, nx_l: int) -> int:
     x0 = ((gx // nx_l) * nx_l)[:, None]
     return max(0, *(int(d.max()) for d in (y0 - j, j - (y0 + ny_l - 1), x0 - i,
                                            i - (x0 + nx_l - 1))))
+
+
+def _halo_width(sets, ny_l: int, nx_l: int) -> int:
+    """The halo width every rank exchanges: the largest excursion of the
+    (set, full dims) pairs' probe corners, at least 1, checked against the
+    block."""
+    width = max(*(_excursion(gs, dims, ny_l, nx_l) for gs, dims in sets), 1)
+    if width > min(ny_l, nx_l):
+        raise ValueError(f"ghost probe stencils need halo width {width} > local block "
+                         f"{ny_l}x{nx_l}; use a coarser mesh or finer grid")
+    return width
 
 
 def _partition_set(gs, full_dims, trim, mesh: GridMesh, width: int, device) -> ShardedGhostSet:
@@ -165,12 +186,8 @@ def partition_ghost_ibm3d(ibm, nx: int, ny: int, nz: int, mesh: GridMesh, extra=
     ny_l, nx_l = ny // mesh.py, nx // mesh.px
     dims_u, dims_v, dims_w, dims_c = ((nz, ny, nx + 1), (nz, ny + 1, nx), (nz + 1, ny, nx),
                                       (nz, ny, nx))
-    width = max(_excursion(ibm.u, dims_u, ny_l, nx_l), _excursion(ibm.v, dims_v, ny_l, nx_l),
-                _excursion(ibm.w, dims_w, ny_l, nx_l),
-                _excursion(extra, dims_c, ny_l, nx_l) if extra is not None else 0, 1)
-    if width > min(ny_l, nx_l):
-        raise ValueError(f"ghost probe stencils need halo width {width} > local block "
-                         f"{ny_l}x{nx_l}; use a coarser mesh or finer grid")
+    width = _halo_width([(ibm.u, dims_u), (ibm.v, dims_v), (ibm.w, dims_w)]
+                        + ([(extra, dims_c)] if extra is not None else []), ny_l, nx_l)
     tables = ShardedGhostIBM3D(
         u=_partition_set(ibm.u, dims_u, (0, 0, 1), mesh, width, device),
         v=_partition_set(ibm.v, dims_v, (0, 1, 0), mesh, width, device),
@@ -178,6 +195,28 @@ def partition_ghost_ibm3d(ibm, nx: int, ny: int, nz: int, mesh: GridMesh, extra=
     if extra is not None:
         return tables, width, _partition_set(extra, dims_c, (0, 0, 0), mesh, width, device)
     return tables, width
+
+
+def partition_ghost_ibm2d(ibm, nx: int, ny: int, mesh: GridMesh, *, device=None):
+    """Cut a whole-grid ``GhostIBM2D`` (``ibm_ghost.cylinder_ghost_ibm``)
+    into this rank's tables over the trimmed (ny, nx) layout: ``(tables,
+    width)``, a :class:`ShardedGhostIBM2D` (each set lifted to one z plane:
+    a 2D flat index j·nx' + i is the 3D one of plane 0) and the halo width,
+    the same on every rank. The checks of :func:`partition_ghost_ibm3d`
+    hold: no ghost or solid face and no live probe corner on a dropped
+    boundary face, every probe corner within the width."""
+    device = mesh.device if device is None else torch.device(device)
+    if ny % mesh.py or nx % mesh.px:
+        raise ValueError(f"grid {ny}x{nx} not divisible by mesh {mesh.py}x{mesh.px}")
+    ny_l, nx_l = ny // mesh.py, nx // mesh.px
+    sets = [ShardedGhostSet(solid=_np(gs.solid)[None], gz=np.zeros_like(_np(gs.gy)), gy=gs.gy,
+                            gx=gs.gx, pidx=gs.pidx, pw=gs.pw, scale=gs.scale)
+            for gs in (ibm.u, ibm.v)]
+    dims_u, dims_v = (1, ny, nx + 1), (1, ny + 1, nx)
+    width = _halo_width([(sets[0], dims_u), (sets[1], dims_v)], ny_l, nx_l)
+    return ShardedGhostIBM2D(
+        u=_partition_set(sets[0], dims_u, (0, 0, 1), mesh, width, device),
+        v=_partition_set(sets[1], dims_v, (0, 1, 0), mesh, width, device)), width
 
 
 def apply_ghost_forcing_stack(fields, sets, mesh: GridMesh, width: int, strength,
@@ -403,8 +442,10 @@ class MovingBodyLocal(nn.Module):
 __all__ = [
     "ShardedGhostSet",
     "ShardedGhostIBM3D",
+    "ShardedGhostIBM2D",
     "GhostTables",
     "partition_ghost_ibm3d",
+    "partition_ghost_ibm2d",
     "apply_ghost_forcing_local",
     "apply_ghost_forcing_stack",
     "moving_ghost_width_2d",

@@ -174,28 +174,35 @@ def free_slip3d_local_bcs(nx: int, ny: int) -> MAC3DLocalBCs:
                        lambda v: torch.cat([v[:1], v, v[-1:]], 0))
 
 
-def external_flow3d_local_bcs(nx: int, ny: int, nz: int, v_inf: float, face_weights=None, *,
-                              mesh: GridMesh) -> MAC3DLocalBCs:
+def external_flow3d_local_bcs(nx: int, ny: int, nz: int, v_inf: float, face_weights=None,
+                              inlet_profile=None, *, mesh: GridMesh) -> MAC3DLocalBCs:
     """The masked-write form of ``mac3d.external_flow_bcs3d``: Dirichlet
-    inflow at x_lo, the mass-consistent zero-gradient outflow at x_hi (the
-    dropped u face nx, rebuilt as u(nx−1) plus the shift, whose two sums
-    share one ``all_reduce``), free slip on the four lateral faces.
-    ``face_weights`` ((nz, ny), a stretched grid's x-face areas) weights the
-    mass balance by area; this rank takes its rows."""
+    inflow at x_lo (v_inf, or v_inf times this rank's rows of the static
+    (nz, ny) ``inlet_profile``), the mass-consistent zero-gradient outflow
+    at x_hi (the dropped u face nx, rebuilt as u(nx−1) plus the shift,
+    whose two sums share one ``all_reduce`` and see the modulated inflow),
+    free slip on the four lateral faces. ``face_weights`` ((nz, ny), a
+    stretched grid's x-face areas) weights the mass balance by area; this
+    rank takes its rows."""
     if ny % mesh.py or nx % mesh.px:
         raise ValueError(f"grid {ny}x{nx} not divisible by mesh {mesh.py}x{mesh.px}")
     ny_l = ny // mesh.py
+    rows = slice(mesh.iy * ny_l, (mesh.iy + 1) * ny_l)
     last_x = mesh.ix == mesh.px - 1
     fw, norm = None, float(ny * nz)
     if face_weights is not None:
         a = np.asarray(face_weights, np.float64)
         norm = float(np.sum(a))
-        fw = torch.as_tensor(np.ascontiguousarray(
-            a[:, mesh.iy * ny_l:(mesh.iy + 1) * ny_l, None]).astype(np.float32),
-            device=mesh.device)
+        fw = torch.as_tensor(np.ascontiguousarray(a[:, rows, None]).astype(np.float32),
+                             device=mesh.device)
+    inflow = v_inf
+    if inlet_profile is not None:
+        prof = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(inlet_profile, np.float32)[:, rows, None]), device=mesh.device)
+        inflow = v_inf * prof  # the single-device product, in float32
 
     def pre(u_t, v_t, w_t, ro, co, state):
-        return torch.where(co == 0, v_inf, u_t), torch.where(ro == 0, 0.0, v_t), _zplane(w_t, 0)
+        return torch.where(co == 0, inflow, u_t), torch.where(ro == 0, 0.0, v_t), _zplane(w_t, 0)
 
     def aux(u_t, v_t, w_t, ro, co, state):
         s0 = torch.where(co == 0, u_t, 0.0)
@@ -344,6 +351,47 @@ def check_dynamic_les(shape, local_shape):
                          f"windows; got {local_shape[0]}x{local_shape[1]}")
 
 
+def window_slope_fix(name, s, ny: int, nx: int, local_shape, mesh: GridMesh):
+    """Zero the MUSCL slopes ``s`` (``advect3d``'s ``slope_fix``) on the
+    *global* boundary lines that run through the width-2 window (the
+    single-device slopes end there; z is local, so its window ends are the
+    global ones)."""
+    if name[1] == "z":
+        return s
+    ny_l, nx_l = local_shape
+    gy0, gx0 = mesh.iy * ny_l, mesh.ix * nx_l
+    base, (b0, b1) = {
+        "ux": (gx0 - 2, (0, nx)), "uy": (gy0 - 3, (-1, ny)),
+        "vx": (gx0 - 3, (-1, nx)), "vy": (gy0 - 2, (0, ny)),
+        "wx": (gx0 - 3, (-1, nx)), "wy": (gy0 - 3, (-1, ny)),
+    }[name]
+    axis = 2 if name[1] == "x" else 1
+    shape = [1, 1, 1]
+    shape[axis] = s.shape[axis]
+    i = base + torch.arange(s.shape[axis], device=s.device).reshape(shape)
+    return torch.where((i == b0) | (i == b1), 0.0, s)
+
+
+def flow_windows(u_t, v_t, w_t, bcs: MAC3DLocalBCs, idx: BoxIndices, mesh: GridMesh, ts, a):
+    """The width-2 windows of trimmed face blocks in mac3d's layout and their
+    ghosts, ``bcs``' writes applied: the single-device operators run on them;
+    the zero lines appended feed only cropped positions or slope lines
+    zeroed by :func:`window_slope_fix`."""
+    U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), mesh, 2).unbind(0)
+    U2, V2, W2 = bcs.win(U2, V2, W2, idx.r2, idx.c2, ts, a)
+
+    def zpad(q, axis):
+        z = torch.zeros_like(q.narrow(axis, 0, 1))
+        return torch.cat([z, q, z], axis)
+
+    u_win = torch.cat([U2, torch.zeros_like(U2[:, :, :1])], 2)  # (nz, NY, NX+1)
+    v_win = torch.cat([V2, torch.zeros_like(V2[:, :1, :])], 1)  # (nz, NY+1, NX)
+    w_win = torch.cat([W2, torch.zeros_like(W2[:1])], 0)  # (nz+1, NY, NX)
+    ghosts = (zpad(u_win, 1), bcs.zghost_u(u_win), zpad(v_win, 2), bcs.zghost_v(v_win),
+              zpad(w_win, 2), zpad(w_win, 1))
+    return u_win, v_win, w_win, ghosts
+
+
 def ghost_tables(ibm_ghost, nx: int, ny: int, nz: int, mesh: GridMesh, device):
     """(this rank's u, v, w ghost tables as :class:`GhostTables`, their halo
     width), cut from the whole-grid ``ibm_ghost``."""
@@ -435,24 +483,8 @@ class MAC3DExplicitStep(MAC3DBlockStep):
         self.register_buffer("zero", torch.zeros((), dtype=torch.float32, device=self.device))
 
     def _slope_fix(self, name, s):
-        """Zero the MUSCL slopes on the *global* boundary lines that run
-        through the window (the single-device slopes end there; z is local,
-        so its window ends are the global ones)."""
-        if name[1] == "z":
-            return s
-        ny, nx = self.cfg.grid.ny, self.cfg.grid.nx
-        ny_l, nx_l = self.local_shape
-        gy0, gx0 = self.mesh.iy * ny_l, self.mesh.ix * nx_l
-        base, (b0, b1) = {
-            "ux": (gx0 - 2, (0, nx)), "uy": (gy0 - 3, (-1, ny)),
-            "vx": (gx0 - 3, (-1, nx)), "vy": (gy0 - 2, (0, ny)),
-            "wx": (gx0 - 3, (-1, nx)), "wy": (gy0 - 3, (-1, ny)),
-        }[name]
-        axis = 2 if name[1] == "x" else 1
-        shape = [1, 1, 1]
-        shape[axis] = s.shape[axis]
-        i = base + torch.arange(s.shape[axis], device=s.device).reshape(shape)
-        return torch.where((i == b0) | (i == b1), 0.0, s)
+        return window_slope_fix(name, s, self.cfg.grid.ny, self.cfg.grid.nx, self.local_shape,
+                                self.mesh)
 
     def _pad(self, u_t, v_t, w_t, a, ts):
         """Width-1 padded blocks with every boundary write (the edges in
@@ -462,23 +494,7 @@ class MAC3DExplicitStep(MAC3DBlockStep):
         return self.bcs.pad_writes(U, V, Wz, self.idx.rp, self.idx.cp, ts, a)
 
     def _windows(self, u_t, v_t, w_t, a, ts):
-        """The width-2 windows in mac3d's layout and their ghosts: the
-        single-device operators run on them; the zero lines appended feed
-        only cropped positions or slope lines zeroed by _slope_fix."""
-        bcs = self.bcs
-        U2, V2, W2 = halo_exchange(torch.stack([u_t, v_t, w_t]), self.mesh, 2).unbind(0)
-        U2, V2, W2 = bcs.win(U2, V2, W2, self.idx.r2, self.idx.c2, ts, a)
-
-        def zpad(q, axis):
-            z = torch.zeros_like(q.narrow(axis, 0, 1))
-            return torch.cat([z, q, z], axis)
-
-        u_win = torch.cat([U2, torch.zeros_like(U2[:, :, :1])], 2)  # (nz, NY, NX+1)
-        v_win = torch.cat([V2, torch.zeros_like(V2[:, :1, :])], 1)  # (nz, NY+1, NX)
-        w_win = torch.cat([W2, torch.zeros_like(W2[:1])], 0)  # (nz+1, NY, NX)
-        ghosts = (zpad(u_win, 1), bcs.zghost_u(u_win), zpad(v_win, 2), bcs.zghost_v(v_win),
-                  zpad(w_win, 2), zpad(w_win, 1))
-        return u_win, v_win, w_win, ghosts
+        return flow_windows(u_t, v_t, w_t, self.bcs, self.idx, self.mesh, ts, a)
 
     def _nut(self, windows, u_t, v_t, w_t, extras):
         """LES eddy viscosity on the window (valid on the ±1 ring around the
@@ -697,25 +713,29 @@ def make_cavity3d_mac_explicit_step(cfg: MAC3DConfig, mesh: GridMesh, lid_veloci
 
 
 def make_sphere_mac3d_explicit_step(cfg: MAC3DConfig, mesh: GridMesh, v_inf: float = 1.0,
-                                    ibm_ramp_steps: int = 0, *,
+                                    ibm_ramp_steps: int = 0, inlet_profile=None, *,
                                     device=None) -> MAC3DExplicitStep:
     """The explicit-communication 3D MAC step of the external flow past an
     immersed body (the ``sphere`` case): ``step(tstate, cfl_scale, mask_u_t,
-    mask_v_t, mask_w_t)`` with this rank's blocks of :func:`trim_face_masks3d`."""
+    mask_v_t, mask_w_t)`` with this rank's blocks of :func:`trim_face_masks3d`;
+    ``inlet_profile`` the case's whole-grid (nz, ny) inflow modulation."""
     g = cfg.grid
-    bcs = external_flow3d_local_bcs(g.nx, g.ny, g.nz, v_inf, mesh=mesh)
+    bcs = external_flow3d_local_bcs(g.nx, g.ny, g.nz, v_inf, inlet_profile=inlet_profile,
+                                    mesh=mesh)
     return make_mac3d_explicit_step(cfg, mesh, bcs, use_ibm=True, ibm_ramp_steps=ibm_ramp_steps,
                                     device=device)
 
 
 def make_sphere_ghost_mac3d_explicit_step(cfg: MAC3DConfig, mesh: GridMesh, ghost,
-                                          v_inf: float = 1.0, ibm_ramp_steps: int = 0, *,
+                                          v_inf: float = 1.0, ibm_ramp_steps: int = 0,
+                                          inlet_profile=None, *,
                                           device=None) -> MAC3DExplicitStep:
     """The ghost-cell sphere (``sphere`` with ``ibm_scheme="ghost"``) on the
     mesh: ``ghost`` is the whole-grid ``GhostIBM3D``, cut into this rank's
     tables, which the step holds: ``step(tstate, cfl_scale)``."""
     g = cfg.grid
-    bcs = external_flow3d_local_bcs(g.nx, g.ny, g.nz, v_inf, mesh=mesh)
+    bcs = external_flow3d_local_bcs(g.nx, g.ny, g.nz, v_inf, inlet_profile=inlet_profile,
+                                    mesh=mesh)
     return make_mac3d_explicit_step(cfg, mesh, bcs, ibm_ghost=ghost,
                                     ibm_ramp_steps=ibm_ramp_steps, device=device)
 

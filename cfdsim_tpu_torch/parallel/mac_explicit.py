@@ -27,6 +27,15 @@ method with one projection per stage, the second stage's BCs and body at
 t + dt (``models/mac.py``); ``projection="incremental"`` carries the lagged
 pressure gradient in the predictor and solves for the increment from a
 zero start, p = p_warm + φ, p_warm this rank's block of the state's p.
+``diffusion="implicit"`` (Crank–Nicolson, the lid cavity) solves each
+component's Helmholtz problem exactly on the pencils
+(``transforms.MacHelmholtzLocal``), with c = ½·dt·ν from the device dt and
+the lid's right-hand-side fix as a global-row masked add.
+
+A static body is penalized by trimmed face masks (call-time blocks) or
+forced by the ghost-cell IBM (``ibm_scheme="ghost"``): this rank's tables
+of the whole-grid ``GhostIBM2D`` (``ibm_ghost_explicit.
+partition_ghost_ibm2d``), both components' two sweeps on one exchange each.
 
 A moving body (``moving_body=``) is forced on each rank's block: its sharp
 face masks rebuilt every step from this rank's lines of the single-device
@@ -55,9 +64,16 @@ from cfdsim_tpu_torch.models.incompressible import StepMetrics
 from cfdsim_tpu_torch.models.mac import MACConfig, MACState, _face_value, _limited_slope
 from cfdsim_tpu_torch.parallel.explicit import check_divisible, step_device
 from cfdsim_tpu_torch.parallel.halo import global_indices, halo_exchange, halo_exchange_edges
-from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import MovingBodyLocal, moving_ghost_width_2d
+from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
+    GhostTables,
+    MovingBodyLocal,
+    apply_ghost_forcing_stack,
+    moving_ghost_width_2d,
+    partition_ghost_ibm2d,
+)
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 from cfdsim_tpu_torch.parallel.poisson2d_explicit import DistributedPoisson2D
+from cfdsim_tpu_torch.parallel.transforms import MacHelmholtzLocal
 
 
 class MACLocalBCs(NamedTuple):
@@ -185,6 +201,33 @@ def external_flow_mac_local_bcs(ny: int, nx: int, dy: float, y_min: float, y_max
         return torch.where(gc == nx, left, V)  # outflow: ∂v/∂x = 0
 
     return MACLocalBCs(pre, aux, post_u, post_v)
+
+
+class MACImplicitLocal(NamedTuple):
+    """The lid cavity's implicit-viscous solves on trimmed blocks
+    (``models/mac.py::cavity_implicit_kit`` on the mesh): ``solve_u(b,
+    c)``, ``solve_v(b, c)`` (:class:`~cfdsim_tpu_torch.parallel.transforms.
+    MacHelmholtzLocal`) and u's right-hand-side fix ``rhs_fix_u(r, c, gr)``
+    (``gr`` the block's global rows; v's BCs are homogeneous)."""
+
+    solve_u: nn.Module
+    solve_v: nn.Module
+    rhs_fix_u: Callable
+
+
+def cavity_implicit_local(grid, mesh: GridMesh, lid_velocity: float = 1.0) -> MACImplicitLocal:
+    """``mac.cavity_implicit_kit`` on the mesh: u DST-II in y and DST-I in x,
+    v DST-I in y and DST-II in x; the lid adds c·2·U_lid/dy² to the top
+    u-row."""
+    ny, nx, dx, dy = grid.ny, grid.nx, grid.dx, grid.dy
+    ay = 1.0 / (dy * dy)
+
+    def rhs_fix_u(r, c, gr):
+        return torch.where(gr == ny - 1, r + c * 2.0 * lid_velocity * ay, r)
+
+    return MACImplicitLocal(MacHelmholtzLocal((ny, nx), ("dst2", "dst1"), dx, dy, mesh),
+                            MacHelmholtzLocal((ny, nx), ("dst1", "dst2"), dx, dy, mesh),
+                            rhs_fix_u)
 
 
 def _advect_local(U, V, grU, gfU, grV, gcV, ny: int, nx: int, dx: float, dy: float,
@@ -326,22 +369,39 @@ class MACExplicitStep(MAC2DBlockStep):
     :func:`make_mac_explicit_step`."""
 
     def __init__(self, cfg: MACConfig, mesh: GridMesh, bcs: MACLocalBCs, use_ibm: bool = False,
-                 ibm_ramp_steps: int = 0, moving_body=None, moving_scheme: str = "penalize", *,
-                 device=None):
+                 ibm_ramp_steps: int = 0, moving_body=None, moving_scheme: str = "penalize",
+                 implicit: MACImplicitLocal = None, ibm_ghost=None, *, device=None):
         super().__init__()
         if moving_scheme not in ("penalize", "ghost"):
             raise ValueError(f"unknown moving_scheme {moving_scheme!r}")
+        if ibm_ghost is not None and use_ibm:
+            raise ValueError("ibm_ghost and use_ibm are mutually exclusive")
         g = cfg.grid
         self.local_shape = check_divisible(g, mesh, min_block=4)
         if cfg.time_scheme not in ("euler", "rk2"):
             raise ValueError(f"unknown MAC time scheme {cfg.time_scheme!r}")
         if cfg.projection not in ("chorin", "incremental"):
             raise ValueError(f"unknown MAC projection {cfg.projection!r}")
-        if cfg.diffusion != "explicit":
-            raise ValueError("the explicit sharded MAC step implements diffusion='explicit'")
+        if cfg.diffusion not in ("explicit", "implicit"):
+            raise ValueError(f"unknown MAC diffusion {cfg.diffusion!r}")
+        if cfg.diffusion == "implicit":
+            if implicit is None:
+                raise ValueError("diffusion='implicit' needs the implicit solves of the BCs "
+                                 "(cavity_implicit_local)")
+            if cfg.use_les or cfg.time_scheme != "euler":
+                raise ValueError("diffusion='implicit' is Crank–Nicolson within the euler step "
+                                 "with constant ν (models/mac.py)")
         self.cfg, self.mesh, self.bcs = cfg, mesh, bcs
+        self.implicit = implicit
+        if implicit is not None:  # the solves' tables move with the step
+            self.solve_u, self.solve_v = implicit.solve_u, implicit.solve_v
         self.use_ibm, self.ibm_ramp_steps = use_ibm, ibm_ramp_steps
         self.device = step_device(mesh, device)
+        self.ghost, self.ghost_width = None, None
+        if ibm_ghost is not None:
+            tables, self.ghost_width = partition_ghost_ibm2d(ibm_ghost, g.nx, g.ny, mesh,
+                                                             device=self.device)
+            self.ghost = GhostTables({"u": tables.u, "v": tables.v}, device=self.device)
         self.poisson = DistributedPoisson2D((g.ny, g.nx), g.dx, g.dy, cfg.poisson, mesh)
         self.reads_host = self.poisson.reads_host
         self.collectives = True
@@ -429,16 +489,32 @@ class MACExplicitStep(MAC2DBlockStep):
         grP, gcP = self.gr2, self.gc2
         conv_u, conv_v = _advect_local(U, V, grP, gcP, grP, gcP, ny, nx, dx, dy, cfg.scheme)
         visc_u, visc_v = self._viscous(U, V, les)
-        # the predictor on interior faces only (mac.py u[:, 1:-1], v[1:-1])
-        u_star = u_t + torch.where(gc0 >= 1, dt * (visc_u - conv_u), 0.0)
-        v_star = v_t + torch.where(gr0 >= 1, dt * (visc_v - conv_v), 0.0)
         if cfg.projection == "incremental":
-            # the lagged pressure gradient; the projection solves for the increment
             PW = halo_exchange_edges(p_warm, mesh, 1)
-            u_star = u_star + torch.where(
-                gc0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[1:-1, :-2]) * (1.0 / dx), 0.0)
-            v_star = v_star + torch.where(
-                gr0 >= 1, -dt * (PW[1:-1, 1:-1] - PW[:-2, 1:-1]) * (1.0 / dy), 0.0)
+            gpx = (PW[1:-1, 1:-1] - PW[1:-1, :-2]) * (1.0 / dx)
+            gpy = (PW[1:-1, 1:-1] - PW[:-2, 1:-1]) * (1.0 / dy)
+        if self.implicit is not None:
+            # Crank–Nicolson: (I − c∇²)u* = u + dt(−conv + ½ν∇²u) + c·(BC
+            # values), c = ½dtν, solved exactly on the pencils; the lagged
+            # pressure gradient of the incremental projection in the rhs
+            kit = self.implicit
+            c = 0.5 * dt * cfg.nu
+            ru = u_t + dt * (0.5 * visc_u - conv_u)
+            rv = v_t + dt * (0.5 * visc_v - conv_v)
+            if cfg.projection == "incremental":
+                ru = ru - dt * gpx
+                rv = rv - dt * gpy
+            ru = kit.rhs_fix_u(ru, c, gr0)
+            u_star = torch.where(gc0 >= 1, self.solve_u(ru, c), u_t)
+            v_star = torch.where(gr0 >= 1, self.solve_v(rv, c), v_t)
+        else:
+            # the predictor on interior faces only (mac.py u[:, 1:-1], v[1:-1])
+            u_star = u_t + torch.where(gc0 >= 1, dt * (visc_u - conv_u), 0.0)
+            v_star = v_t + torch.where(gr0 >= 1, dt * (visc_v - conv_v), 0.0)
+            if cfg.projection == "incremental":
+                # the lagged pressure gradient; the projection solves for the increment
+                u_star = u_star + torch.where(gc0 >= 1, -dt * gpx, 0.0)
+                v_star = v_star + torch.where(gr0 >= 1, -dt * gpy, 0.0)
         u_star, v_star, a = self._set_normal(u_star, v_star, ts)
 
         # --- IBM penalization and its body force
@@ -451,6 +527,15 @@ class MACExplicitStep(MAC2DBlockStep):
             u_star = u_star - du_ibm
             v_star = v_star - dv_ibm
             sums = [du_ibm.sum(), dv_ibm.sum()]
+        if self.ghost is not None:
+            # both components' sweeps share each exchange (a (1, ny_l, nx_l)
+            # plane each: the tables address the 3D layout with z = 0)
+            strength = ibm_ramp(ts.step, self.ibm_ramp_steps)
+            (u_star, du_g), (v_star, dv_g) = apply_ghost_forcing_stack(
+                [u_star[None], v_star[None]], [self.ghost.set("u"), self.ghost.set("v")], mesh,
+                self.ghost_width, strength)
+            u_star, v_star = u_star[0], v_star[0]
+            sums = [du_g.sum(), dv_g.sum()]
         if self.moving is not None:
             (u_star, v_star), d_mb = self.moving(
                 (u_star, v_star), ts.t, ibm_ramp(ts.step, self.ibm_ramp_steps))
@@ -515,10 +600,11 @@ class MACExplicitStep(MAC2DBlockStep):
                            mesh).clamp(min=1e-10)
             h = min(dx, dy)
             dt = cfg.cfl_target * cfl_scale * h / vel_max
-            if nu_total is None:
-                dt = dt.clamp(max=0.2 * h * h / cfg.nu)
-            else:
-                dt = torch.minimum(dt, self.visc_num / nu_total)
+            if self.implicit is None:  # no viscous bound under implicit diffusion
+                if nu_total is None:
+                    dt = dt.clamp(max=0.2 * h * h / cfg.nu)
+                else:
+                    dt = torch.minimum(dt, self.visc_num / nu_total)
             dt = dt.clamp(cfg.dt_min, cfg.dt_max)
             if cfg.warmup_steps > 0:
                 dt = torch.where(tstate.step < cfg.warmup_steps, self.warmup_dt, dt)
@@ -579,7 +665,8 @@ class MACExplicitStep(MAC2DBlockStep):
 
 def make_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, bcs: MACLocalBCs,
                            use_ibm: bool = False, ibm_ramp_steps: int = 0, moving_body=None,
-                           moving_scheme: str = "penalize", *, device=None) -> MACExplicitStep:
+                           moving_scheme: str = "penalize", implicit: MACImplicitLocal = None,
+                           ibm_ghost=None, *, device=None) -> MACExplicitStep:
     """Build the explicit-communication MAC step on the trimmed blocks.
 
     Returns ``step(tstate, cfl_scale[, mask_u_t, mask_v_t]) -> (tstate,
@@ -588,9 +675,12 @@ def make_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, bcs: MACLocalBCs,
     boundary-adjacent lines must be zero. ``moving_body`` (``ibm.MovingBody``)
     is forced toward its velocity by sharp masks rebuilt every step or, with
     ``moving_scheme="ghost"``, by the moving ghost (the body at least the
-    ghost's halo width + 1 samples inside the domain)."""
+    ghost's halo width + 1 samples inside the domain). ``implicit`` (e.g.
+    :func:`cavity_implicit_local`) gives ``diffusion="implicit"`` its
+    solves; ``ibm_ghost`` (the whole-grid ``ibm_ghost.GhostIBM2D``) the
+    static ghost-cell body, cut into this rank's tables here."""
     return MACExplicitStep(cfg, mesh, bcs, use_ibm, ibm_ramp_steps, moving_body, moving_scheme,
-                           device=device)
+                           implicit, ibm_ghost, device=device)
 
 
 def trim_face_masks(mask_u, mask_v):
@@ -613,7 +703,9 @@ def make_cavity_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, lid_velocity: 
                                   *, device=None) -> MACExplicitStep:
     """The explicit-communication MAC step of the lid-driven cavity."""
     bcs = cavity_mac_local_bcs(cfg.grid.ny, cfg.grid.nx, lid_velocity)
-    return make_mac_explicit_step(cfg, mesh, bcs, device=device)
+    implicit = (cavity_implicit_local(cfg.grid, mesh, lid_velocity)
+                if cfg.diffusion == "implicit" else None)
+    return make_mac_explicit_step(cfg, mesh, bcs, implicit=implicit, device=device)
 
 
 def make_cylinder_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, v_inf: float = 1.0,
@@ -628,6 +720,22 @@ def make_cylinder_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, v_inf: float
                                       perturb_ramp_steps=perturb_ramp_steps, mesh=mesh)
     return make_mac_explicit_step(cfg, mesh, bcs, use_ibm=True, ibm_ramp_steps=ibm_ramp_steps,
                                   device=device)
+
+
+def make_cylinder_mac_ghost_explicit_step(cfg: MACConfig, mesh: GridMesh, ghost,
+                                          v_inf: float = 1.0, perturb_amp: float = 0.01,
+                                          perturb_ramp_steps: int = 1000,
+                                          ibm_ramp_steps: int = 0, *,
+                                          device=None) -> MACExplicitStep:
+    """The ghost-cell cylinder (``cylinder_mac`` with ``ibm_scheme="ghost"``)
+    on the mesh: ``ghost`` is the whole-grid ``GhostIBM2D``, cut into this
+    rank's tables, which the step holds: ``step(tstate, cfl_scale)``."""
+    g = cfg.grid
+    bcs = external_flow_mac_local_bcs(g.ny, g.nx, g.dy, g.y_min, g.y_max, v_inf,
+                                      perturb_amp=perturb_amp,
+                                      perturb_ramp_steps=perturb_ramp_steps, mesh=mesh)
+    return make_mac_explicit_step(cfg, mesh, bcs, ibm_ramp_steps=ibm_ramp_steps,
+                                  ibm_ghost=ghost, device=device)
 
 
 def make_moving_body_mac_explicit_step(cfg: MACConfig, mesh: GridMesh, moving_body,

@@ -606,29 +606,33 @@ def make_cavity3d_stretched_explicit_step(cfg: StretchedMAC3DConfig, mesh: GridM
                                           device=device)
 
 
-def sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf: float, mesh: GridMesh):
+def sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf: float, mesh: GridMesh,
+                               inlet_profile=None):
     """The external flow of the stretched sphere: its outflow's mass balance
-    weighted by the x-face areas h_y⊗h_z."""
+    weighted by the x-face areas h_y⊗h_z; ``inlet_profile`` the whole-grid
+    (nz, ny) inflow modulation, or None."""
     fw = np.diff(np.asarray(z_faces))[:, None] * np.diff(np.asarray(y_faces))[None, :]
-    return external_flow3d_local_bcs(cfg.nx, cfg.ny, cfg.nz, v_inf, face_weights=fw, mesh=mesh)
+    return external_flow3d_local_bcs(cfg.nx, cfg.ny, cfg.nz, v_inf, face_weights=fw,
+                                     inlet_profile=inlet_profile, mesh=mesh)
 
 
 def make_sphere3d_stretched_explicit_step(cfg: StretchedMAC3DConfig, mesh: GridMesh, x_faces,
                                           y_faces, z_faces, v_inf: float = 1.0,
-                                          ibm_ramp_steps: int = 0, *,
+                                          ibm_ramp_steps: int = 0, inlet_profile=None, *,
                                           device=None) -> Stretched3DExplicitStep:
     """The explicit-communication stretched 3D step of the external flow past
-    an immersed body (``sphere_stretched``, central scheme): ``step(tstate,
-    cfl_scale, mask_u_t, mask_v_t, mask_w_t)``."""
+    an immersed body (``sphere_stretched``): ``step(tstate, cfl_scale,
+    mask_u_t, mask_v_t, mask_w_t)``."""
     return make_stretched3d_explicit_step(
         cfg, mesh, x_faces, y_faces, z_faces,
-        sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf, mesh), use_ibm=True,
-        ibm_ramp_steps=ibm_ramp_steps, device=device)
+        sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf, mesh, inlet_profile),
+        use_ibm=True, ibm_ramp_steps=ibm_ramp_steps, device=device)
 
 
 def make_sphere_ghost3d_stretched_explicit_step(cfg: StretchedMAC3DConfig, mesh: GridMesh,
                                                 x_faces, y_faces, z_faces, ghost,
-                                                v_inf: float = 1.0, ibm_ramp_steps: int = 0, *,
+                                                v_inf: float = 1.0, ibm_ramp_steps: int = 0,
+                                                inlet_profile=None, *,
                                                 device=None) -> Stretched3DExplicitStep:
     """The stretched ghost-cell sphere (``sphere_stretched`` with
     ``ibm_scheme="ghost"``): ``ghost`` is the whole-grid ``GhostIBM3D``, cut
@@ -636,8 +640,8 @@ def make_sphere_ghost3d_stretched_explicit_step(cfg: StretchedMAC3DConfig, mesh:
     cfl_scale)``."""
     return make_stretched3d_explicit_step(
         cfg, mesh, x_faces, y_faces, z_faces,
-        sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf, mesh), ibm_ghost=ghost,
-        ibm_ramp_steps=ibm_ramp_steps, device=device)
+        sphere_stretched_local_bcs(cfg, y_faces, z_faces, v_inf, mesh, inlet_profile),
+        ibm_ghost=ghost, ibm_ramp_steps=ibm_ramp_steps, device=device)
 
 
 def make_moving_body3d_stretched_explicit_step(cfg: StretchedMAC3DConfig, mesh: GridMesh,

@@ -18,18 +18,21 @@ single-device step            explicit step (this rank's blocks)
                               ``poisson2d_explicit.py``; the fused
                               predictor)
 ``CoupledStep``               ``transport_explicit.py`` (the cavity, θ)
-``MACStep``                   ``mac_explicit.py``: the cavity, the
-                              penalized cylinder, the moving body
+``MACStep``                   ``mac_explicit.py``: the cavity (explicit or
+                              implicit diffusion), the cylinder
+                              (penalized or ghost-cell), the moving body
 ``StretchedMACStep``          ``mac_stretched_explicit.py``: the same three
 ``MAC3DStep``                 ``mac3d_explicit.py``: the cavity, the sphere
-                              (penalized or ghost-cell)
+                              (penalized or ghost-cell, inlet modulation)
 ``StretchedMAC3DStep``        ``mac_stretched3d_explicit.py``: the cavity,
-                              the sphere (any scheme)
+                              the sphere (any scheme, inlet modulation)
 ``Transport3DStep``,          ``transport3d_explicit.py`` (the heated
-``StretchedTransport3DStep``  spheres, penalized or ghost-cell)
+``StretchedTransport3DStep``  spheres, penalized or ghost-cell, any θ
+                              scheme)
 ``BoussinesqStep``            ``boussinesq_explicit.py`` (heated cavity,
                               Rayleigh–Bénard)
-``Boussinesq3DStep``          ``boussinesq3d_explicit.py`` (heated cube)
+``Boussinesq3DStep``          ``boussinesq3d_explicit.py`` (heated cube,
+                              any flow scheme)
 ``PSStep``                    ``spectral_ps_explicit.py`` (full spectrum)
 ``CompressibleStep``          ``compressible_explicit.py``
 ``SpectralStep``              ``spectral_explicit.py``
@@ -40,19 +43,22 @@ single-device step            explicit step (this rank's blocks)
 ============================  ===========================================
 
 What a block step needs beyond the module (the BC's description, the lid
-or inflow speed, the IBM masks, the stretched faces, the moving body, the
-whole-grid ghost tables, the compressible cases' ghost map, the FEM lift)
-is the ``explicit_spec`` the case builders of ``cases.py`` leave on the
-module; where the explicit step takes extra blocks (IBM masks, the y
-rows, a solid mask), the returned step holds this rank's blocks of them,
-cut once when it is built (:class:`BoundStep`). Every pressure solve of the
-single-device steps and the MAC tiers' ``time_scheme="rk2"`` and
-``projection="incremental"`` pass through to the explicit steps. A step
-built without an ``explicit_spec``, of any other type, or with an option
-its explicit step does not implement (MAC ``diffusion="implicit"``, the 2D
-static ghost-cell cylinder, a 3D inlet modulation, the heated cube's
-upwind/TVD flow, the heated spheres' TVD θ) raises ``ValueError``: nothing
-runs the single-device step on every rank.
+or inflow speed, the 3D inlet modulation, the IBM masks, the stretched
+faces, the moving body, the whole-grid ghost tables, the compressible
+cases' ghost map, the FEM lift) is the ``explicit_spec`` the case builders
+of ``cases.py`` leave on the module; where the explicit step takes extra
+blocks (IBM masks, the y rows, a solid mask), the returned step holds this
+rank's blocks of them, cut once when it is built (:class:`BoundStep`).
+Every pressure solve of the single-device steps, the MAC tiers'
+``time_scheme="rk2"`` and ``projection="incremental"``, MAC
+``diffusion="implicit"``, the static 2D and 3D ghost-cell bodies, the
+spheres' inlet modulation, the heated cube's upwind/TVD flow and the
+heated spheres' TVD θ pass through to the explicit steps. A step built
+without an ``explicit_spec`` (by hand, not by a case builder), of any
+other type, or with an option no explicit step implements (a stretched 3D
+moving body with ``moving_scheme="ghost"``, which no case builds) raises
+``ValueError`` naming it: nothing runs the single-device step on every
+rank.
 
 Distributed red-black SOR: each full sweep runs two halo exchanges, one per
 colour, so the black half reads the freshly updated red values of the
@@ -213,19 +219,13 @@ def _bind(step, mesh: GridMesh, *fields, trim=None, rows=None):
     return BoundStep(step, blocks)
 
 
-def _no_inlet_profile(p):
-    if p.get("perturb"):
-        raise ValueError("the sharded 3D external flow has no inlet modulation: perturb must "
-                         f"be 0, got {p['perturb']}")
-
-
 def _sphere_step(kind, step, mesh, dev):
     """The sphere cases (uniform or stretched, heated or not; penalized or
     ghost-cell)."""
     from cfdsim_tpu_torch.parallel.mac3d_explicit import trim_face_masks3d
 
     p = _spec(step, {kind})
-    _no_inlet_profile(p)
+    profile = p["inlet_profile"]
     faces = tuple(p[f"{a}_faces"] for a in "xyz") if "x_faces" in p else None
     ghost = p["ibm_ghost"]
     ramp = p["ibm_ramp_steps"]
@@ -247,16 +247,17 @@ def _sphere_step(kind, step, mesh, dev):
 
         if ghost is not None:
             return m3e.make_sphere_ghost_mac3d_explicit_step(step.cfg, mesh, ghost, p["v_inf"],
-                                                             ramp, device=dev)
-        s = m3e.make_sphere_mac3d_explicit_step(step.cfg, mesh, p["v_inf"], ramp, device=dev)
+                                                             ramp, profile, device=dev)
+        s = m3e.make_sphere_mac3d_explicit_step(step.cfg, mesh, p["v_inf"], ramp, profile,
+                                                device=dev)
     else:
         from cfdsim_tpu_torch.parallel import mac_stretched3d_explicit as s3e
 
         if ghost is not None:
             return s3e.make_sphere_ghost3d_stretched_explicit_step(
-                step.cfg, mesh, *faces, ghost, p["v_inf"], ramp, device=dev)
+                step.cfg, mesh, *faces, ghost, p["v_inf"], ramp, profile, device=dev)
         s = s3e.make_sphere3d_stretched_explicit_step(step.cfg, mesh, *faces, p["v_inf"], ramp,
-                                                      device=dev)
+                                                      profile, device=dev)
     return _bind(s, mesh, *p["ibm_masks"], trim=trim_face_masks3d)
 
 
@@ -267,8 +268,9 @@ def make_sharded_step(step, mesh: GridMesh):
     global. An explicit step that takes extra blocks comes bound to this
     rank's blocks of them (:class:`BoundStep`). Raises ``ValueError`` for a
     step type with no counterpart, a step whose case left no
-    ``explicit_spec``, and an option the explicit step does not implement
-    (the explicit step's own refusal, which names it)."""
+    ``explicit_spec`` (one built by hand), the stretched 3D tier's moving
+    ghost, and an option the explicit step does not implement (the
+    explicit step's own refusal, which names it)."""
     from cfdsim_tpu_torch.models.boussinesq import BoussinesqStep
     from cfdsim_tpu_torch.models.boussinesq3d import Boussinesq3DStep
     from cfdsim_tpu_torch.models.compressible import CompressibleStep
@@ -320,9 +322,10 @@ def make_sharded_step(step, mesh: GridMesh):
         if name == "cylinder_oscillating":
             return me.make_moving_body_mac_explicit_step(
                 step.cfg, mesh, p["body"], p["ibm_ramp_steps"], p["moving_scheme"], device=dev)
-        if p["ibm_scheme"] != "penalize":
-            raise ValueError("the sharded cylinder_mac implements ibm_scheme='penalize' (no "
-                             f"explicit static 2D ghost-cell step), not {p['ibm_scheme']!r}")
+        if p["ibm_scheme"] == "ghost":
+            return me.make_cylinder_mac_ghost_explicit_step(
+                step.cfg, mesh, p["ibm_ghost"], p["v_inf"], p["perturb_amp"],
+                p["perturb_ramp_steps"], p["ibm_ramp_steps"], device=dev)
         s = me.make_cylinder_mac_explicit_step(
             step.cfg, mesh, p["v_inf"], p["perturb_amp"], p["perturb_ramp_steps"],
             p["ibm_ramp_steps"], device=dev)
@@ -357,6 +360,10 @@ def make_sharded_step(step, mesh: GridMesh):
             make_cavity3d_stretched_explicit_step,
         )
 
+        if step.moving_body is not None and step.moving_scheme == "ghost":
+            raise ValueError("moving_scheme='ghost' on the stretched 3D tier has no sharded "
+                             "counterpart (no case builds it; the penalized moving body has "
+                             "one: mac_stretched3d_explicit)")
         p = _spec(step, {"cavity3d_stretched", "sphere_stretched"})
         if step.explicit_spec[0] == "sphere_stretched":
             return _sphere_step("sphere_stretched", step, mesh, dev)

@@ -19,6 +19,8 @@ through ``torch.distributed.nn.functional``, so gradients flow through it.
   products with TF32 off, in its order, on its float64 1/λ);
 - :func:`dst_helmholtz_local`: the Dirichlet implicit-viscous Helmholtz
   solve of ``solvers/helmholtz.py``;
+- :class:`MacHelmholtzLocal`: the MAC components' implicit-viscous solve
+  of ``solvers/helmholtz.py::MacHelmholtz`` on trimmed face blocks;
 - :func:`fft2_pencil`: the complex FFT2 of the full spectrum in block
   layout (the pseudo-spectral, stable-fluids and periodic Poisson solves).
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from cfdsim_tpu_torch.parallel.halo import global_indices, halo_exchange_edges
 from cfdsim_tpu_torch.parallel.mesh import GridMesh, _quiet
@@ -40,7 +43,7 @@ from cfdsim_tpu_torch.solvers.fdm import (
     full_fp32_matmul,
     neumann_operator_1d,
 )
-from cfdsim_tpu_torch.solvers.helmholtz import dst1
+from cfdsim_tpu_torch.solvers.helmholtz import _axis_basis, dst1
 from cfdsim_tpu_torch.solvers.poisson import _dct_fwd, _dct_inv
 
 
@@ -360,3 +363,67 @@ def dst_helmholtz_local(b_b, coeff, dx: float, dy: float, mesh: GridMesh):
     t = dstx(t)
     t = from_x_pencil(t, mesh)
     return torch.where(interior, t.to(b_b.dtype), b_b)
+
+
+class MacHelmholtzLocal(nn.Module):
+    """The exact MAC-component Helmholtz solve (I − c·∇²) q = b of
+    ``solvers/helmholtz.py::MacHelmholtz`` on this rank's block of a
+    *trimmed* face array (ny, nx): ``kinds`` = (kind_y, kind_x) of
+    ``_axis_basis``, exactly one of them "dst1", the component's own
+    (normal) axis, whose unknowns are the interior faces 1 … n − 1 of the
+    trimmed axis (its line 0 is the boundary face).
+
+    The n − 1 interior faces cannot be pencil-split, but a pencil holds the
+    whole axis: each 1D transform of the normal axis runs on lines 1 … n − 1
+    of the complete axis and leaves line 0 at zero, which the division
+    carries with a denominator of 1, decoupled from the interior. Forward y
+    (y-pencil), forward x (x-pencil), the division by 1 − c·λ in the
+    x-pencil, inverse x, inverse y: six all-to-alls. ``forward(b_b, c)``
+    takes the right-hand side's block (its boundary line is ignored) and
+    ``c`` a number or a 0-dim device tensor; its boundary line comes back
+    zero."""
+
+    def __init__(self, shape, kinds, dx: float, dy: float, mesh: GridMesh):
+        super().__init__()
+        ny, nx = shape
+        if (kinds[0] == "dst1") == (kinds[1] == "dst1"):
+            raise ValueError(f"one axis of a MAC component is its normal (dst1) axis: {kinds}")
+        self.mesh = mesh
+        self.local_shape = (ny // mesh.py, nx // mesh.px)
+        _check_pencil(self.local_shape, mesh.py, mesh.px)
+        self.normal = 0 if kinds[0] == "dst1" else 1
+        fy, iy, lam_y = _axis_basis(kinds[0], ny - 1 if self.normal == 0 else ny, dy)
+        fx, ix, lam_x = _axis_basis(kinds[1], nx - 1 if self.normal == 1 else nx, dx)
+        self.fwd, self.inv = (fy, fx), (iy, ix)
+        # the table on the whole trimmed array, the boundary line's λ 0
+        if self.normal == 0:
+            lam_y = np.concatenate([[0.0], lam_y])
+        else:
+            lam_x = np.concatenate([[0.0], lam_x])
+        lam = lam_y[:, None] + lam_x[None, :]
+        if self.normal == 0:
+            lam[0, :] = 0.0
+        else:
+            lam[:, 0] = 0.0
+        self.register_buffer("lam", torch.from_numpy(np.ascontiguousarray(
+            lam[_x_pencil_rows(self.local_shape, mesh)]).astype(np.float32)).to(mesh.device))
+
+    def _along(self, fn, t, axis: int):
+        """``fn`` along ``axis``; on the normal axis, on lines 1 … n − 1 with
+        line 0 zero."""
+        if axis != self.normal:
+            return fn(t, axis)
+        inner = fn(t.narrow(axis, 1, t.shape[axis] - 1), axis)
+        return torch.cat([torch.zeros_like(t.narrow(axis, 0, 1)), inner], axis)
+
+    def forward(self, b_b, c):
+        mesh = self.mesh
+        if tuple(b_b.shape) != self.local_shape:
+            raise ValueError(f"solver built for blocks {self.local_shape}, got "
+                             f"{tuple(b_b.shape)}")
+        t = from_y_pencil(self._along(self.fwd[0], to_y_pencil(b_b, mesh), 0), mesh)
+        t = self._along(self.fwd[1], to_x_pencil(t, mesh), 1)
+        t = self._along(self.inv[1], t / (1.0 - c * self.lam), 1)
+        t = from_y_pencil(self._along(self.inv[0], to_y_pencil(from_x_pencil(t, mesh), mesh),
+                                      0), mesh)
+        return t.to(b_b.dtype)

@@ -8,7 +8,12 @@ takes the conservative finite-volume fluxes of the *projected* velocities
 (the dropped outflow face rebuilt with the same masked writes and summed
 shift as the momentum step's) and its open-domain ghosts as global-index
 writes on a width-1 halo: the inflow's Dirichlet mirror, zero gradient at
-the outflow and the lateral faces, adiabatic in z. The isothermal body's θ
+the outflow and the lateral faces, adiabatic in z. ``theta_scheme="tvd"``
+exchanges a width-2 halo instead and runs the single-device MUSCL face
+values (``mac_stretched3d._muscl_axis``'s van Leer slopes) on it: the
+slopes of the ghost lines are zeroed by global index, as the single-device
+slopes end there, and on the stretched grid the window takes its own lines
+of the face gaps and donor distances. The isothermal body's θ
 penalization or ghost-cell forcing and its heat flux (the Nusselt number)
 follow ``models/transport3d.py`` term for term, reduced over the mesh.
 """
@@ -29,6 +34,7 @@ from cfdsim_tpu_torch.models.transport3d import (
     Transport3DState,
     _flow_fields,
 )
+from cfdsim_tpu_torch.ops.limiters import vanleer_slope
 from cfdsim_tpu_torch.parallel.halo import halo_exchange_edges
 from cfdsim_tpu_torch.parallel.ibm_ghost_explicit import (
     GhostTables,
@@ -51,9 +57,34 @@ from cfdsim_tpu_torch.parallel.mesh import GridMesh, pmax, psum
 def _check(cfg: Transport3DConfig, ghost, ghost_c):
     if (ghost is None) != (ghost_c is None):
         raise ValueError("ghost and ghost_c must be given together")
-    if cfg.theta_scheme not in ("central", "upwind"):
-        raise ValueError("the sharded transport step implements theta_scheme central/upwind "
-                         "(tvd needs width-2 halos; single-device only)")
+    if cfg.theta_scheme not in ("central", "upwind", "tvd"):
+        raise ValueError(f"unknown theta_scheme {cfg.theta_scheme!r}")
+
+
+def _donor_gaps(faces):
+    """(1/gap, donor distance from below, donor distance from above) at every
+    face of an axis: the single-device MUSCL tables (``mac_stretched3d``'s
+    ``inv_df*``, ``d*l_f``, ``d*r_f``), float64."""
+    f = np.asarray(faces, np.float64)
+    m = _metrics(f)
+    g = np.concatenate([[m.xc[0] - m.h[0]], m.xc, [m.xc[-1] + m.h[-1]]])
+    return 1.0 / m.dfull, f - g[:-1], g[1:] - f
+
+
+def _muscl_window(q, inv_sp, d_lo, d_hi, axis: int, gidx, n: int):
+    """MUSCL (lo, hi) donor values at the faces between consecutive window
+    samples of ``q`` along ``axis`` (``_muscl_axis`` on a window): the van
+    Leer slopes of the samples whose global index ``gidx`` lies outside 0 …
+    n − 1 (the ghost and beyond) are zero, as the single-device slopes are
+    at the ghost-extended array's end samples."""
+    m = q.shape[axis]
+    lo, hi = q.narrow(axis, 0, m - 1), q.narrow(axis, 1, m - 1)
+    dq = (hi - lo) * inv_sp
+    k = dq.shape[axis]
+    g = vanleer_slope(dq.narrow(axis, 0, k - 1), dq.narrow(axis, 1, k - 1))
+    z = torch.zeros_like(g.narrow(axis, 0, 1))
+    g = torch.where((gidx < 0) | (gidx >= n), 0.0, torch.cat([z, g, z], axis))
+    return lo + g.narrow(axis, 0, m - 1) * d_lo, hi - g.narrow(axis, 1, m - 1) * d_hi
 
 
 class HeatedSphereExplicitStep(nn.Module):
@@ -82,14 +113,33 @@ class HeatedSphereExplicitStep(nn.Module):
         if table_c is not None:
             self.ghost_c = GhostTables({"c": table_c}, device=device)
         self.stretched = faces is not None
+        self.tvd = cfg.theta_scheme == "tvd"
         ny_l, nx_l = self.local_shape
         gy0, gx0 = mesh.iy * ny_l, mesh.ix * nx_l
+
+        def line(name, vec, start, axis, n=None):
+            if n is None:
+                n = nx_l if axis == 2 else ny_l
+            self.register_buffer(name, clamped_line(vec, start, n, axis, 3, device=device))
+
+        if self.tvd:
+            # the window's sample indices: k ↔ cell g0 − 2 + k along x and y
+            line("gx2", np.arange(g.nx + 4) - 2, gx0, 2, nx_l + 4)
+            line("gy2", np.arange(g.ny + 4) - 2, gy0, 1, ny_l + 4)
+            # the global x face index of each owned x face (the inflow's is 0)
+            line("fx_own", np.arange(g.nx + 1), gx0, 2, nx_l + 1)
+            if self.stretched:
+                # the window faces k ↔ face g0 − 1 + k, clamped where only
+                # zeroed slopes read them
+                for a, f, start, n, ax in (("x", faces[0], gx0 - 1, nx_l + 3, 2),
+                                           ("y", faces[1], gy0 - 1, ny_l + 3, 1)):
+                    for name, vec in zip(("inv_df", "dl", "dr"), _donor_gaps(f)):
+                        line(f"{name}{a}_win", vec, start, ax, n)
+                for name, vec in zip(("inv_df", "dl", "dr"), _donor_gaps(faces[2])):
+                    self.register_buffer(f"{name}z_line", torch.as_tensor(
+                        vec.astype(np.float32)[:, None, None], device=device))
         if self.stretched:
             mx, my, mz = (_metrics(f) for f in faces)
-
-            def line(name, vec, start, axis):
-                n = nx_l if axis == 2 else ny_l
-                self.register_buffer(name, clamped_line(vec, start, n, axis, 3, device=device))
 
             def zline(name, vec):
                 self.register_buffer(name, torch.as_tensor(
@@ -130,17 +180,25 @@ class HeatedSphereExplicitStep(nn.Module):
         v_s, v_n = V[:, 1:-1, 1:-1], V[:, 2:, 1:-1]
         w_b, w_t_ = Wz[:-1, 1:-1, 1:-1], Wz[1:, 1:-1, 1:-1]
         # θ's ghosts: the inflow mirror, zero gradient elsewhere, adiabatic z
-        TH = halo_exchange_edges(theta, mesh, 1)
-        TH = torch.where(cp == -1, 2.0 * cfg.theta_in - torch.roll(TH, -1, 2), TH)
-        TH = torch.where(cp == nx, torch.roll(TH, 1, 2), TH)
-        TH = torch.where(rp == -1, torch.roll(TH, -1, 1), TH)
-        TH = torch.where(rp == ny, torch.roll(TH, 1, 1), TH)
+        # (width 2 for the MUSCL slopes; the lines beyond the ghosts feed only
+        # zeroed slopes)
+        w = 2 if self.tvd else 1
+        rw, cw = (idx.r2, idx.c2) if self.tvd else (rp, cp)
+        TH = halo_exchange_edges(theta, mesh, w)
+        TH = torch.where(cw == -1, 2.0 * cfg.theta_in - torch.roll(TH, -1, 2), TH)
+        TH = torch.where(cw == nx, torch.roll(TH, 1, 2), TH)
+        TH = torch.where(rw == -1, torch.roll(TH, -1, 1), TH)
+        TH = torch.where(rw == ny, torch.roll(TH, 1, 1), TH)
+        TH2, TH = TH, (TH[:, 1:-1, 1:-1] if self.tvd else TH)
         te = torch.cat([TH[:1], TH, TH[-1:]], 0)
         th_c = te[1:-1, 1:-1, 1:-1]
         th_wv, th_ev = te[1:-1, 1:-1, :-2], te[1:-1, 1:-1, 2:]
         th_sv, th_nv = te[1:-1, :-2, 1:-1], te[1:-1, 2:, 1:-1]
         th_bv, th_tv = te[:-2, 1:-1, 1:-1], te[2:, 1:-1, 1:-1]
-        if cfg.theta_scheme == "upwind":
+        if self.tvd:
+            fxa_w, fxa_e, fya_s, fya_n, fza_b, fza_t = self._tvd_fluxes(
+                TH2, theta, U[:, 1:-1, 1:], V[:, 1:, 1:-1], Wz[:, 1:-1, 1:-1])
+        elif cfg.theta_scheme == "upwind":
             # at the inflow face the advective donor is θ_in, not the mirror
             donor_w = torch.where(u_w >= 0.0, th_wv, th_c)
             donor_w = torch.where((co == 0) & (u_w >= 0.0), cfg.theta_in, donor_w)
@@ -190,6 +248,33 @@ class HeatedSphereExplicitStep(nn.Module):
         neg_min, th_max = pmax(torch.stack([(-theta_new).amax(), theta_new.amax()]),
                                mesh).unbind(0)
         return theta_new, q_body, q_body * self.qscale, -neg_min, th_max
+
+    def _tvd_fluxes(self, TH2, theta, uf, vf, wf):
+        """The MUSCL advective fluxes at the owned cells' west/east,
+        south/north and bottom/top faces from the width-2 θ window ``TH2``
+        and the owned faces' velocities ``uf`` (x faces gx0 … gx0+nx_l),
+        ``vf``, ``wf`` (all nz+1 z faces)."""
+        cfg = self.cfg
+        g = cfg.grid
+        ny_l, nx_l = self.local_shape
+        if self.stretched:
+            mx = (self.inv_dfx_win, self.dlx_win, self.drx_win)
+            my = (self.inv_dfy_win, self.dly_win, self.dry_win)
+            mz = (self.inv_dfz_line, self.dlz_line, self.drz_line)
+        else:
+            mx, my, mz = ((1.0 / d, 0.5 * d, 0.5 * d) for d in (g.dx, g.dy, g.dz))
+        # window faces 1 … n_l + 1 are the owned ones
+        lo, hi = _muscl_window(TH2[:, 2:-2, :], *mx, 2, self.gx2, g.nx)
+        thx = torch.where(uf >= 0.0, lo[:, :, 1:nx_l + 2], hi[:, :, 1:nx_l + 2])
+        # at the inflow face the advective donor is θ_in (or the cell's θ)
+        thx = torch.where(self.fx_own == 0,
+                          torch.where(uf >= 0.0, cfg.theta_in, TH2[:, 2:-2, 2:3 + nx_l]), thx)
+        lo, hi = _muscl_window(TH2[:, :, 2:-2], *my, 1, self.gy2, g.ny)
+        thy = torch.where(vf >= 0.0, lo[:, 1:ny_l + 2], hi[:, 1:ny_l + 2])
+        lo, hi = ms3._muscl_axis(torch.cat([theta[:1], theta, theta[-1:]], 0), *mz, 0, True)
+        thz = torch.where(wf >= 0.0, lo, hi)
+        fx, fy, fz = uf * thx, vf * thy, wf * thz
+        return fx[:, :, :-1], fx[:, :, 1:], fy[:, :-1], fy[:, 1:], fz[:-1], fz[1:]
 
     def forward(self, ts: Transport3DState, cfl_scale, *ibm_args):
         mac_ts = mac3d.MAC3DState(u=ts.u, v=ts.v, w=ts.w, p=ts.p, t=ts.t, step=ts.step)

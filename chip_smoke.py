@@ -274,7 +274,13 @@ and the final ``{"ok": true, ...}`` line is not printed:
    runs: kernel B (and the multigrid's replicated 4² level, kernel A),
    kernel A on the masked cylinder and the predictor on the sharded paths
    that name them, no other kernel, and
-   as many RB-SOR and predictor launches as the single-device step; and the autotuner check:
+   as many RB-SOR and predictor launches as the single-device step; then
+   the five options the explicit steps took last (``SHARDED_SCHEMES``, 2
+   steps each at full width, no kernel launched: the 1024² MAC cavity with
+   implicit diffusion, the 720×240 ghost-cell ``cylinder_mac``, the
+   192×96×96 sphere with its inlet modulation, the Re = 3900 LES study's
+   320×160×160 stretched sphere, the 48³ heated cube with TVD flow, the
+   ghost-cell heated spheres with TVD θ), in the same band; and the autotuner check:
    ``python -m cfdsim_tpu_torch.examples.dct_live_programs --matrix check``
    in a child process (seven live captured DCT programs at 2048² with a
    4-plan cache; every replay within 1e-4 of the eager solve)
@@ -704,6 +710,29 @@ SHARDED_OPTIONS = [
     ("cavity_mac_1024_incremental", "cavity_mac",
      dict(n=1024, Re=1000.0, projection="incremental"), ()),
     ("cavity3d_mac_256_mg", "cavity3d_mac", dict(n=256, poisson="mg"), ()),
+]
+# the five options make_sharded_step maps since the explicit steps took
+# them (phase 5v), at full width, SHARDED_CASE_STEPS steps each, no kernel
+# launched: (label, case, builder arguments, the seeded fields: (names,
+# amplitude) or None). The implicit cavity and the heated cube start from a
+# seeded velocity (from rest, 2 steps move only the lid's or the walls'
+# neighbours), the heated spheres from a seeded θ (θ_in = 0 is flat but at
+# the body); the stretched sphere is the Re = 3900 LES study's
+# configuration (examples/sphere_les_re3900.py:55-63)
+SHARDED_SCHEMES = [
+    ("cavity_mac_1024_implicit", "cavity_mac", dict(n=1024, Re=1000.0, diffusion="implicit"),
+     ("uv", 0.1)),
+    ("cylinder_mac_ghost", "cylinder_mac", dict(ibm_scheme="ghost"), None),
+    ("sphere_inlet", "sphere", dict(perturb=0.05), None),
+    ("sphere_stretched_re3900", "sphere_stretched",
+     dict(nx=320, ny=160, nz=160, Re=3900.0, domain=(16.0, 8.0, 8.0), center=(4.0, 4.0, 4.0),
+          refine_strength=12.0, refine_width=0.7, scheme="tvd", ibm_profile="sharp",
+          perturb=0.02, ibm_ramp_steps=200, use_les=True, smagorinsky_constant=0.17), None),
+    ("heated_cube_48_tvd", "heated_cube", dict(n=48, flow_scheme="tvd"), ("uvw", 0.1)),
+    ("heated_sphere_ghost_tvd", "heated_sphere", dict(ibm_scheme="ghost", theta_scheme="tvd"),
+     (("theta",), 0.3)),
+    ("heated_sphere_stretched_ghost_tvd", "heated_sphere_stretched",
+     dict(ibm_scheme="ghost", theta_scheme="tvd"), (("theta",), 0.3)),
 ]
 SMOKE_OUT = ROOT / "out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -2794,22 +2823,11 @@ def phase_sharded_tiers(card, mesh):
         build_s = time.perf_counter() - t0
         d, _, d_ms = _timed_steps(step, shard_state(case.state, mesh), SHARDED_CASE_STEPS)
         r, _, r_ms = _timed_steps(case.step, case.state, SHARDED_CASE_STEPS)
-        got = dict(named_leaves(gather_state(d, mesh)))
-        want = dict(named_leaves(shard_state(r, mesh)))
         inner = getattr(step, "inner", step)
-        facts = dict(steps=SHARDED_CASE_STEPS, card=card, explicit_step=type(inner).__name__,
-                     build_s=build_s, ms_per_step=d_ms, single_device_ms_per_step=r_ms)
-        for f, w in want.items():
-            if w.ndim < 2:
-                continue
-            if f.split(".")[-1] == "p":
-                say(f"sharded_{name}_p", max_abs_err=float((got[f] - w).abs().max()),
-                    max_abs_p=float(w.abs().max()))
-                continue
-            _within(f"sharded_{name}_{f}", got[f], w, SHARDED_CASE_RTOL, SHARDED_CASE_ATOL,
-                    shape=list(w.shape), **facts)
-            facts = {}
-        del case, step, d, r, got, want
+        _hold_blocks(f"sharded_{name}", d, r, mesh, dict(
+            steps=SHARDED_CASE_STEPS, card=card, explicit_step=type(inner).__name__,
+            build_s=build_s, ms_per_step=d_ms, single_device_ms_per_step=r_ms))
+        del case, step, d, r
         torch.cuda.empty_cache()
 
     # bf16 storage on the explicit collocated step, from a seeded field
@@ -2845,6 +2863,7 @@ def phase_sharded_tiers(card, mesh):
     if any(launches.values()):
         raise AssertionError(f"a kernel ran on the sharded tiers: {launches}")
     option_launches = _sharded_options(card, mesh)
+    _sharded_schemes(card, mesh)
 
     # the autotuner's crash: seven live captured DCT programs, the plan cache
     # evicting, each replay against the eager solve (a crash ends the child)
@@ -2860,6 +2879,29 @@ def phase_sharded_tiers(card, mesh):
     return option_launches
 
 
+def _hold_blocks(prefix, d, r, mesh, facts):
+    """The sharded step's blocks ``d``, gathered, against the single-device
+    state ``r`` trimmed as ``shard_state`` trims it: every field of two or
+    more axes but p in the JAX GSPMD band (rtol 1e-4, atol 1e-5), bit
+    equality printed, the first line carrying ``facts``; p's largest |Δ|
+    printed beside max|p|."""
+    from cfdsim_tpu_torch.parallel.mesh import gather_state
+    from cfdsim_tpu_torch.parallel.sharded import shard_state
+
+    got = dict(named_leaves(gather_state(d, mesh)))
+    want = dict(named_leaves(shard_state(r, mesh)))
+    for f, w in want.items():
+        if w.ndim < 2:
+            continue
+        if f.split(".")[-1] == "p":
+            say(f"{prefix}_p", max_abs_err=float((got[f] - w).abs().max()),
+                max_abs_p=float(w.abs().max()), bit_equal=bool(torch.equal(got[f], w)))
+            continue
+        _within(f"{prefix}_{f}", got[f], w, SHARDED_CASE_RTOL, SHARDED_CASE_ATOL,
+                shape=list(w.shape), **facts)
+        facts = {}
+
+
 def _sharded_options(card, mesh):
     """The options that pass through ``make_sharded_step`` since the
     explicit steps took every pressure solve and MAC time scheme
@@ -2871,7 +2913,6 @@ def _sharded_options(card, mesh):
     on the sharded step and no other, and as many RB-SOR launches (A + B)
     and predictor launches as on the single-device step. Returns each
     sharded path's launches."""
-    from cfdsim_tpu_torch.parallel.mesh import gather_state
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
 
     out = {}
@@ -2884,21 +2925,10 @@ def _sharded_options(card, mesh):
         _reset_counts()
         r, _, r_ms = _timed_steps(case.step, case.state, SHARDED_CASE_STEPS)
         single_launches = _counts()
-        got = dict(named_leaves(gather_state(d, mesh)))
-        want = dict(named_leaves(shard_state(r, mesh)))
-        facts = dict(steps=SHARDED_CASE_STEPS, card=card, ms_per_step=d_ms,
-                     single_device_ms_per_step=r_ms, launches=dist_launches,
-                     single_device_launches=single_launches)
-        for f, w in want.items():
-            if w.ndim < 2:
-                continue
-            if f.split(".")[-1] == "p":
-                say(f"sharded_option_{label}_p", max_abs_err=float((got[f] - w).abs().max()),
-                    max_abs_p=float(w.abs().max()), bit_equal=bool(torch.equal(got[f], w)))
-                continue
-            _within(f"sharded_option_{label}_{f}", got[f], w, SHARDED_CASE_RTOL,
-                    SHARDED_CASE_ATOL, shape=list(w.shape), **facts)
-            facts = {}
+        _hold_blocks(f"sharded_option_{label}", d, r, mesh, dict(
+            steps=SHARDED_CASE_STEPS, card=card, ms_per_step=d_ms,
+            single_device_ms_per_step=r_ms, launches=dist_launches,
+            single_device_launches=single_launches))
         ran = {k for k, n in dist_launches.items() if n}
         rbsor = ("rbsor_a", "rbsor_a_cooperative", "rbsor_b")
         if ran != set(kernels) or sum(dist_launches[k] for k in rbsor) != sum(
@@ -2907,9 +2937,47 @@ def _sharded_options(card, mesh):
             raise AssertionError(f"sharded {label} launched {dist_launches} (expected "
                                  f"{sorted(kernels)}; single device {single_launches})")
         out[label] = dist_launches
-        del case, step, d, r, got, want
+        del case, step, d, r
         torch.cuda.empty_cache()
     return out
+
+
+def _sharded_schemes(card, mesh):
+    """The five options that pass through ``make_sharded_step`` since the
+    explicit steps took them (``SHARDED_SCHEMES``: MAC implicit diffusion,
+    the static 2D ghost cylinder, the 3D inlet modulation, the heated
+    cube's TVD flow, the heated spheres' TVD θ), at full width, 2 steps
+    each from the case's state (seeded where the list says) on the
+    world-size-1 group, against the single-device step: u, v, w, θ
+    (trimmed) in the JAX GSPMD band, bit equality printed, p's largest |Δ|
+    beside max|p|, the wall ms per step beside the single-device loop's;
+    no kernel launched on either side."""
+    from cfdsim_tpu_torch.parallel.sharded import make_sharded_step, shard_state
+
+    for label, name, kw, seeded in SHARDED_SCHEMES:
+        t0 = time.perf_counter()
+        case = build(name, device="cuda", **kw)
+        state = case.state
+        if seeded is not None:
+            names, amp = seeded
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            state = state._replace(**{k: getattr(state, k) + amp * torch.randn(
+                getattr(state, k).shape, generator=gen, device="cuda") for k in names})
+        step = make_sharded_step(case.step, mesh)
+        build_s = time.perf_counter() - t0
+        _reset_counts()
+        d, _, d_ms = _timed_steps(step, shard_state(state, mesh), SHARDED_CASE_STEPS)
+        r, _, r_ms = _timed_steps(case.step, state, SHARDED_CASE_STEPS)
+        launches = _counts()
+        inner = getattr(step, "inner", step)
+        _hold_blocks(f"sharded_scheme_{label}", d, r, mesh, dict(
+            steps=SHARDED_CASE_STEPS, card=card, explicit_step=type(inner).__name__,
+            build_s=build_s, ms_per_step=d_ms, single_device_ms_per_step=r_ms,
+            seeded=None if seeded is None else list(seeded[0]), launches=launches))
+        if any(launches.values()):
+            raise AssertionError(f"a kernel ran on the sharded {label}: {launches}")
+        del case, state, step, d, r
+        torch.cuda.empty_cache()
 
 
 def phase_bf16_storage(card):

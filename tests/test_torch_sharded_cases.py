@@ -235,28 +235,47 @@ def test_sharded_bf16_within_one_ulp(results, key):
         assert np.all(np.abs(a - b) <= ulp), (k, float(np.max(np.abs(a - b) - ulp)))
 
 
-# options the single-device steps have and the explicit steps do not
-# implement (ROADMAP item 27b): make_sharded_step raises a ValueError that
-# names each (the pressure solves, the fused predictor, rk2 and the
-# incremental projection pass through: tests/test_torch_sharded_options.py)
+# what the entry point still does not map: a step built by hand, which no
+# case builder left an explicit_spec on, and the stretched 3D tier's moving
+# ghost, which no case builds (ROADMAP "Deliberate differences");
+# make_sharded_step raises a ValueError that names each. The five options
+# it refused before (MAC implicit diffusion, the 2D static ghost cylinder,
+# the 3D inlet modulation, the heated cube's upwind/TVD flow, the heated
+# spheres' TVD θ) pass through: tests/test_torch_sharded_schemes.py
+
+
+def _hand_built_mac():
+    from cfdsim_tpu_torch.grid import Grid
+    from cfdsim_tpu_torch.models import mac
+
+    cfg = mac.MACConfig(grid=Grid(nx=16, ny=16, centering="cell"), nu=0.01)
+    return mac.make_step(cfg, mac.cavity_bcs(1.0), device="cpu")
+
+
+def _stretched3d_moving_ghost():
+    from cfdsim_tpu_torch.ibm import oscillating_sphere
+    from cfdsim_tpu_torch.models import mac3d
+    from cfdsim_tpu_torch.models import mac_stretched3d as ms3
+
+    n = 16
+    faces = [np.linspace(0.0, 4.0, n + 1) ** 1.1 for _ in range(3)]
+    cfg = ms3.StretchedMAC3DConfig(nx=n, ny=n, nz=n, nu=0.01)
+    body = oscillating_sphere((2.0, 2.0, 2.0), 0.5, 0.2, 5.0)
+    return ms3.make_step(cfg, mac3d.free_slip_bcs3d(), *faces, moving_body=body,
+                         moving_scheme="ghost", device="cpu")
+
+
 REFUSED = [
-    ("mac_implicit", "cavity_mac", dict(n=16, diffusion="implicit"), "diffusion"),
-    ("cylinder_mac_ghost", "cylinder_mac", dict(nx=48, ny=32, ibm_scheme="ghost"),
-     "ibm_scheme"),
-    ("sphere_inlet", "sphere", dict(_BOX, perturb=0.05), "perturb"),
-    ("heated_cube_tvd", "heated_cube", dict(n=8, flow_scheme="tvd"), "central flow"),
-    ("heated_sphere_theta_tvd", "heated_sphere", dict(_BOX, theta_scheme="tvd"),
-     "theta_scheme"),
+    ("hand_built_mac", _hand_built_mac, "explicit_spec"),
+    ("stretched3d_moving_ghost", _stretched3d_moving_ghost, "moving_scheme='ghost'"),
 ]
 
 
-@pytest.mark.parametrize("name,kw,match", [r[1:] for r in REFUSED], ids=[r[0] for r in REFUSED])
-def test_make_sharded_step_refuses_unported_option(name, kw, match):
-    from cfdsim_tpu_torch.cases import build
+@pytest.mark.parametrize("make,match", [r[1:] for r in REFUSED], ids=[r[0] for r in REFUSED])
+def test_make_sharded_step_refuses_unported_option(make, match):
     from cfdsim_tpu_torch.parallel.mesh import GridMesh
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step
 
     mesh = GridMesh(1, 1, 0, "gloo", torch.device("cpu"), None, None)
-    case = build(name, device="cpu", **kw)
     with pytest.raises(ValueError, match=match):
-        make_sharded_step(case.step, mesh)
+        make_sharded_step(make(), mesh)

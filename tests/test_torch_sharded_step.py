@@ -224,13 +224,12 @@ def test_mac_trimmed_lift_bitwise_exact():
 
 
 def test_make_sharded_step_refuses_what_it_cannot_map():
-    from cfdsim_tpu_torch.cases import build
     from cfdsim_tpu_torch.parallel.mesh import GridMesh
     from cfdsim_tpu_torch.parallel.sharded import make_sharded_step
+    from test_torch_sharded_cases import _hand_built_mac
 
     mesh = GridMesh(1, 1, 0, "gloo", torch.device("cpu"), None, None)
-    implicit = build("cavity_mac", n=16, diffusion="implicit", device="cpu")
-    with pytest.raises(ValueError, match="diffusion"):
-        make_sharded_step(implicit.step, mesh)
+    with pytest.raises(ValueError, match="explicit_spec"):
+        make_sharded_step(_hand_built_mac(), mesh)
     with pytest.raises(ValueError, match="no sharded counterpart for a Identity step"):
         make_sharded_step(torch.nn.Identity(), mesh)
