@@ -62,6 +62,7 @@ from cfdsim_tpu_torch.solvers.poisson import (
     _neighbor_sum_dirichlet,
     poisson_residual,
 )
+from cfdsim_tpu_torch.utils.profiling import CAPTURE, COPY_OUT, LOOP, RECORDER, REPLAY
 from cfdsim_tpu_torch.utils.tree import leaves, rebuild, tree_map
 
 SCHEMES = ("central", "upwind", "tvd", "supg", "supg_refparity")
@@ -507,6 +508,13 @@ class Chunk:
     while grad mode is on, before anything is captured: a differentiated
     chunk runs on the loop route.
 
+    The chunk's host work is recorded (``utils/profiling.py::RECORDER``):
+    a ``cfd.graph.replay`` per replay of its program and
+    ``cfd.chunk.copy_out`` on the graph route, ``cfd.chunk.loop`` on the
+    loop route, and ``cfd.capture`` around the capture. Those on the hot
+    path open and close without a ``finally``: the runner closes whatever
+    an exception leaves open (``Recorder.end_chunk``).
+
     The input state is the chunk's to use up, as the JAX chunk donates its
     argument (this implementation copies it into the static buffers). The
     returned state and metrics are copies out of the static buffers: they
@@ -552,10 +560,13 @@ class Chunk:
         if not torch.is_tensor(cfl_scale):
             cfl_scale = torch.tensor(cfl_scale, dtype=torch.float32, device=state.t.device)
         rows = []
+        RECORDER.open(LOOP)
         for _ in range(self.n_steps):
             state, m = self.step_fn(state, cfl_scale)
             rows.append(_row(m))
-        return state, _stacked(torch.stack(rows), m)
+        out = state, _stacked(torch.stack(rows), m)
+        RECORDER.close()
+        return out
 
     def _capture(self, state):
         from cfdsim_tpu_torch.utils.graphs import CapturedProgram
@@ -594,7 +605,8 @@ class Chunk:
 
     def _replay(self, state, cfl_scale):
         if self.program is None:
-            self._capture(state)
+            with RECORDER.span(CAPTURE):
+                self._capture(state)
         if state.t.device != self._state.t.device:
             raise ValueError(f"chunk captured on {self._state.t.device}, state on "
                              f"{state.t.device}")
@@ -605,8 +617,13 @@ class Chunk:
             self._cfl.fill_(float(cfl_scale))
         self._row.zero_()
         for _ in range(self.n_steps // self.steps_per_graph):
+            RECORDER.open(REPLAY)
             self.program.replay()
-        return tree_map(torch.clone, self._state), _stacked(self._rows.clone(), self._like)
+            RECORDER.close()
+        RECORDER.open(COPY_OUT)
+        out = tree_map(torch.clone, self._state), _stacked(self._rows.clone(), self._like)
+        RECORDER.close()
+        return out
 
 
 def make_chunk(cfg, step_fn: Callable, n_steps: int, *, device=None,

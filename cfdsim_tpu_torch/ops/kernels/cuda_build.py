@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from cfdsim_tpu_torch.utils.profiling import KERNEL_BUILD, RECORDER
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cfdsim_tpu_torch"
@@ -51,11 +53,15 @@ def find_nvcc() -> str:
 
 def build_library(source: str) -> Path:
     """Compile ``csrc/<source>`` unless a library of the same hash exists;
-    return the library's path."""
+    return the library's path. Recorded as a ``cfd.kernel.build`` span, and
+    a run of nvcc in ``RECORDER.kernel_compiles``; safe from several
+    threads (:func:`build_all`)."""
+    t0 = time.perf_counter_ns()
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
+        RECORDER.record(KERNEL_BUILD, t0, time.perf_counter_ns())
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
@@ -67,6 +73,8 @@ def build_library(source: str) -> Path:
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    RECORDER.count_compile()
+    RECORDER.record(KERNEL_BUILD, t0, time.perf_counter_ns())
     return lib
 
 

@@ -30,7 +30,7 @@ from torch import nn
 
 from cfdsim_tpu_torch.models.incompressible import make_chunk
 from cfdsim_tpu_torch.monitor import check_metrics
-from cfdsim_tpu_torch.utils.profiling import PerfTracker
+from cfdsim_tpu_torch.utils.profiling import CONTROL, READ, RECORDER, PerfTracker
 from cfdsim_tpu_torch.utils.tree import leaves, rebuild, tree_map
 
 
@@ -88,12 +88,24 @@ class Simulation:
 
     def _chunk(self, cfl_scale: float):
         """Run one chunk; return its metrics stacked per field as numpy
-        arrays, plus the simulated time, read in ONE device→host copy."""
-        self.state, m = self.chunk(self.state, cfl_scale)
-        flat = leaves(m)
-        host = torch.cat([torch.stack(flat).reshape(-1),
-                          self.state.t.reshape(1)]).cpu().numpy()
-        return rebuild(m, host[:-1].reshape(len(flat), -1)), float(host[-1])
+        arrays, plus the simulated time, read in ONE device→host copy.
+        Recorded as a ``cfd.chunk`` span (``utils/profiling.py``) around the
+        chunk's own spans and ``cfd.runner.read``, the copy, which waits for
+        the card."""
+        RECORDER.begin_chunk(self.cfg.chunk_steps)
+        try:
+            self.state, m = self.chunk(self.state, cfl_scale)
+            RECORDER.open(READ)
+            flat = leaves(m)
+            host = torch.cat([torch.stack(flat).reshape(-1),
+                              self.state.t.reshape(1)]).cpu().numpy()
+            out = rebuild(m, host[:-1].reshape(len(flat), -1)), float(host[-1])
+            RECORDER.close()
+        except BaseException:
+            RECORDER.end_chunk()  # closes what the exception left open
+            raise
+        RECORDER.close()  # cfd.chunk
+        return out
 
     def run(self):
         cfg = self.cfg
@@ -123,6 +135,8 @@ class Simulation:
                 break
 
             m_host, t_now = self._chunk(self.cfl_scale)
+            # the runner's turn, to the next chunk or the run's end
+            RECORDER.open(CONTROL)
             step += cfg.chunk_steps
             self.perf.add_steps(cfg.chunk_steps)
             chunk_idx += 1
@@ -178,16 +192,21 @@ class Simulation:
                 self.snapshot_fn(self.state, step, t_now)
                 next_snapshot += cfg.snapshot_interval
 
-            if cfg.log_every_chunks and chunk_idx % cfg.log_every_chunks == 0:
+            if (cfg.log_every_chunks and chunk_idx % cfg.log_every_chunks == 0
+                    and self.log.isEnabledFor(logging.INFO)):
                 h = self.metrics_history[-1]
+                host = self.perf.chunk_host_ms(last=cfg.log_every_chunks)
                 self.log.info(
-                    "step %d t=%.4f dt=%.2e div=%.3e E=%.4f speed=%.1f steps/s",
+                    "step %d t=%.4f dt=%.2e div=%.3e E=%.4f speed=%.1f steps/s "
+                    "launch=%.3f ms wait=%.3f ms",
                     step,
                     h["t"],
                     h["dt"],
                     h.get("div_post", float("nan")),
                     h["energy"],
                     self.perf.steps_per_sec,
+                    _or_nan(host["launch"]),
+                    _or_nan(host["wait"]),
                 )
                 if cfg.log_memory:
                     import psutil
@@ -195,6 +214,7 @@ class Simulation:
                     rss = psutil.Process().memory_info().rss / 1e6
                     self.log.info("host memory usage: %.1f MB", rss)
 
+        RECORDER.end_chunk()
         if pbar is not None:
             pbar.close()
         report = self.perf.report()
@@ -210,6 +230,10 @@ class Simulation:
             )
         self.log.info("Performance report: %s", report)
         return self.state, report
+
+
+def _or_nan(x):
+    return float("nan") if x is None else x
 
 
 class _UntilDone(nn.Module):

@@ -33,6 +33,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cfdsim_tpu_torch.utils.profiling import AUTOTUNE, RECORDER
+
 _MEM: dict[str, str] = {}
 _VARIANTS = ("rfft", "rfft2", "rfft_split", "packed", "matmul")
 # the deeper radix-2 peels (internal FFT length n/4, n/8) are candidates
@@ -113,7 +115,8 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
     program released before the next is captured, which keeps one
     program's memory pool alive at a time. (Several live programs replay
     correctly: the crash once met here was a cuFFT plan destroyed under a
-    live graph, which ``utils/graphs.py::CapturedProgram`` now prevents.)"""
+    live graph, which ``utils/graphs.py::CapturedProgram`` now prevents.)
+    Recorded as a ``cfd.autotune`` span (``utils/profiling.py``)."""
     from cfdsim_tpu_torch.solvers.poisson import NeumannDCT
     from cfdsim_tpu_torch.utils.graphs import CapturedProgram
 
@@ -121,40 +124,41 @@ def measure_dct_variants(shape, dx: float, dy: float, *, device, turns: int = 5,
     cuda = device.type == "cuda"
     if cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("measure_dct_variants cannot time inside a CUDA graph capture")
-    rng = np.random.default_rng(0)
-    ring = []
-    for _ in range(_ring_length(device, shape)):
-        r = rng.standard_normal(shape).astype(np.float32)
-        ring.append(torch.tensor(r - r.mean(), device=device))
-    times = {}
-    for v in _variants_for(shape):
-        try:
-            solver = NeumannDCT(shape, dx, dy, v, device=device)
-        except ValueError:  # the shape's sides do not divide as the variant needs
-            continue
+    with RECORDER.span(AUTOTUNE):
+        rng = np.random.default_rng(0)
+        ring = []
+        for _ in range(_ring_length(device, shape)):
+            r = rng.standard_normal(shape).astype(np.float32)
+            ring.append(torch.tensor(r - r.mean(), device=device))
+        times = {}
+        for v in _variants_for(shape):
+            try:
+                solver = NeumannDCT(shape, dx, dy, v, device=device)
+            except ValueError:  # the shape's sides do not divide as the variant needs
+                continue
 
-        def run(solver=solver):
-            for i in range(reps):
-                solver(ring[i % len(ring)])
+            def run(solver=solver):
+                for i in range(reps):
+                    solver(ring[i % len(ring)])
 
-        program = CapturedProgram(run) if cuda else None
-        run = program.replay if cuda else run
-        run()  # warm-up: cuFFT plans, the allocator, the graph's upload
-        times[v] = []
-        for _ in range(turns):
-            if cuda:
-                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                run()
-                stop.record()
-                stop.synchronize()
-                times[v].append(start.elapsed_time(stop) / reps)
-            else:
-                t0 = time.perf_counter()
-                run()
-                times[v].append((time.perf_counter() - t0) * 1e3 / reps)
-        del run, program, solver
-    return {v: statistics.median(t) for v, t in times.items()}
+            program = CapturedProgram(run) if cuda else None
+            run = program.replay if cuda else run
+            run()  # warm-up: cuFFT plans, the allocator, the graph's upload
+            times[v] = []
+            for _ in range(turns):
+                if cuda:
+                    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    run()
+                    stop.record()
+                    stop.synchronize()
+                    times[v].append(start.elapsed_time(stop) / reps)
+                else:
+                    t0 = time.perf_counter()
+                    run()
+                    times[v].append((time.perf_counter() - t0) * 1e3 / reps)
+            del run, program, solver
+        return {v: statistics.median(t) for v, t in times.items()}
 
 
 def cached_dct_variant(shape, *, device) -> str | None:

@@ -8,9 +8,10 @@ from __future__ import annotations
 
 import ctypes
 import gc
-import time
 
 import torch
+
+from cfdsim_tpu_torch.utils.profiling import CAPTURE_RECORD, RECORDER
 
 # a captured cuFFT execution runs on its plan's device memory: the plan must
 # outlive the graph. PyTorch's plan cache (``torch.backends.cuda.
@@ -43,7 +44,9 @@ class CapturedProgram:
     replay after the cache was cleared or shrunk below its size at capture
     raises ``RuntimeError``.
 
-    ``capture_seconds`` is the host time of capture and instantiation.
+    ``capture_seconds`` is the host time of capture and instantiation, read
+    from its ``cfd.capture.record`` span (``utils/profiling.py``). Each
+    capture counts in ``RECORDER.graph_captures``.
     With ``keep_graph`` (PyTorch 2.8 or later) the graph is kept beside its
     executable, so that :attr:`nodes` can count its nodes; a caller that
     only runs the program does not ask for it.
@@ -59,22 +62,24 @@ class CapturedProgram:
             fn()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(**({"keep_graph": True} if keep_graph else {}))
-        # no garbage collection inside the capture: a collected cycle that
-        # holds another program would release its graph and memory pool
-        # there, and that invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                fn()
-        finally:
-            if collecting:
-                gc.enable()
-        if keep_graph:
-            self.graph.instantiate()  # a kept graph is otherwise instantiated at its first replay
-        self.capture_seconds = time.perf_counter() - t0
+        with RECORDER.span(CAPTURE_RECORD) as record:
+            self.graph = torch.cuda.CUDAGraph(**({"keep_graph": True} if keep_graph else {}))
+            # no garbage collection inside the capture: a collected cycle that
+            # holds another program would release its graph and memory pool
+            # there, and that invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            if keep_graph:
+                # a kept graph is otherwise instantiated at its first replay
+                self.graph.instantiate()
+        self.capture_seconds = record.seconds
+        RECORDER.graph_captures += 1
         self.plans_at_capture = self._plans.size
         self.kept = keep_graph
         self.replays = 0
