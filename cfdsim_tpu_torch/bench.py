@@ -41,8 +41,8 @@ included), flops and bytes per cell of one step (``utils/roofline.py``,
 pre-fusion counts) against them. ``--cylinder``
 times the reference-parity cylinder at 600×180 with its pressure solve
 through kernel A and through streaming rbsor. ``--routes`` times kernel
-A's cluster and cooperative routes side by side per grid and sweep count,
-the measurement behind ``poisson_rb.plan_rbsor``. Every function here
+A's cluster, cooperative and tiled routes side by side per grid and sweep
+count, the measurement behind ``poisson_rb.plan_rbsor``. Every function here
 refuses to run without a CUDA device: a CPU number is not a device metric.
 
     python -m cfdsim_tpu_torch bench [--n 1024]
@@ -825,7 +825,8 @@ def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, masked=True, plan=None,
     args = (phi, rhs, grid.dx, grid.dy, sweeps, 1.7, "neumann", mask)
     fns = {"kernel": lambda: poisson_rb.rbsor(*args), "plain": lambda: poisson_rb.rbsor_ref(*args)}
     if plan is None:
-        plan = poisson_rb.plan_rbsor(shape, poisson_rb.max_cluster(device), sweeps=sweeps)
+        plan = poisson_rb.plan_rbsor(shape, poisson_rb.max_cluster(device), sweeps=sweeps,
+                                     sms=poisson_rb.card_sms(device))
     else:
         work = torch.empty_like(phi)
 
@@ -835,7 +836,7 @@ def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, masked=True, plan=None,
 
         fns["kernel"] = forced
     out = {"shape": list(shape), "sweeps": sweeps, "masked": masked,
-           "route": plan.route, "cluster": plan.cluster,
+           "route": plan.route, "cluster": plan.cluster, "tiles": plan.tiles,
            "fluid_cells": int(ny * nx - int(solid.sum()))}
     for which in ("plain", "kernel", "kernel", "plain"):
         n = reps if which == "kernel" else max(1, reps // 10)
@@ -843,43 +844,71 @@ def rbsor_ms(shape=(180, 600), sweeps=50, reps=20, masked=True, plan=None,
     return out
 
 
-ROUTE_SHAPES = ((64, 64), (128, 128), (256, 256), (512, 512), (180, 600))
-ROUTE_SWEEPS = (1, 2, 4, 8, 16, 32, 64)
+ROUTE_SHAPES = ((64, 64), (128, 128), (256, 256), (512, 512), (180, 600), (240, 720),
+                (360, 1200))
+ROUTE_SWEEPS = (1, 2, 4, 8, 16, 32, 64, 1500)
+CYLINDER_ROUTE_SHAPES = ((180, 600), (240, 720), (360, 1200))  # masked: the cylinder's solid
+# early exits checked every few sweeps: 400 sweeps in chunks of each of
+# these at tol 1e-8 (never reached), on the cylinders' grids
+ROUTE_CHECKS = (1, 2, 4, 8, 16)
+CHECKED_SWEEPS = 400
+CHECKED_ROUTE_SHAPES = ((180, 600), (240, 720))
 
 
 def run_routes(shapes=ROUTE_SHAPES, sweeps=ROUTE_SWEEPS, reps=10, device="cuda"):
-    """Kernel A's two routes side by side, one row per shape and sweep
-    count: the device ms of one call of ``sweeps`` Neumann sweeps on the
-    cluster the size plan gives the shape and on the cooperative kernel, in
-    turns cluster, cooperative, cooperative, cluster (the 180×600 grid with
-    the cylinder's solid mask). Each call first copies φ0 into a work
-    buffer, as :func:`poisson_rb.rbsor` clones it. These rows set
-    :data:`poisson_rb.CLUSTER_MIN_SWEEPS`."""
+    """Kernel A's routes side by side, one row per shape and sweep count:
+    the device ms of one call of ``sweeps`` Neumann sweeps on the cluster
+    the size plan gives the shape (where it fits one), on the cooperative
+    kernel and on the tiled route (where the card holds its tiles), in
+    turns cluster, cooperative, tiled, tiled, cooperative, cluster (the
+    cylinder's grids with its solid mask). A 1500-sweep call is the
+    cylinder's solve: 30 chunks of 50 with the early exit at tol 1e-8,
+    which float32 never reaches. Then, on :data:`CHECKED_ROUTE_SHAPES`,
+    :data:`CHECKED_SWEEPS` sweeps with that early exit checked every
+    :data:`ROUTE_CHECKS` sweeps (the row's ``check_every``). Each call
+    first copies φ0 into a work buffer, as :func:`poisson_rb.rbsor` clones
+    it. These rows set :data:`poisson_rb.CLUSTER_MIN_SWEEPS` and
+    :data:`poisson_rb.TILED_MIN_CELLS`, and show that the tiled route's
+    rule may read the solve's sweeps, not a chunk's."""
     device = _require_cuda(device)
     card = card_name_and_power_limit()
     most = poisson_rb.max_cluster(device)
+    sms = poisson_rb.card_sms(device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
     for shape in shapes:
         ny, nx = shape
         grid = Grid(nx=nx, ny=ny, x_max=20.0, y_max=4.0)
         mask = None
-        if shape == (180, 600):
+        if shape in CYLINDER_ROUTE_SHAPES:
             solid, _ = cylinder_masks(grid, (4.0, 2.0), 0.5)
             mask = torch.as_tensor(solid, dtype=torch.float32, device=device)
         rhs = torch.tensor(np.random.default_rng(0).standard_normal(shape), dtype=torch.float32,
                            device=device)
         phi0, work = torch.zeros_like(rhs), torch.empty_like(rhs)
         plans = {"cluster": poisson_rb.plan_rbsor(shape, most),  # by size alone
-                 "cooperative": poisson_rb.RbsorPlan("cooperative")}
-        for n in sweeps:
-            def call(plan, n=n):
+                 "cooperative": poisson_rb.RbsorPlan("cooperative"),
+                 "tiled": poisson_rb.tile_plan(shape, sms)}
+        plans = {k: p for k, p in plans.items() if p is not None and p.route == k}
+        solves = [(n, 1e-8, 50) if n == 1500 else (n, 0.0, 8) for n in sweeps]
+        if shape in CHECKED_ROUTE_SHAPES:
+            solves += [(CHECKED_SWEEPS, 1e-8, c) for c in ROUTE_CHECKS]
+        for n, tol, check in solves:
+
+            def call(plan, n=n, tol=tol, check=check):
                 work.copy_(phi0)
-                poisson_rb.solve_a(work, rhs, mask, plan, grid.dx, grid.dy, n, 1.7)
+                poisson_rb.solve_a(work, rhs, mask, plan, grid.dx, grid.dy, n, 1.7, "neumann",
+                                   tol, check, count)
 
             row = {"shape": list(shape), "masked": mask is not None, "sweeps": n,
-                   "cluster": plans["cluster"].cluster, "card": card}
-            for route in ("cluster", "cooperative", "cooperative", "cluster"):
+                   "check_every": check if tol > 0.0 else 0,
+                   "cluster": plans["cluster"].cluster if "cluster" in plans else 0,
+                   "tiles": plans["tiled"].tiles if "tiled" in plans else 0,
+                   "routed": poisson_rb.plan_rbsor(shape, most, sweeps=n, sms=sms).route,
+                   "card": card}
+            order = list(plans) + list(reversed(plans))
+            for route in order:
                 row.setdefault(f"{route}_device_ms", []).append(
-                    device_ms(lambda p=plans[route]: call(p), reps))
+                    device_ms(lambda p=plans[route]: call(p), reps if n < 400 else 2))
             yield row
 
 

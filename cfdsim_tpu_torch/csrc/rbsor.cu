@@ -1,8 +1,9 @@
 // Red-black SOR sweeps of the 5-point Poisson problem for NVIDIA Hopper
-// (sm_90a): three kernels that share one update expression.
+// (sm_90a): four kernels that share one update expression.
 //
 // Replaces the TPU kernels of cfdsim_tpu/ops/pallas/poisson_rb.py:
-//   * rbsor_cluster_kernel, rbsor_kernel <- rbsor_pallas (kernel body _kernel)
+//   * rbsor_cluster_kernel, tiled::rbsor_kernel, rbsor_kernel
+//                                        <- rbsor_pallas (kernel body _kernel)
 //   * rbsor_blocked_kernel               <- rbsor_pallas_blocked (_blocked_kernel)
 //
 // All run red-black SOR for  lap(phi) = rhs : cells are coloured by the
@@ -45,7 +46,29 @@
 // the same decision, and phi goes back to device memory once at the end.
 // Capacity is bound by registers: at most 8 rows of a column pair per
 // thread, 1024 threads per CTA. What bounds its time is instruction throughput:
-// a cluster has at most 16 SMs.
+// a cluster has at most 16 SMs. It keeps the short solves (the multigrid's
+// 2-sweep levels) and the grids below 4,096 cells.
+//
+// Kernel A, tiled route (tiled::rbsor_kernel): long solves on large grids,
+// spread over the whole card. One persistent cooperative launch of one CTA
+// per tile (at most one per SM, all co-resident); each CTA stages its tile
+// with a halo of 2K cells in a window of shared memory (the same segments
+// of column pairs in registers as the cluster route) and runs K sweeps on
+// its own, with only a CTA barrier between half-sweeps: stale rim cells
+// creep one cell inwards per half-sweep, so after 2K half-sweeps every
+// owned cell is exact, as in kernel B. Then the tiles exchange their rims
+// through double-buffered exchange buffers in L2: each CTA stores the owned
+// cells within 2K of its edge, releases a per-tile epoch flag at GPU scope,
+// and acquires the flags of its up to 8 neighbours before loading their
+// cells. Cross-SM synchronisation is paid once per K sweeps instead of
+// once per half-sweep. The early exit is the cluster route's, across all
+// CTAs: after each chunk one more exchange, the max residual of each CTA's
+// owned cells, a global atomicMax into a slot rotating by chunk, a grid
+// sync, and the same decision everywhere. What bounds it is the handoff
+// (store, release, poll, load: a few L2 round trips, ~1.5 us on 132 CTAs)
+// once a pass, then the half-sweeps over the window: a half-sweep
+// updates only the rows that can still reach the owned ones, about 2.1x
+// the owned cells at K = 5 on a 64-column window.
 //
 // Kernel A, cooperative route (rbsor_kernel): for a grid above the cluster's
 // capacity (chosen by size before the launch, never after a failure). One
@@ -90,6 +113,9 @@ constexpr int MAX_DEVICES = 64;
 constexpr int MAX_CLUSTER = 16;
 constexpr int CLUSTER_THREADS = 1024;
 constexpr int B_THREADS = 512;
+// words between two tiles' epoch flags on the tiled route: one 128-byte
+// line each, so a tile's pollers share no L2 line with another tile's
+constexpr int FLAG_STRIDE = 32;
 
 struct Relax {
   float ax, ay, denom_inv, omega, one_minus_omega;
@@ -259,7 +285,7 @@ __device__ __forceinline__ void halo_wait(uint64_t* bars, int k, uint32_t bytes)
   }
 }
 
-// One colour in the segment's rows off the band's edge rows (EDGE = false)
+// One colour in the segment's `rows` off the band's edge rows (EDGE = false)
 // or on them (EDGE = true); Q0 is the column parity of the colour in row 0,
 // so every row's parity is known when this is compiled. The row tests are
 // uniform over a warp (a warp holds one row segment); the update is computed
@@ -270,10 +296,11 @@ __device__ __forceinline__ void halo_wait(uint64_t* bars, int k, uint32_t bytes)
 // rows, counted on their halo mbarrier `colour` (so each band expects a
 // fixed byte count per half-sweep).
 template <int RT, int Q0, bool EDGE>
-__device__ __forceinline__ void sweep(Segment<RT>& s, const Relax& c, const Halo& h, int colour) {
+__device__ __forceinline__ void sweep(Segment<RT>& s, const Relax& c, const Halo& h, int colour,
+                                      unsigned int rows) {
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
-    if (!((s.rows >> r) & 1u) || ((((s.first | s.last) >> r) & 1u) != 0u) != EDGE) continue;
+    if (!((rows >> r) & 1u) || ((((s.first | s.last) >> r) & 1u) != 0u) != EDGE) continue;
     const int q = (Q0 + r) & 1;
     float& p = q ? s.p1[r] : s.p0[r];
     float e, w, n, so;
@@ -300,10 +327,12 @@ __device__ __forceinline__ uint32_t colour_cells(int gi, int colour, int nx) {
   return ((colour + gi) & 1) == 0 ? (nx + 1) / 2 : nx / 2;
 }
 
-// The segment's max residual over its updatable cells, as uint bits.
+// The segment's max residual over the cells of `cells` (bit 2r + parity),
+// as uint bits.
 template <int RT>
-__device__ __forceinline__ unsigned int segment_residual(const Segment<RT>& s, bool dirichlet,
-                                                         float ax, float ay, float two_a) {
+__device__ __forceinline__ unsigned int segment_residual(const Segment<RT>& s, unsigned int cells,
+                                                         bool dirichlet, float ax, float ay,
+                                                         float two_a) {
   unsigned int rmax = 0u;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
@@ -312,11 +341,11 @@ __device__ __forceinline__ unsigned int segment_residual(const Segment<RT>& s, b
     neighbours<RT, 0>(s, r, s.p0[r], e, w, n, so);
     const unsigned int v0 = __float_as_uint(residual(s.p0[r], e, w, n, so, s.r0[r], dirichlet,
                                                      ax, ay, two_a));
-    if ((s.live >> (2 * r)) & 1u) rmax = v0 > rmax ? v0 : rmax;
+    if ((cells >> (2 * r)) & 1u) rmax = v0 > rmax ? v0 : rmax;
     neighbours<RT, 1>(s, r, s.p1[r], e, w, n, so);
     const unsigned int v1 = __float_as_uint(residual(s.p1[r], e, w, n, so, s.r1[r], dirichlet,
                                                      ax, ay, two_a));
-    if ((s.live >> (2 * r + 1)) & 1u) rmax = v1 > rmax ? v1 : rmax;
+    if ((cells >> (2 * r + 1)) & 1u) rmax = v1 > rmax ? v1 : rmax;
   }
   return rmax;
 }
@@ -444,17 +473,17 @@ rbsor_cluster_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
       const bool odd = (parity0 ^ colour) != 0;
       __syncthreads();  // this band's previous half-sweep is in shared memory
       if (odd) {
-        sweep<RT, 1, false>(s, c, h, colour);  // reads no halo
+        sweep<RT, 1, false>(s, c, h, colour, s.rows);  // reads no halo
       } else {
-        sweep<RT, 0, false>(s, c, h, colour);
+        sweep<RT, 0, false>(s, c, h, colour, s.rows);
       }
       // the neighbours' previous edge cells (a chunk's first half-sweep
       // finds them waited for at the end of the chunk before)
       if (multi && hs > 0) halo_wait(bars, half - 1, halo_bytes[(half - 1) & 1]);
       if (odd) {
-        sweep<RT, 1, true>(s, c, h, colour);
+        sweep<RT, 1, true>(s, c, h, colour, s.rows);
       } else {
-        sweep<RT, 0, true>(s, c, h, colour);
+        sweep<RT, 0, true>(s, c, h, colour, s.rows);
       }
     }
     if (multi) halo_wait(bars, half - 1, halo_bytes[(half - 1) & 1]);
@@ -468,8 +497,8 @@ rbsor_cluster_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
     // other set. No CTA gets two chunks ahead, since each chunk's cluster
     // barrier waits for every CTA, and every CTA reads before it arrives.
     unsigned int* set = slots + (chunk & 1) * MAX_CLUSTER;
-    const unsigned int mx = block_max(segment_residual(s, dirichlet != 0, c.ax, c.ay, two_a),
-                                      scratch);
+    const unsigned int mx = block_max(
+        segment_residual(s, s.live, dirichlet != 0, c.ax, c.ay, two_a), scratch);
     if (threadIdx.x == 0) {
       for (int k = 0; k < nranks; ++k) *cluster.map_shared_rank(set + rank, k) = mx;
     }
@@ -492,6 +521,255 @@ rbsor_cluster_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
   }
   if (count != nullptr && rank == 0 && threadIdx.x == 0) *count += done;
 }
+
+// ---------------------------------------------------------------------------
+// kernel A, tiled route: one CTA per tile across the card, K sweeps a pass
+// ---------------------------------------------------------------------------
+
+// The tiles of an ny x nx grid: tr x tc owned cells each (the last row and
+// column of tiles may own fewer), staged in a window of sh x sw cells that
+// reaches h = 2K cells past the owned ones on each side, clipped at the
+// domain's first row and column (so the window starts on an even column).
+struct TileGrid {
+  int ny, nx, tr, tc, h, sh, sw, tiles_x;
+};
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+// Distance of a row (or column) from the owned span [lo, hi).
+__device__ __forceinline__ int span_distance(int i, int lo, int hi) {
+  return i < lo ? lo - i : (i >= hi ? i - hi + 1 : 0);
+}
+
+// The rows of the segment whose distance from the owned rows (4 bits a row
+// in `dist`) is at most lim.
+template <int RT>
+__device__ __forceinline__ unsigned int rows_within(unsigned int rows, unsigned int dist, int lim) {
+  unsigned int on = 0u;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (static_cast<int>((dist >> (4 * r)) & 15u) <= lim) on |= 1u << r;
+  }
+  return on & rows;
+}
+
+// The halo exchange after a pass: each thread stores its owned cells that
+// lie within h of the tile's edge (`pub`) into this epoch's buffer `xb` (at
+// their global places; the buffers alternate by epoch, so a neighbour one
+// pass ahead writes the other one), thread 0 releases the tile's epoch
+// flag at GPU scope once the whole CTA has stored (a barrier, then a
+// release store, which orders the stores the barrier made visible to it),
+// up to 8 threads acquire the neighbours' flags before a barrier, and each
+// thread loads its halo cells (`get`) into its registers and the staged
+// window. Both sides go through L2 (__stcg, __ldcg): no SM reads a stale
+// L1 line of a buffer it read two passes before.
+template <int RT>
+__device__ __forceinline__ void exchange(Segment<RT>& s, unsigned int pub, unsigned int get,
+                                         float* xb, int nx, unsigned int* flag, int watch,
+                                         const unsigned int* flags, unsigned int epoch) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if ((pub >> (2 * r)) & 1u) __stcg(xb + r * nx, s.p0[r]);
+    if ((pub >> (2 * r + 1)) & 1u) __stcg(xb + r * nx + 1, s.p1[r]);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) store_release(flag, epoch);
+  if (watch >= 0) {
+    while (load_acquire(flags + watch * FLAG_STRIDE) < epoch) {
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if ((get >> (2 * r)) & 1u) {
+      s.p0[r] = __ldcg(xb + r * nx);
+      s.cell[r * s.stride] = s.p0[r];
+    }
+    if ((get >> (2 * r + 1)) & 1u) {
+      s.p1[r] = __ldcg(xb + r * nx + 1);
+      s.cell[r * s.stride + s.hw] = s.p1[r];
+    }
+  }
+}
+
+namespace tiled {
+
+// Up to `chunks` chunks of `sweeps` sweeps, as rbsor_cluster_kernel, on a
+// cooperative launch of one CTA per tile (all co-resident). A CTA sweeps
+// its window in passes of k sweeps (a chunk's last pass takes what is
+// left) with only a CTA barrier between half-sweeps; half-sweep t of a
+// pass of k updates the rows within 2k - 1 - t of the owned ones (the rest
+// cannot reach them before the pass ends). Stale cells creep in from the
+// window's rim by one cell a half-sweep, so after the pass every owned cell
+// is exact; then the tiles exchange their rims. After a chunk they exchange
+// once more, so the residual reads current neighbours, reduce the max over
+// their owned updatable cells (uint bits) into a slot by chunk % 3 with
+// atomicMax, and take the same decision after a grid sync. `xbuf` holds
+// two ny x nx buffers; `flags` one epoch word per tile (FLAG_STRIDE apart),
+// then the 3 slots.
+template <int RT>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+rbsor_kernel(float* __restrict__ phi, const float* __restrict__ rhs,
+             const float* __restrict__ mask, TileGrid g, int k, int sweeps, int chunks, Relax c,
+             int dirichlet, int* __restrict__ count, float tol, float two_a,
+             float* __restrict__ xbuf, unsigned int* __restrict__ flags,
+             unsigned long long* __restrict__ launches) {
+  extern __shared__ __align__(16) float window_smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int tile = static_cast<int>(blockIdx.x);
+  const int tiles = static_cast<int>(gridDim.x);
+  unsigned int* slots = flags + tiles * FLAG_STRIDE;
+  if (tile == 0 && threadIdx.x == 0) {
+    count_launch(launches);
+    slots[0] = slots[1] = slots[2] = 0u;
+  }
+  unsigned int* flag = flags + tile * FLAG_STRIDE;
+  if (threadIdx.x == 0) *flag = 0u;
+
+  const int ty = tile / g.tiles_x;
+  const int tx = tile - ty * g.tiles_x;
+  const int oi0 = ty * g.tr, oj0 = tx * g.tc;  // the owned cells: [oi0, oi1) x [oj0, oj1)
+  const int oi1 = min(oi0 + g.tr, g.ny), oj1 = min(oj0 + g.tc, g.nx);
+  const int gi0 = max(oi0 - g.h, 0), gj0 = max(oj0 - g.h, 0);  // the window's origin
+  const int hw = g.sw / 2;
+  const int stride = g.sw;
+  float* sp = window_smem;  // (sh + 2) rows: one spare row per side, never written
+  unsigned int* scratch = reinterpret_cast<unsigned int*>(sp + (g.sh + 2) * stride);
+
+  // this thread's segment: window column pair m, window rows l0 .. l0 + RT - 1
+  const int txw = (hw + 31) / 32 * 32;
+  const int m = static_cast<int>(threadIdx.x) % txw;
+  const int l0 = static_cast<int>(threadIdx.x) / txw * RT;
+  const int gj = gj0 + 2 * m;  // the pair's even column
+  Segment<RT> s;
+  s.cell = sp + (l0 + 1) * stride + m;
+  s.stride = stride;
+  s.hw = hw;
+  s.live = s.exists = s.rows = s.first = s.last = s.n_reg = s.n_clamp = 0u;
+  s.has_w = gj > 0;
+  s.has_e = gj + 2 < g.nx;
+  s.has_odd = gj + 1 < g.nx;
+  s.s_clamp = gi0 + l0 == 0;
+  s.up = s.down = 0u;
+  unsigned int own = 0u, pub = 0u, get = 0u, dist = 0u;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    s.p0[r] = s.p1[r] = s.r0[r] = s.r1[r] = 0.0f;
+    const int li = l0 + r;
+    const int gi = gi0 + li;
+    if (li >= g.sh || gi >= g.ny) continue;
+    s.rows |= 1u << r;
+    if (li + 1 < g.sh && gi + 1 < g.ny) s.n_reg |= 1u << r;
+    if (gi == g.ny - 1) s.n_clamp |= 1u << r;
+    const int di = span_distance(gi, oi0, oi1);
+    dist |= static_cast<unsigned int>(min(di, 15)) << (4 * r);
+    if (m >= hw) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int lj = 2 * m + q;
+      const int j = gj0 + lj;
+      if (j >= g.nx) continue;
+      const unsigned int bit = 1u << (2 * r + q);
+      const size_t gidx = static_cast<size_t>(gi) * g.nx + j;
+      const float v = phi[gidx];
+      if (q) {
+        s.p1[r] = v;
+        s.r1[r] = rhs[gidx];
+      } else {
+        s.p0[r] = v;
+        s.r0[r] = rhs[gidx];
+      }
+      s.cell[r * stride + q * hw] = v;
+      s.exists |= bit;
+      const int dj = span_distance(j, oj0, oj1);
+      const bool frame = gi == 0 || gi == g.ny - 1 || j == 0 || j == g.nx - 1;
+      const bool frozen = (mask != nullptr && mask[gidx] >= 0.5f) || (dirichlet && frame);
+      // a cell on the window's rim lacks a neighbour unless the domain's edge clamps it
+      const bool whole = (li > 0 || gi == 0) && (li < g.sh - 1 || gi == g.ny - 1) &&
+                         (lj > 0 || j == 0) && (lj < g.sw - 1 || j == g.nx - 1);
+      if (!frozen && whole) s.live |= bit;
+      if (di == 0 && dj == 0) {
+        own |= bit;
+        if (gi - oi0 < g.h || oi1 - 1 - gi < g.h || j - oj0 < g.h || oj1 - 1 - j < g.h) pub |= bit;
+      } else if (di <= g.h && dj <= g.h) {
+        get |= bit;
+      }
+    }
+  }
+  // thread n < 8 watches the n-th of the 8 tiles around this one, if it exists
+  int watch = -1;
+  if (threadIdx.x < 8) {
+    const int n = static_cast<int>(threadIdx.x) + (threadIdx.x >= 4 ? 1 : 0);  // skip the centre
+    const int ny_ = ty + n / 3 - 1, nx_ = tx + n % 3 - 1;
+    if (ny_ >= 0 && ny_ < tiles / g.tiles_x && nx_ >= 0 && nx_ < g.tiles_x) {
+      watch = ny_ * g.tiles_x + nx_;
+    }
+  }
+  const size_t cells = static_cast<size_t>(g.ny) * g.nx;
+  const size_t base = static_cast<size_t>(gi0 + l0) * g.nx + gj;  // the segment's (0, even) cell
+  // every flag and slot is reset, and every window staged from phi, before
+  // any tile waits on a flag or writes phi
+  grid.sync();
+
+  const int parity0 = (gi0 + l0 + gj0) & 1;  // row 0's column parity of colour 0
+  const Halo none = {0u, 0u, 0u, 0u};  // sweep() off a band's edge pushes nothing
+  unsigned int epoch = 0u;
+  bool fresh = true;  // the window holds current cells (phi itself at the start)
+  int done = 0;
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    for (int swept = 0; swept < sweeps;) {
+      const int kp = min(k, sweeps - swept);
+      if (!fresh) {
+        ++epoch;
+        exchange(s, pub, get, xbuf + (epoch & 1u) * cells + base, g.nx, flag, watch, flags,
+                 epoch);
+      }
+      fresh = false;
+      for (int hs = 0; hs < 2 * kp; ++hs) {
+        const unsigned int on = rows_within<RT>(s.rows, dist, 2 * kp - 1 - hs);
+        __syncthreads();  // the window's previous half-sweep is in shared memory
+        if ((parity0 ^ (hs & 1)) != 0) {
+          sweep<RT, 1, false>(s, c, none, 0, on);
+        } else {
+          sweep<RT, 0, false>(s, c, none, 0, on);
+        }
+      }
+      swept += kp;
+    }
+    ++done;
+    if (chunk + 1 == chunks) break;
+    ++epoch;
+    exchange(s, pub, get, xbuf + (epoch & 1u) * cells + base, g.nx, flag, watch, flags, epoch);
+    fresh = true;
+    __syncthreads();
+    const unsigned int mx = block_max(
+        segment_residual(s, own & s.live, dirichlet != 0, c.ax, c.ay, two_a), scratch);
+    if (threadIdx.x == 0) atomicMax(slots + chunk % 3, mx);
+    grid.sync();
+    const unsigned int res = __ldcg(slots + chunk % 3);
+    // the slot of chunk + 2 was last read before this chunk's grid sync,
+    // and is next written after the one of chunk + 1
+    if (tile == 0 && threadIdx.x == 0) slots[(chunk + 2) % 3] = 0u;
+    if (!(__uint_as_float(res) > tol)) break;
+  }
+
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if ((own >> (2 * r)) & 1u) phi[base + r * g.nx] = s.p0[r];
+    if ((own >> (2 * r + 1)) & 1u) phi[base + r * g.nx + 1] = s.p1[r];
+  }
+  if (count != nullptr && tile == 0 && threadIdx.x == 0) *count += done;
+}
+
+}  // namespace tiled
 
 // ---------------------------------------------------------------------------
 // kernel A, cooperative route: grids above the cluster's capacity
@@ -909,6 +1187,55 @@ int cfd_rbsor_cluster(void* phi, const void* rhs, const void* mask, int ny, int 
                            rows_max, sweeps, chunks, Relax{ax, ay, denom_inv, omega, one_minus_omega},
                            dirichlet, static_cast<int*>(count), tol, two_a,
                            static_cast<unsigned long long*>(launches));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A, tiled route: the whole solve in one cooperative launch of one
+// CTA per tile of tile_rows x tile_cols owned cells (tile_cols even, both
+// at least 2 * sweeps_per_pass, the staged width tile_cols + 4 *
+// sweeps_per_pass a multiple of 64), each thread a column pair over
+// rows_per_thread (1, 2 or 4) window rows; sweeps and chunks as
+// cfd_rbsor_cluster. xbuf: 2 * ny * nx floats of scratch; flags:
+// flag_words >= 32 * tiles + 3 words of scratch (the kernel resets them).
+int cfd_rbsor_tiled(void* phi, const void* rhs, const void* mask, int ny, int nx, int tile_rows,
+                    int tile_cols, int rows_per_thread, int sweeps_per_pass, int sweeps,
+                    int chunks, float ax, float ay, float denom_inv, float omega,
+                    float one_minus_omega, int dirichlet, void* count, float tol, float two_a,
+                    void* xbuf, void* flags, int flag_words, void* stream, void* launches) {
+  TileGrid g;
+  g.ny = ny;
+  g.nx = nx;
+  g.tr = tile_rows;
+  g.tc = tile_cols;
+  g.h = 2 * sweeps_per_pass;
+  g.sh = tile_rows + 2 * g.h;
+  g.sw = tile_cols + 2 * g.h;
+  g.tiles_x = (nx + tile_cols - 1) / tile_cols;
+  const int tiles = g.tiles_x * ((ny + tile_rows - 1) / tile_rows);
+  const int rt = rows_per_thread;
+  const int threads = g.sw / 2 * ((g.sh + rt - 1) / rt);
+  if (sweeps_per_pass < 1 || tile_rows < g.h || tile_cols < g.h || tile_cols % 2 != 0 ||
+      g.sw % 64 != 0 || threads > CLUSTER_THREADS || tiles * FLAG_STRIDE + 3 > flag_words ||
+      (rt != 1 && rt != 2 && rt != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (static_cast<size_t>(g.sh + 2) * g.sw + 32) * sizeof(float);
+  float* phi_p = static_cast<float*>(phi);
+  const float* rhs_p = static_cast<const float*>(rhs);
+  const float* mask_p = static_cast<const float*>(mask);
+  Relax c{ax, ay, denom_inv, omega, one_minus_omega};
+  int* count_p = static_cast<int*>(count);
+  float* xbuf_p = static_cast<float*>(xbuf);
+  unsigned int* flags_p = static_cast<unsigned int*>(flags);
+  auto* launches_p = static_cast<unsigned long long*>(launches);
+  void* args[] = {&phi_p, &rhs_p, &mask_p, &g, &sweeps_per_pass, &sweeps, &chunks, &c,
+                  &dirichlet, &count_p, &tol, &two_a, &xbuf_p, &flags_p, &launches_p};
+  void* kernel = rt == 1   ? reinterpret_cast<void*>(tiled::rbsor_kernel<1>)
+                 : rt == 2 ? reinterpret_cast<void*>(tiled::rbsor_kernel<2>)
+                           : reinterpret_cast<void*>(tiled::rbsor_kernel<4>);
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(tiles), dim3(threads), args,
+                                                      smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

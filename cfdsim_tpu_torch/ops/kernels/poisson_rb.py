@@ -10,12 +10,14 @@ The port of ``cfdsim_tpu/ops/pallas/poisson_rb.py``:
   ``max(1, iters // check_every)`` chunks of ``check_every`` sweeps, each
   run only while the max residual after the previous chunk is above
   ``tol``. :func:`plan_rbsor` picks its route by size and sweeps before
-  the launch: a grid that fits the registers and shared memory of one
-  thread-block cluster runs the whole solve, early exit included, in one
-  launch of ``csrc/rbsor.cu::rbsor_cluster_kernel``; a larger one, or a
-  short solve on large bands, runs ``rbsor_kernel``, one cooperative launch
-  per chunk with a device flag.
-  Either way the host never waits for the residual.
+  the launch: a long solve on a large grid runs the whole solve, early
+  exit included, in one cooperative launch of
+  ``csrc/rbsor.cu::tiled::rbsor_kernel`` across the card (one CTA per
+  tile, halo exchanges through L2 every few sweeps); another grid that
+  fits the registers and shared memory of one thread-block cluster does
+  so in one launch of ``rbsor_cluster_kernel``; a larger one, or a short
+  solve on large bands, runs ``rbsor_kernel``, one cooperative launch per
+  chunk with a device flag. The host never waits for the residual.
 - :func:`rbsor_blocked` (kernel B, ``rbsor_blocked_kernel``) is the
   counterpart of ``rbsor_pallas_blocked``: Neumann, unmasked, temporally
   blocked, K = ``sweeps_per_pass`` sweeps per pass on tiles of
@@ -67,6 +69,25 @@ CELLS_PER_CTA = 4096
 # at 4; at 256², 4,096 cells per CTA, 0.90× at 2)
 LARGE_BAND = 8192
 CLUSTER_MIN_SWEEPS = 32
+# The tiled route spreads one solve over the whole card, one CTA per tile,
+# and pays a halo exchange through L2 (1.45 µs on 132 CTAs, PERF.md) once
+# every SWEEPS_PER_PASS sweeps: the masked 180×600 1500-sweep solve takes
+# 2.39, 1.50, 1.30, 1.27, 1.21, 1.24 ms at K = 1 … 6 on the H100 (the
+# cluster 2.84). `bench --routes` has it faster than the cluster and the
+# cooperative kernel from 64² (4,096 cells) at 4 sweeps or more, and on
+# most grids at 1 or 2, so TILED_MIN_CELLS is measured. TILED_MIN_SWEEPS
+# is not a crossover but a fence: it keeps the multigrid's 2-sweep
+# smoothing calls on the routes they were measured on. An early exit checked
+# every few sweeps pays an exchange, a reduction and a grid sync a chunk,
+# and still beats the cluster at a check every sweep (400 masked sweeps at
+# 180×600: 1.61 ms against 1.84; at 240×720 1.84 against 3.19), so the
+# rule reads the solve's sweeps, not a chunk's.
+SWEEPS_PER_PASS = 5
+TILE_WIDTH = 64  # staged columns of a tile: 32 column pairs, one warp a row
+TILED_MIN_SWEEPS = 8
+TILED_MIN_CELLS = 4096
+TILE_ROWS_PER_THREAD = (1, 2, 4)  # the instantiations of tiled::rbsor_kernel
+FLAG_STRIDE = 32  # words between two tiles' epoch flags (csrc/rbsor.cu): one 128-byte line
 # kernel B's default tile rows (rows_per_block=None): 32 for passes of up
 # to 2 sweeps, 64 above, where the 2K halo rows weigh more (PERF.md)
 TILE_ROWS = (32, 64)
@@ -94,6 +115,15 @@ KERNEL_A_COOP = CudaKernel(
     # ctl, count, tol, 2(ax+ay), stream
     [_p, _p, _p, _i, _i, _i, _f, _f, _f, _f, _f, _i, _p, _p, _f, _f, _p],
 )
+KERNEL_A_TILED = CudaKernel(
+    "rbsor.cu",
+    "cfd_rbsor_tiled",
+    # φ, rhs, mask, ny, nx, tile rows, tile cols, rows per thread, sweeps per
+    # pass, sweeps per chunk, chunks, ax, ay, denom_inv, ω, 1−ω, dirichlet,
+    # count, tol, 2(ax+ay), exchange buffers, flags, flag words, stream
+    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _i, _p, _f, _f, _p, _p, _i,
+     _p],
+)
 KERNEL_B = CudaKernel(
     "rbsor.cu",
     "cfd_rbsor_blocked",
@@ -101,15 +131,18 @@ KERNEL_B = CudaKernel(
     # denom_inv, ω, 1−ω, parity0, stream
     [_p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f, _i, _p],
 )
-KERNELS = (KERNEL_A, KERNEL_A_COOP, KERNEL_B)
+KERNELS = (KERNEL_A, KERNEL_A_COOP, KERNEL_A_TILED, KERNEL_B)
 
 
 class RbsorPlan(NamedTuple):
     """How kernel A runs one problem: ``route`` "cluster" (the grid in one
     cluster of ``cluster`` CTAs of ``threads`` threads, each CTA a band of
     ``rows_per_cta`` rows or one fewer, each thread a column pair over
-    ``rows_per_thread`` rows, with ``smem_bytes`` of shared memory) or
-    "cooperative" (the other fields 0)."""
+    ``rows_per_thread`` rows, with ``smem_bytes`` of shared memory),
+    "tiled" (``tiles`` CTAs, each owning a tile of ``rows_per_cta`` ×
+    ``tile_cols`` cells and sweeping ``sweeps_per_pass`` sweeps between halo
+    exchanges; threads, rows per thread and shared memory as the cluster's)
+    or "cooperative" (the other fields 0)."""
 
     route: str
     cluster: int = 0
@@ -117,6 +150,9 @@ class RbsorPlan(NamedTuple):
     threads: int = 0
     rows_per_thread: int = 0
     smem_bytes: int = 0
+    tiles: int = 0
+    tile_cols: int = 0
+    sweeps_per_pass: int = 0
 
 
 ROWS_PER_THREAD = (1, 2, 4, 8)  # the instantiations of rbsor_cluster_kernel
@@ -143,16 +179,50 @@ def band_plan(shape, cluster: int, smem_limit: int):
     return rows, tx * -(-rows // rt), rt, smem
 
 
-def plan_rbsor(shape, max_cluster: int, smem_limit: int = SMEM_LIMIT,
-               sweeps: int | None = None) -> RbsorPlan:
-    """Kernel A's route for a grid of ``shape`` and a solve of at most
-    ``sweeps`` sweeps (None: any number), chosen before the launch: the
-    cluster route when the grid fits one cluster of at most ``max_cluster``
-    CTAs (:func:`band_plan`), with one CTA per :data:`CELLS_PER_CTA` cells
-    and at least as many as it needs, unless its bands hold more than
-    :data:`LARGE_BAND` cells and the solve runs fewer than
-    :data:`CLUSTER_MIN_SWEEPS` sweeps; else the cooperative route."""
+def tile_plan(shape, sms: int, sweeps_per_pass: int = SWEEPS_PER_PASS):
+    """The tiled route's plan on a card of ``sms`` SMs, or None where the
+    grid needs more tiles than that: windows :data:`TILE_WIDTH` columns
+    wide, so a tile owns ``TILE_WIDTH − 4K`` columns (K sweeps a pass, a
+    halo of 2K a side); as many rows of tiles as the SMs left allow, each
+    tile at least 2K rows (so its halo reaches only the 8 tiles around it);
+    each thread a column pair over the fewest rows
+    (:data:`TILE_ROWS_PER_THREAD`) that keep a CTA at 1024 threads. Shared
+    memory: the window with a spare row per side, and 32 words of scratch."""
     ny, nx = shape
+    halo = 2 * sweeps_per_pass
+    cols = TILE_WIDTH - 2 * halo
+    tiles_x = -(-nx // cols)
+    if cols < halo or tiles_x > sms:
+        return None
+    rows = max(halo, -(-ny // (sms // tiles_x)))
+    staged = rows + 2 * halo
+    rt = next((r for r in TILE_ROWS_PER_THREAD
+               if -(-staged // r) * TILE_WIDTH // 2 <= CLUSTER_THREADS), None)
+    if rt is None:
+        return None
+    return RbsorPlan("tiled", rows_per_cta=rows, threads=TILE_WIDTH // 2 * -(-staged // rt),
+                     rows_per_thread=rt, smem_bytes=4 * ((staged + 2) * TILE_WIDTH + 32),
+                     tiles=tiles_x * -(-ny // rows), tile_cols=cols,
+                     sweeps_per_pass=sweeps_per_pass)
+
+
+def plan_rbsor(shape, max_cluster: int, smem_limit: int = SMEM_LIMIT,
+               sweeps: int | None = None, sms: int = 0) -> RbsorPlan:
+    """Kernel A's route for a grid of ``shape`` and a solve of at most
+    ``sweeps`` sweeps (None: any number), chosen before the launch: on a
+    card of ``sms`` SMs (0: the tiled route is not considered) the tiled
+    route (:func:`tile_plan`) for a solve of at least
+    :data:`TILED_MIN_SWEEPS` sweeps on at least :data:`TILED_MIN_CELLS`
+    cells; else the cluster route when the grid fits one cluster of at most
+    ``max_cluster`` CTAs (:func:`band_plan`), with one CTA per
+    :data:`CELLS_PER_CTA` cells and at least as many as it needs, unless its
+    bands hold more than :data:`LARGE_BAND` cells and the solve runs fewer
+    than :data:`CLUSTER_MIN_SWEEPS` sweeps; else the cooperative route."""
+    ny, nx = shape
+    if sms and sweeps is not None and sweeps >= TILED_MIN_SWEEPS and ny * nx >= TILED_MIN_CELLS:
+        plan = tile_plan(shape, sms)
+        if plan is not None:
+            return plan
     most = min(max_cluster, MAX_CLUSTER, ny)
     fits = [c for c in range(1, most + 1) if band_plan(shape, c, smem_limit)]
     if not fits:
@@ -222,6 +292,11 @@ def max_cluster(device) -> int:
                                f"({KERNEL_A.error_string(rc)})")
         _max_cluster[index] = out.value
     return _max_cluster[index]
+
+
+def card_sms(device) -> int:
+    """The SMs of ``device``: the tiled route's most tiles."""
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
 
 
 def _coeffs(dx: float, dy: float):
@@ -353,7 +428,7 @@ def rbsor(phi0, rhs, dx: float, dy: float, iters: int = 100, omega: float = 1.7,
     # the most sweeps the solve runs: every chunk of the early exit
     check = max(1, check_every)
     sweeps = max(1, iters // check) * check if tol > 0.0 else iters
-    plan = plan_rbsor(shape, max_cluster(device), sweeps=sweeps)
+    plan = plan_rbsor(shape, max_cluster(device), sweeps=sweeps, sms=card_sms(device))
     with torch.cuda.device(device):
         solve_a(out, rhs, mask, plan, dx, dy, iters, omega, bc, tol, check_every, chunks_run)
     return out
@@ -377,13 +452,24 @@ def solve_a(phi, rhs, mask, plan: RbsorPlan, dx: float, dy: float, iters: int, o
     fields = 3 if mask is None else 4
     most = max(1, iters // check) * check if tol > 0.0 else iters
     report_cost(4 * fields * ny * nx, FLOPS_PER_UPDATE * ny * nx * most)
+    # the cluster and tiled routes run the whole early exit in one launch: up
+    # to max(1, iters // check) chunks of `check` sweeps; without tol one
+    # chunk of `iters`
+    sweeps, chunks = (check, max(1, iters // check)) if tol > 0.0 else (iters, 1)
     if plan.route == "cluster":
-        # the whole early exit in one launch: up to max(1, iters // check)
-        # chunks of `check` sweeps; without tol one chunk of `iters`
-        sweeps, chunks = (check, max(1, iters // check)) if tol > 0.0 else (iters, 1)
         KERNEL_A(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, plan.cluster,
                  plan.rows_per_cta, plan.threads, plan.rows_per_thread, plan.smem_bytes,
                  sweeps, chunks, *coeffs, count_ptr, float(tol), 2.0 * (ax + ay), stream)
+        return
+    if plan.route == "tiled":
+        # scratch the kernel resets itself: two exchange buffers, an epoch
+        # flag per tile and three residual slots (no fill launch)
+        xbuf = torch.empty((2, ny, nx), dtype=torch.float32, device=phi.device)
+        flags = torch.empty(FLAG_STRIDE * plan.tiles + 3, dtype=torch.int32, device=phi.device)
+        KERNEL_A_TILED(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, plan.rows_per_cta,
+                       plan.tile_cols, plan.rows_per_thread, plan.sweeps_per_pass, sweeps, chunks,
+                       *coeffs, count_ptr, float(tol), 2.0 * (ax + ay), xbuf.data_ptr(),
+                       flags.data_ptr(), flags.numel(), stream)
         return
     if tol <= 0.0:
         KERNEL_A_COOP(phi.data_ptr(), rhs.data_ptr(), mask_ptr, ny, nx, iters, *coeffs,

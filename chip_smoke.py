@@ -20,18 +20,26 @@ and the final ``{"ok": true, ...}`` line is not printed:
    rank's window (a 1024² field's 514×513 block at an odd origin, and a
    513×1024 edge window) within 1e-6 of its twin, the cropped block
    beside the whole field's output. Then the RB-SOR kernels:
-   kernel A (Neumann, Dirichlet, masked; 30 sweeps) on every route of its
-   plan: a cluster of 1 at (32, 48), the problem of
+   kernel A (Neumann, Dirichlet, masked; 30 sweeps) on every route of
+   its plan, each solve on the route its plan takes and, where that is
+   the tiled route, on the route the plan gives without the card's SM
+   count: a cluster of 1 at (32, 48), the problem of
    tests/test_pallas.py:12-28, of 2 at (37, 129), of 8 at (128, 256), of
    16 at (180, 600) with the cylinder's solid mask and (512, 512) (40
-   sweeps: its bands take the cluster from 32), and the cooperative kernel
-   above the cluster's capacity at (360, 1200) with the cylinder's mask
-   and (768, 768); kernel B against kernel A and against
+   sweeps: its bands take the cluster from 32, 8 rows a thread), the
+   cooperative kernel above the cluster's capacity at (360, 1200) with
+   the cylinder's mask and (768, 768), and the tiled route from (37, 129)
+   up but for (768, 768); the tiled route bit-equal to its twin on the cylinders' masked solves (a
+   50-sweep chunk and the 1500-sweep early exit at 180×600, a tol reached
+   after 3 chunks, and 240×720), one launch each, with its device ms;
+   kernel B against kernel A and against
    its plain version on each load route: TMA at (64, 48) K=3, (72, 32) K=8
    and (1024, 1024) with a tail pass, cp.async at (1000, 1030) and (65,
-   33); the early exit on each route (48², and a tol reached after 3
-   chunks at 180×600 and 360×1200, and at 180×600 with a residual check
-   after every sweep: the same chunk count as the plain version); kernel
+   33); the early exit on each route (48² on a cluster of 1, and a tol
+   reached after 3 chunks at 180×600 on a cluster of 16 and the tiled
+   route and at 360×1200 on the cooperative kernel and the tiled route,
+   and at 180×600 with a residual check after every sweep on a cluster of
+   16 and the tiled route: the same chunk count as the plain version); kernel
    B on rank windows (``parallel/poisson2d_explicit.py``): K sweeps of a
    sub-array at an odd global origin with ``parity0`` = 1, bit for bit
    against its twin, on the TMA (520×600, K = 2) and cp.async (515×601,
@@ -298,7 +306,7 @@ and the final ``{"ok": true, ...}`` line is not printed:
    ω=1.7, early exit at 1e-8 checked every 50 sweeps), 200 steps through
    runner.Simulation, health check on; finite, max |u| ≤ 5, fx finite,
    kernel-A launches = steps + warm-up (the whole early-exit solve is one
-   cluster launch) and chunks run = steps × 30 (all run, counted on the
+   launch of the tiled route) and chunks run = steps × 30 (all run, counted on the
    device; the warm-up's are put back with the step's buffers);
    then 5 steps against the streaming rbsor solve from the same state (u,
    v atol 1e-5; p less its mean within 1e-3 of its max)
@@ -338,9 +346,10 @@ and the final ``{"ok": true, ...}`` line is not printed:
    cells/s of the main path fused and unfused (eager, host dispatch
    included) and the device time of one step; the predictor kernel vs
    plain torch at 1024²; (every DCT variant per shape: phase 5a); kernel
-   A per 50-sweep call on each route (the masked 180×600 chunk on a
-   cluster of 16, 32×48 on 1, 128×256 on 8, the masked 360×1200 on the
-   cooperative kernel), the multigrid's 512² 2-sweep call on the
+   A per 50-sweep call on each route (the masked 180×600 chunk on the
+   tiled route and on a cluster of 16, 32×48 on 1, 128×256 on 8, the
+   masked 360×1200 on the tiled route and the cooperative kernel), the
+   multigrid's 512² 2-sweep call on the
    cooperative route its plan takes and on a cluster of 16, and the
    cluster route's synchronisation per half-sweep at minimal work on
    clusters of 1, 8 and 16; kernel B per 1-, 2-, 4- and 8-sweep call at
@@ -450,7 +459,7 @@ from cfdsim_tpu_torch.solvers.poisson import (
     poisson_residual,
 )
 from cfdsim_tpu_torch.solvers.riemann import cons_to_prim
-from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit
+from cfdsim_tpu_torch.utils.profiling import card_name_and_power_limit, device_ms
 from cfdsim_tpu_torch.utils.tree import leaves, named_leaves
 from cfdsim_tpu_torch.validation import (
     GHIA_U,
@@ -479,16 +488,19 @@ RBSOR_B_ATOL = 5e-6  # tests/test_pallas.py:69-70
 B_WINDOWS = [((3, 6), (520, 600), 2), ((5, 2), (515, 601), 3)]
 # the predictor on a rank's window: (origin, window) of a 1024² field
 PREDICTOR_WINDOWS = [((255, 511), (514, 513)), ((0, 0), (513, 1024))]
-# kernel A's grids, one route or more each on the H100 (max cluster 16):
-# (32, 48) the problem of tests/test_pallas.py:12-28, a cluster of 1;
+# kernel A's grids, one route or more each on the H100 (max cluster 16,
+# 132 SMs). Each solve runs on the route its plan takes and, where that is
+# the tiled route, also on the route the plan gives without the card's SM
+# count: (32, 48) the problem of tests/test_pallas.py:12-28, a cluster of 1;
 # (37, 129) 2; (128, 256) 8; the cylinder's (180, 600) and, at 40 sweeps,
-# (512, 512) 16;
-# the cylinder at twice its resolution (360, 1200) and (768, 768) above the
-# cluster's capacity: the cooperative route
+# (512, 512) 16 (its bands take the cluster from rb.CLUSTER_MIN_SWEEPS, 8
+# rows a thread); the cylinder at twice its resolution (360, 1200) and
+# (768, 768) above the cluster's capacity: the cooperative route; the tiled
+# route from (37, 129) up, but not at (768, 768), whose tiles would need
+# more than 1024 threads
 KERNEL_A_SHAPES = [(32, 48), (37, 129), (128, 256), (180, 600), (512, 512), (360, 1200),
                    (768, 768)]
-# 30 sweeps as in tests/test_pallas.py; 512², the largest band (8 rows per
-# thread), takes the cluster at rb.CLUSTER_MIN_SWEEPS sweeps or more
+# 30 sweeps as in tests/test_pallas.py
 KERNEL_A_SWEEPS = {(512, 512): 40}
 CYLINDER_SHAPES = {(180, 600), (360, 1200)}  # these take the cylinder's solid mask
 # (ny, nx, tile rows or None for the default, K, sweeps): tests/test_pallas.py:61,
@@ -703,7 +715,7 @@ SHARDED_OPTIONS = [
      ("predictor",)),
     ("cylinder_ref_parity", "cylinder", dict(ref_parity=True), ()),
     ("cylinder_ref_parity_rbsor_pallas", "cylinder",
-     dict(ref_parity=True, poisson=CYLINDER_KERNEL_POISSON), ("rbsor_a",)),
+     dict(ref_parity=True, poisson=CYLINDER_KERNEL_POISSON), ("rbsor_a_tiled",)),
     ("heated_cavity_1024_mg", "heated_cavity", dict(n=1024, Ra=1e4, poisson="mg:2"),
      ("rbsor_b", "rbsor_a")),
     ("cavity_mac_1024_rk2", "cavity_mac", dict(n=1024, Re=1000.0, time_scheme="rk2"), ()),
@@ -849,9 +861,27 @@ def _cylinder_solid(shape):
     return solid
 
 
-def phase_rbsor_vs_plain():
+def _rbsor_by(plan, phi0, rhs, dx, dy, iters, omega, bc="neumann", mask=None, tol=0.0,
+              check_every=8, chunks_run=None):
+    """``rb.rbsor`` on the route of ``plan``: a new φ."""
+    out = phi0.clone()
+    m = None if mask is None else mask.to(torch.float32).contiguous()
+    rb.solve_a(out, rhs, m, plan, dx, dy, iters, omega, bc, tol, check_every, chunks_run)
+    return out
+
+
+def _a_plans(shape, max_cluster, sms, sweeps):
+    """Kernel A's plans for one solve: the one ``rb.rbsor`` takes, then,
+    if another, the one the plan gives without the card's SM count (the
+    cluster or the cooperative route)."""
+    plans = [rb.plan_rbsor(shape, max_cluster, sweeps=sweeps, sms=sms),
+             rb.plan_rbsor(shape, max_cluster, sweeps=sweeps)]
+    return plans[:1] if plans[1] == plans[0] else plans
+
+
+def phase_rbsor_vs_plain(card):
     worst_a = worst_b = 0.0
-    max_cluster = rb.max_cluster("cuda")
+    max_cluster, sms = rb.max_cluster("cuda"), rb.card_sms("cuda")
     routes_a, routes_b = set(), set()
     # kernel A: the test_pallas problem (h = 1/32), then larger grids; the
     # cylinder's grids use its own solid mask
@@ -860,16 +890,18 @@ def phase_rbsor_vs_plain():
         if shape in CYLINDER_SHAPES:
             solid = _cylinder_solid(shape)
         sweeps = KERNEL_A_SWEEPS.get(shape, 30)
-        plan = rb.plan_rbsor(shape, max_cluster, sweeps=sweeps)
-        routes_a.add((plan.route, plan.cluster))
-        for bc, mask in [("neumann", None), ("dirichlet", None), ("neumann", solid)]:
-            m = None if mask is None else _cuda(mask)
-            args = (_cuda(phi0), _cuda(rhs), 1.0 / 32, 1.0 / 32, sweeps, 1.7, bc, m)
-            worst_a = max(worst_a, _check("rbsor_a_vs_plain", rb.rbsor(*args), rb.rbsor_ref(*args),
-                                          RBSOR_A_ATOL, shape=list(shape), bc=bc,
-                                          masked=mask is not None, sweeps=sweeps, route=plan.route,
-                                          cluster=plan.cluster))
-    want = {("cluster", 1), ("cluster", 8), ("cluster", 16), ("cooperative", 0)}
+        for plan in _a_plans(shape, max_cluster, sms, sweeps):
+            routes_a.add((plan.route, plan.cluster))
+            for bc, mask in [("neumann", None), ("dirichlet", None), ("neumann", solid)]:
+                m = None if mask is None else _cuda(mask)
+                args = (_cuda(phi0), _cuda(rhs), 1.0 / 32, 1.0 / 32, sweeps, 1.7, bc, m)
+                worst_a = max(worst_a, _check(
+                    "rbsor_a_vs_plain", _rbsor_by(plan, *args), rb.rbsor_ref(*args), RBSOR_A_ATOL,
+                    shape=list(shape), bc=bc, masked=mask is not None, sweeps=sweeps,
+                    route=plan.route, cluster=plan.cluster,
+                    rows_per_thread=plan.rows_per_thread, tiles=plan.tiles))
+    want = {("cluster", 1), ("cluster", 2), ("cluster", 8), ("cluster", 16), ("cooperative", 0),
+            ("tiled", 0)}
     if not want <= routes_a:
         raise AssertionError(f"kernel A took the routes {sorted(routes_a)}, not all of {want}")
     # kernel B against A and against its plain version
@@ -892,12 +924,15 @@ def phase_rbsor_vs_plain():
         raise AssertionError(f"kernel B took the routes {sorted(routes_b)}, not all of "
                              f"{sorted(rb.B_ROUTES)}")
     worst_b = max(worst_b, _window_checks())
-    # the early exit, one solve per route: a tol the 48² problem reaches,
-    # then on the cylinder's grid (a cluster of 16) and at twice its
-    # resolution (cooperative) the residual the plain version has after 3
-    # chunks; the kernel runs the same chunks as the plain version. On the
-    # cluster of 16 also with a check after every sweep, where a CTA may
-    # reach the next chunk's residual before a distant one has read this one's
+    # the early exit: a tol the 48² problem reaches (a cluster of 1), then
+    # on the cylinder's grid and at twice its resolution the residual the
+    # plain version has after 3 chunks, each on the plan's route (tiled)
+    # and the route the plan gives without the card's SM count (a cluster
+    # of 16 at 180×600, the cooperative kernel's device flag at 360×1200);
+    # the kernel runs the same chunks as the plain version. At
+    # 180×600 also with a check after every sweep: on the cluster a CTA may
+    # reach the next chunk's residual before a distant one has read this
+    # one's (the slots alternate), on the tiled route the slots rotate
     for shape, tol, check in [((48, 48), 1e-3, 50), ((180, 600), None, 50),
                               ((360, 1200), None, 50), ((180, 600), None, 1)]:
         rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
@@ -908,21 +943,67 @@ def phase_rbsor_vs_plain():
             three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 3 * check,
                                  1.7, "neumann", mask)
             tol = float(poisson_residual(three, _cuda(rhs), h, h, mask, "neumann"))
-        counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
-        outs = [fn(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 4000, 1.7, "neumann",
-                   mask, tol=tol, check_every=check, chunks_run=c)
-                for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
-        chunks = [int(c) for c in counts]
-        plan = rb.plan_rbsor(shape, max_cluster, sweeps=4000 // check * check)
-        worst_a = max(worst_a, _check("rbsor_a_early_exit", outs[0], outs[1],
-                                      RBSOR_A_ATOL * float(outs[1].abs().max()),
-                                      shape=list(shape), tol=tol, check_every=check,
-                                      chunks_kernel=chunks[0],
-                                      chunks_plain=chunks[1], route=plan.route,
-                                      cluster=plan.cluster))
-        if chunks[0] != chunks[1] or not chunks[0] < 4000 // check:
-            raise AssertionError(f"early exit at {shape} ran {chunks} chunks (kernel, plain)")
+        for plan in _a_plans(shape, max_cluster, sms, 4000 // check * check):
+            counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+            args = (torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 4000, 1.7, "neumann",
+                    mask, tol, check)
+            outs = [_rbsor_by(plan, *args, counts[0]), rb.rbsor_ref(*args, chunks_run=counts[1])]
+            chunks = [int(c) for c in counts]
+            worst_a = max(worst_a, _check("rbsor_a_early_exit", outs[0], outs[1],
+                                          RBSOR_A_ATOL * float(outs[1].abs().max()),
+                                          shape=list(shape), tol=tol, check_every=check,
+                                          chunks_kernel=chunks[0],
+                                          chunks_plain=chunks[1], route=plan.route,
+                                          cluster=plan.cluster, tiles=plan.tiles))
+            if chunks[0] != chunks[1] or not chunks[0] < 4000 // check:
+                raise AssertionError(f"early exit at {shape} on {plan.route} ran {chunks} chunks "
+                                     "(kernel, plain)")
+    _tiled_checks(card, max_cluster, sms)
     return worst_a, worst_b
+
+
+# kernel A's tiled route on the cylinders' masked solves: (shape, sweeps,
+# tol; None: the residual the plain solve has after 3 chunks of 50)
+TILED_CHECKS = [((180, 600), 50, 0.0), ((180, 600), 1500, 1e-8), ((180, 600), 1500, None),
+                ((240, 720), 1500, 1e-8)]
+
+
+def _tiled_checks(card, max_cluster, sms):
+    """Kernel A's tiled route bit for bit against its plain twin on the
+    cylinder's masked problem (its mask at each resolution, h = 1/ny): one
+    50-sweep chunk at 180×600, the full 1500-sweep early exit (tol 1e-8 is
+    below float32's reach: 30 chunks), a tol reached after 3 chunks, and
+    240×720 (cylinder_mac's pressure grid). Each line gives the route the
+    plan takes, the chunks run on both sides and the kernel's device ms
+    (the call, its clone of φ included)."""
+    for shape, iters, tol in TILED_CHECKS:
+        rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+        rhs = _cuda(rhs - rhs.mean())
+        h = 1.0 / shape[0]
+        mask = _cuda(_cylinder_solid(shape))
+        if tol is None:
+            three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), rhs, h, h, 150, 1.7,
+                                 "neumann", mask)
+            tol = float(poisson_residual(three, rhs, h, h, mask, "neumann"))
+        args = (torch.zeros(shape, device="cuda"), rhs, h, h, iters, 1.7, "neumann", mask, tol, 50)
+        counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(3)]
+        before = rb.KERNEL_A_TILED.launches
+        got, want = rb.rbsor(*args, counts[0]), rb.rbsor_ref(*args, counts[1])
+        launched = rb.KERNEL_A_TILED.launches - before
+        ms = device_ms(lambda: rb.rbsor(*args, counts[2]), 10 if iters <= 50 else 3)
+        plan = rb.plan_rbsor(shape, max_cluster, sweeps=iters // 50 * 50 if tol else iters,
+                             sms=sms)
+        chunks = [int(c) for c in counts[:2]]
+        equal = bool(torch.equal(got, want))
+        say("rbsor_a_tiled_vs_plain", shape=list(shape), sweeps=iters, tol=tol, masked=True,
+            route=plan.route, tiles=plan.tiles, sweeps_per_pass=plan.sweeps_per_pass,
+            chunks_kernel=chunks[0], chunks_plain=chunks[1], launches=launched,
+            bit_equal=equal, max_abs_diff=float((got - want).abs().max()), device_ms=ms,
+            card=card)
+        if plan.route != "tiled" or launched != 1 or not equal or chunks[0] != chunks[1]:
+            raise AssertionError(f"tiled kernel A at {shape}, {iters} sweeps, tol {tol}: route "
+                                 f"{plan.route}, {launched} launches, bit-equal {equal}, "
+                                 f"chunks {chunks}")
 
 
 def _window_checks():
@@ -982,7 +1063,8 @@ def _counts():
     counts the kernels keep in device memory."""
     torch.cuda.synchronize()
     return {"predictor": pred.KERNEL.launches, "rbsor_a": rb.KERNEL_A.launches,
-            "rbsor_a_cooperative": rb.KERNEL_A_COOP.launches, "rbsor_b": rb.KERNEL_B.launches}
+            "rbsor_a_cooperative": rb.KERNEL_A_COOP.launches,
+            "rbsor_a_tiled": rb.KERNEL_A_TILED.launches, "rbsor_b": rb.KERNEL_B.launches}
 
 
 def _run(case, steps, chunk, warmup_div_threshold=20.0):
@@ -1037,11 +1119,13 @@ def phase_cylinder():
         wall_s=wall, **_chunk_facts(sim), device_peak_bytes=report.get("device_peak_bytes"))
     if not (math.isfinite(fx) and math.isfinite(fy)):
         raise AssertionError(f"cylinder force not finite: {fx}, {fy}")
-    # the whole early-exit solve is one cluster launch per step, the
-    # capture's eager warm-up steps included; all 30 chunks run (tol 1e-8 is
-    # below float32's reach; the warm-up's are put back with the step's buffers)
+    # the whole early-exit solve is one launch of the tiled route per step,
+    # the capture's eager warm-up steps included; all 30 chunks run (tol 1e-8
+    # is below float32's reach; the warm-up's are put back with the step's
+    # buffers)
     ran = steps + sim.chunk.steps_per_graph
-    want = {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_a_tiled": ran,
+            "rbsor_b": 0}
     if launches != want or chunks != steps * n_chunks:
         raise AssertionError(f"cylinder path launches {launches} and {chunks} chunks, expected "
                              f"{want} and {steps * n_chunks}")
@@ -1054,7 +1138,7 @@ def phase_cylinder():
     if not (diff["du"] <= CYL_UV_ATOL and diff["dv"] <= CYL_UV_ATOL
             and diff["dp"] <= CYL_P_RTOL * diff["p_max"]):
         raise AssertionError(f"cylinder kernel vs streaming: {diff}")
-    return launches["rbsor_a"], chunks / steps
+    return launches["rbsor_a_tiled"], chunks / steps
 
 
 def _steps_apart(a, b, state, steps):
@@ -1090,7 +1174,7 @@ def phase_mg_cavity():
     # cluster; the capture's eager warm-up steps are steps too
     ran = steps + sim.chunk.steps_per_graph
     want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
-            "rbsor_b": ran * 2 * 2}
+            "rbsor_a_tiled": 0, "rbsor_b": ran * 2 * 2}
     if launches != want:
         raise AssertionError(f"multigrid path launches {launches}, expected {want}")
 
@@ -1224,7 +1308,7 @@ def phase_implicit_cavity():
         wall_s=wall, **_chunk_facts(sim))
     ran = steps + sim.chunk.steps_per_graph  # as in phase_mg_cavity
     want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
-            "rbsor_b": ran * 2 * 2}
+            "rbsor_a_tiled": 0, "rbsor_b": ran * 2 * 2}
     if launches != want:
         raise AssertionError(f"implicit multigrid path launches {launches}, expected {want}")
     return launches
@@ -1270,7 +1354,8 @@ def phase_les_cylinder():
         wall_s=wall, **_chunk_facts(sim))
     n_chunks = CYLINDER_KERNEL_POISSON.iters // CYLINDER_KERNEL_POISSON.check_every
     ran = steps + sim.chunk.steps_per_graph
-    want = {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_a_tiled": ran,
+            "rbsor_b": 0}
     if launches != want or chunks != steps * n_chunks:
         raise AssertionError(f"LES cylinder launches {launches} and {chunks} chunks, expected "
                              f"{want} and {steps * n_chunks}")
@@ -1286,7 +1371,7 @@ def phase_les_cylinder():
         max_abs_u=max_u, last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim))
     if any(tvd_launches.values()):
         raise AssertionError(f"the TVD cylinder (DCT solve) launched kernels: {tvd_launches}")
-    return launches["rbsor_a"]
+    return launches["rbsor_a_tiled"]
 
 
 def phase_transport_resume():
@@ -1306,7 +1391,8 @@ def phase_transport_resume():
             r["chunk_route"] != "graph" or r["stopped_reason"] for r in reports):
         raise AssertionError(f"transport runs: {reports}")
     # two runs of 200 steps, each with its capture's 10 warm-up steps
-    want = {"predictor": 420, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    want = {"predictor": 420, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_a_tiled": 0,
+            "rbsor_b": 0}
     if launches != want:
         raise AssertionError(f"transport path launches {launches}, expected {want}")
     snaps = {name: csnap_steps(path) for name, path in (("split", split),
@@ -1655,7 +1741,7 @@ def phase_mac_kernels():
         wall_s=wall, **_chunk_facts(sim))
     ran = steps + sim.chunk.steps_per_graph  # the pressure grid of phase_mg_cavity
     want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
-            "rbsor_b": ran * 2 * 2}
+            "rbsor_a_tiled": 0, "rbsor_b": ran * 2 * 2}
     if launches != want:
         raise AssertionError(f"MAC multigrid path launches {launches}, expected {want}")
     plain = lid_cavity_mac(n=1024, Re=1000.0, device="cuda",
@@ -1677,7 +1763,8 @@ def phase_mac_kernels():
         launches=cyl_launches, kernel_chunks_run=int(chunks_run), max_abs_u=max_u,
         last_chunk=sim.metrics_history[-1], wall_s=wall, **_chunk_facts(sim))
     ran = steps + sim.chunk.steps_per_graph
-    if cyl_launches != {"predictor": 0, "rbsor_a": ran, "rbsor_a_cooperative": 0, "rbsor_b": 0}:
+    if cyl_launches != {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0,
+                        "rbsor_a_tiled": ran, "rbsor_b": 0}:
         raise AssertionError(f"MAC cylinder through kernel A launched {cyl_launches}")
     return launches, cyl_launches
 
@@ -1793,9 +1880,10 @@ def phase_boussinesq():
         ran = steps + sim.chunk.steps_per_graph
         if path.endswith("_mg2"):  # the pressure grid of phase_mg_cavity
             want = {"predictor": 0, "rbsor_a": ran * 2 * 14, "rbsor_a_cooperative": ran * 2 * 2,
-                    "rbsor_b": ran * 2 * 2}
+                    "rbsor_a_tiled": 0, "rbsor_b": ran * 2 * 2}
         else:
-            want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_b": 0}
+            want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0, "rbsor_a_tiled": 0,
+                    "rbsor_b": 0}
             # the exact projection's roundoff scales with what it subtracts:
             # from rest that is the hydrostatic pressure balancing the
             # buoyancy (max|p| ~ Ra·Pr), of which u is a small remainder, so
@@ -2930,7 +3018,7 @@ def _sharded_options(card, mesh):
             single_device_ms_per_step=r_ms, launches=dist_launches,
             single_device_launches=single_launches))
         ran = {k for k, n in dist_launches.items() if n}
-        rbsor = ("rbsor_a", "rbsor_a_cooperative", "rbsor_b")
+        rbsor = ("rbsor_a", "rbsor_a_cooperative", "rbsor_a_tiled", "rbsor_b")
         if ran != set(kernels) or sum(dist_launches[k] for k in rbsor) != sum(
                 single_launches[k] for k in rbsor) or (dist_launches["predictor"]
                                                        != single_launches["predictor"]):
@@ -3083,7 +3171,7 @@ def phase_drivers(card):
     """Three example drivers on the card, as a user runs them: the
     reference-parity cylinder (``cylinder_reference_v5 --ref-parity --io
     native``, one 200-step chunk: healthy, its ``.csnap`` read back, kernel
-    A's cluster kernel launched once per step and once per warm-up step, as
+    A's tiled route launched once per step and once per warm-up step, as
     it counts on the device), the wedge (``wedge_shock`` to a short t, its
     θ-β-M report) and the staggered tiers at world size 1
     (``sharded_mac_tiers --device cuda --ranks 1``, its own NCCL rank)."""
@@ -3105,8 +3193,8 @@ def phase_drivers(card):
     say("driver_cylinder_reference_v5", steps=sorted(steps), launches=launches,
         final_time=report["final_time"], snapshot_time=t_last, wall_s=wall,
         **_chunk_facts(sim), card=card)
-    want = {"predictor": 0, "rbsor_a": DRIVER_V5_STEPS + sim.chunk.steps_per_graph,
-            "rbsor_a_cooperative": 0, "rbsor_b": 0}
+    want = {"predictor": 0, "rbsor_a": 0, "rbsor_a_cooperative": 0,
+            "rbsor_a_tiled": DRIVER_V5_STEPS + sim.chunk.steps_per_graph, "rbsor_b": 0}
     if (launches != want or sorted(steps) != [0, DRIVER_V5_STEPS]
             or set(fields) != {"u", "v", "p"} or fields["u"].shape != (180, 600)
             or not all(np.isfinite(a).all() for a in fields.values())):
@@ -3132,7 +3220,7 @@ def phase_drivers(card):
     if (tiers["backend"] != "nccl" or set(rows) != set(DRIVER_MAC_TIER_ATOL)
             or any(rows[k]["max_abs_err"] > atol for k, atol in DRIVER_MAC_TIER_ATOL.items())):
         raise AssertionError(f"sharded_mac_tiers: {tiers}")
-    return launches["rbsor_a"]
+    return launches["rbsor_a_tiled"]
 
 
 def _study_driver(card, name, run, steps_of, check):
@@ -3388,20 +3476,27 @@ def phase_timings(card):
     say("time_predictor", shape=[1024, 1024], **pred_t, card=card)
     pred_4096 = predictor_ms(4096, reps=50)
     say("time_predictor", shape=[4096, 4096], **pred_4096, card=card)
-    # kernel A: one 50-sweep chunk of the cylinder's masked solve (a
-    # cluster of 16), then 50 sweeps on each other route: a cluster of 1
-    # and of 8, and the cooperative kernel on the cylinder at twice its
-    # resolution
+    # kernel A: one 50-sweep chunk of the cylinder's masked solve (the
+    # tiled route), then 50 sweeps on each other route: the cluster of 16
+    # the size alone gives the cylinder, a cluster of 1 and of 8, and on the
+    # cylinder at twice its resolution the tiled route and the cooperative
+    # kernel
+    most = rb.max_cluster("cuda")
     a_t = rbsor_ms((180, 600), sweeps=50, reps=20)
     say("time_rbsor_a", **a_t, card=card)
-    a_paths = {f"cluster{a_t['cluster']}": a_t}
-    for shape, masked in [((32, 48), False), ((128, 256), False), ((360, 1200), True)]:
-        t = rbsor_ms(shape, sweeps=50, reps=10, masked=masked)
+    a_paths = {"tiled_180x600": a_t}
+    for shape, masked, plan in [((180, 600), True, rb.plan_rbsor((180, 600), most)),
+                                ((32, 48), False, None),
+                                ((128, 256), False, rb.plan_rbsor((128, 256), most)),
+                                ((360, 1200), True, None),
+                                ((360, 1200), True, rb.RbsorPlan("cooperative"))]:
+        t = rbsor_ms(shape, sweeps=50, reps=10, masked=masked, plan=plan)
         say("time_rbsor_a", **t, card=card)
-        a_paths[t["route"] if t["route"] == "cooperative" else f"cluster{t['cluster']}"] = t
+        route = f"cluster{t['cluster']}" if t["route"] == "cluster" else t["route"]
+        a_paths[f"{route}_{shape[0]}x{shape[1]}"] = t
     # the multigrid's largest kernel-A level, 512², 2 sweeps: the route the
     # plan takes (cooperative) against the cluster route the size alone gives
-    for plan in (None, rb.plan_rbsor((512, 512), rb.max_cluster("cuda"))):
+    for plan in (None, rb.plan_rbsor((512, 512), most)):
         t = rbsor_ms((512, 512), sweeps=2, reps=20, masked=False, plan=plan)
         say("time_rbsor_a", **t, card=card)
         a_paths[f"mg512_{t['route'] if plan is None else 'forced_cluster'}"] = t
@@ -3489,7 +3584,7 @@ def main() -> int:
     say("build", seconds_per_source=cuda_build.build_all(kernels, [EMPTY_SOURCE]),
         kernels=[k.symbol for k in kernels])
     err = {"fused_predictor_central": phase_kernel_vs_plain()}
-    err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain()
+    err["rbsor"], err["rbsor_blocked"] = phase_rbsor_vs_plain(card)
     phase = _timed_phases()
     phase(phase_chunk_routes)
     bf16_launches = phase(phase_bf16_storage, card)
@@ -3543,10 +3638,10 @@ def main() -> int:
                   "cavity_1024_implicit_mg_cooperative": implicit_mg["rbsor_a_cooperative"],
                   "cavity_mac_1024_mg": mac_mg["rbsor_a"],
                   "cavity_mac_1024_mg_cooperative": mac_mg["rbsor_a_cooperative"],
-                  "cylinder_mac_720x240": mac_cyl["rbsor_a"],
+                  "cylinder_mac_720x240": mac_cyl["rbsor_a_tiled"],
                   "heated_cavity_1024_mg": bq_mg["rbsor_a"],
                   "heated_cavity_1024_mg_cooperative": bq_mg["rbsor_a_cooperative"],
-                  **sharded("rbsor_a")},
+                  **sharded("rbsor_a"), **sharded("rbsor_a_tiled")},
         "rbsor_blocked": {"cavity_1024_mg": mg["rbsor_b"],
                           "cavity_1024_implicit_mg": implicit_mg["rbsor_b"],
                           "cavity_mac_1024_mg": mac_mg["rbsor_b"],

@@ -161,10 +161,10 @@ def test_plain_versions_equal_the_streaming_solver():
     np.testing.assert_allclose(kernel.numpy(), stream.numpy(), rtol=0, atol=ATOL_A)
 
 
-# kernel A's plan on a card that schedules clusters of 16 (the H100):
-# (shape, max cluster, sweeps or None for the size alone) -> (route, cluster
-# size). Bands above LARGE_BAND cells take the cluster only for a solve of at
-# least CLUSTER_MIN_SWEEPS sweeps
+# kernel A's plan on a card that schedules clusters of 16 (the H100), the
+# tiled route not considered (no SM count): (shape, max cluster, sweeps or
+# None for the size alone) -> (route, cluster size). Bands above LARGE_BAND
+# cells take the cluster only for a solve of at least CLUSTER_MIN_SWEEPS sweeps
 PLAN_CASES = [
     ((32, 48), 16, None, "cluster", 1),  # the test_pallas problem: one CTA
     ((37, 129), 16, None, "cluster", 2),
@@ -180,7 +180,7 @@ PLAN_CASES = [
     ((512, 512), 16, 31, "cooperative", 0),
     ((512, 512), 16, 32, "cluster", 16),
     ((180, 600), 16, 2, "cluster", 16),  # 7,200 cells per band
-    ((180, 600), 16, 1500, "cluster", 16),  # the ref-parity cylinder's solve
+    ((180, 600), 16, 1500, "cluster", 16),  # ... without the SM count (no tiled route)
     ((256, 256), 16, 2, "cluster", 16),  # the multigrid's 256² level
     ((360, 1200), 16, 1500, "cooperative", 0),  # over capacity at any sweeps
 ]
@@ -203,6 +203,53 @@ def test_plan_rbsor_routes_by_size(shape, most, sweeps, route, cluster):
     assert plan.threads % pairs_per_row == 0 and plan.threads <= rb.CLUSTER_THREADS
     assert plan.threads // pairs_per_row * plan.rows_per_thread >= plan.rows_per_cta
     assert plan.smem_bytes <= rb.SMEM_LIMIT
+
+
+# the tiled route on a card of 132 SMs (the H100): (shape, sweeps) -> route.
+# Long solves on large grids spread over the card, early exits checked
+# every sweep included; the multigrid's 2-sweep levels, short solves and
+# small grids keep the cluster or cooperative route
+TILED_PLAN_CASES = [
+    ((180, 600), 1500, "tiled"),  # the ref-parity cylinder's solve
+    ((240, 720), 1500, "tiled"),  # cylinder_mac's pressure grid
+    ((360, 1200), 1500, "tiled"),  # the cylinder at twice its resolution: above the cluster
+    ((180, 600), 50, "tiled"),  # one 50-sweep chunk
+    ((512, 512), 2, "cooperative"),  # the multigrid's 512² smoothing call
+    ((256, 256), 2, "cluster"),  # ... and its 256² level
+    ((8, 8), 2, "cluster"),  # ... and its 8² level
+    ((180, 600), 2, "cluster"),  # a short solve
+    ((180, 600), rb.TILED_MIN_SWEEPS - 1, "cluster"),
+    ((48, 48), 4000, "cluster"),  # a small grid, however long the solve
+]
+
+
+@pytest.mark.parametrize(
+    "shape, sweeps, route", TILED_PLAN_CASES,
+    ids=[f"{s[0]}x{s[1]}-{n}sweeps" for s, n, _ in TILED_PLAN_CASES])
+def test_plan_rbsor_takes_the_tiled_route_for_long_solves(shape, sweeps, route):
+    plan = rb.plan_rbsor(shape, 16, sweeps=sweeps, sms=132)
+    assert plan.route == route
+    if route != "tiled":
+        assert plan == rb.plan_rbsor(shape, 16, sweeps=sweeps)  # as without the SM count
+        return
+    ny, nx = shape
+    k = plan.sweeps_per_pass
+    assert plan == rb.tile_plan(shape, 132)
+    assert plan.tile_cols + 4 * k == rb.TILE_WIDTH and plan.tile_cols % 2 == 0
+    tiles_x, tiles_y = -(-nx // plan.tile_cols), -(-ny // plan.rows_per_cta)
+    assert plan.tiles == tiles_x * tiles_y <= 132
+    # each tile's 2K halo reaches only the 8 tiles around it
+    assert plan.rows_per_cta >= 2 * k and plan.tile_cols >= 2 * k
+    staged = plan.rows_per_cta + 4 * k
+    assert plan.rows_per_thread in rb.TILE_ROWS_PER_THREAD
+    assert plan.threads == rb.TILE_WIDTH // 2 * -(-staged // plan.rows_per_thread) <= 1024
+    assert plan.smem_bytes == 4 * ((staged + 2) * rb.TILE_WIDTH + 32) <= rb.SMEM_LIMIT
+
+
+def test_tile_plan_refuses_grids_beyond_the_card():
+    assert rb.tile_plan((180, 600), 10) is None  # 14 columns of tiles on 10 SMs
+    assert rb.tile_plan((1024, 1024), 132) is None  # 171-row tiles: over 1024 threads
+    assert rb.plan_rbsor((1024, 1024), 16, sweeps=1500, sms=132).route == "cooperative"
 
 
 def test_plan_rbsor_needs_the_shared_memory_it_names():
@@ -251,22 +298,73 @@ def _cylinder_solid(shape):
     return solid
 
 
+ROUTE_KERNELS = {"cluster": rb.KERNEL_A, "cooperative": rb.KERNEL_A_COOP,
+                 "tiled": rb.KERNEL_A_TILED}
+
+
+def _forced_plan(shape, route):
+    """Kernel A's plan on the card for ``route``, whatever the sweeps: the
+    cluster the size alone gives."""
+    if route == "cooperative":
+        return rb.RbsorPlan("cooperative")
+    if route == "tiled":
+        return rb.tile_plan(shape, rb.card_sms("cuda"))
+    return rb.plan_rbsor(shape, rb.max_cluster("cuda"))
+
+
+def _early_exit_on_card(shape, route, tol, check):
+    """The cylinder's masked problem (h = 1/ny) solved for up to 4000
+    sweeps to ``tol``, checked every ``check`` sweeps, on ``route`` and by
+    the plain twin: (kernel φ, plain φ, chunks each, the route's launches)."""
+    rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    rhs = _cuda(rhs - rhs.mean())
+    h = 1.0 / shape[0]
+    mask = _cuda(_cylinder_solid(shape))
+    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
+    kernel = ROUTE_KERNELS[route]
+    before = kernel.launches
+    got = torch.zeros(shape, device="cuda")
+    rb.solve_a(got, rhs, mask.float(), _forced_plan(shape, route), h, h, 4000, 1.7, "neumann",
+               tol, check, counts[0])
+    want = rb.rbsor_ref(torch.zeros(shape, device="cuda"), rhs, h, h, 4000, 1.7, "neumann", mask,
+                        tol=tol, check_every=check, chunks_run=counts[1])
+    torch.cuda.synchronize()
+    return got, want, [int(c) for c in counts], kernel.launches - before
+
+
+def _three_chunk_tol(shape, check):
+    """The residual the plain twin has after 3 chunks of ``check`` sweeps on
+    the cylinder's masked problem."""
+    rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    rhs = _cuda(rhs - rhs.mean())
+    h = 1.0 / shape[0]
+    mask = _cuda(_cylinder_solid(shape))
+    three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), rhs, h, h, 3 * check, 1.7, "neumann",
+                         mask)
+    return float(rb.poisson_residual(three, rhs, h, h, mask, "neumann"))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(128, 256), (180, 600), (360, 1200)],
-                         ids=["cluster8", "cluster16", "cooperative"])
-def test_kernel_a_routes_match_plain_on_card(shape):
+@pytest.mark.parametrize("shape, route", [
+    ((128, 256), "cluster"), ((180, 600), "cluster"), ((360, 1200), "cooperative"),
+    ((37, 129), "cluster"), ((512, 512), "cluster"),
+    ((180, 600), "tiled"), ((240, 720), "tiled"), ((360, 1200), "tiled"),
+], ids=["cluster8", "cluster16", "cooperative", "cluster2", "cluster16-8rows", "tiled-180x600",
+        "tiled-240x720", "tiled-360x1200"])
+def test_kernel_a_routes_match_plain_on_card(shape, route):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     phi0, rhs, h, _ = _problem(shape)
     mask = _cuda(_cylinder_solid(shape))
-    plan = rb.plan_rbsor(shape, rb.max_cluster("cuda"))
-    kernel = rb.KERNEL_A if plan.route == "cluster" else rb.KERNEL_A_COOP
+    plan = _forced_plan(shape, route)
+    kernel = ROUTE_KERNELS[route]
     before = kernel.launches
-    got = rb.rbsor(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, "neumann", mask)
+    got = _cuda(phi0)
+    rb.solve_a(got, _cuda(rhs), mask.float(), plan, h, h, 30, 1.7)
     want = rb.rbsor_ref(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, "neumann", mask)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert float((got - want).abs().max()) <= ATOL_A
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -303,28 +401,42 @@ def test_cluster_early_exit_is_one_launch_on_card():
 
 
 @pytest.mark.cuda
-def test_cluster_early_exit_checked_every_sweep_on_card():
-    """A residual check after every sweep on a cluster of 16: a CTA may
+@pytest.mark.parametrize("route", ["cluster", "tiled"])
+def test_cluster_early_exit_checked_every_sweep_on_card(route):
+    """A residual check after every sweep. On a cluster of 16 a CTA may
     finish the next chunk before a distant CTA has read this chunk's
-    residual, so the chunks' residual slots alternate."""
+    residual, so the chunks' residual slots alternate; on the tiled route
+    every chunk is one 1-sweep pass, an exchange, a reduction and a grid
+    sync, and the slots rotate by chunk % 3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     shape = (180, 600)
-    rhs = np.random.RandomState(1).randn(*shape).astype(np.float32)
-    rhs -= rhs.mean()
-    h = 1.0 / shape[0]
-    mask = _cuda(_cylinder_solid(shape))
-    assert rb.plan_rbsor(shape, rb.max_cluster("cuda"), sweeps=4000).cluster == 16
-    three = rb.rbsor_ref(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 3, 1.7,
-                         "neumann", mask)
-    tol = float(rb.poisson_residual(three, _cuda(rhs), h, h, mask, "neumann"))
-    counts = [torch.zeros((), dtype=torch.int32, device="cuda") for _ in range(2)]
-    outs = [fn(torch.zeros(shape, device="cuda"), _cuda(rhs), h, h, 4000, 1.7, "neumann", mask,
-               tol=tol, check_every=1, chunks_run=c)
-            for fn, c in zip((rb.rbsor, rb.rbsor_ref), counts)]
-    torch.cuda.synchronize()
-    assert int(counts[0]) == int(counts[1]) < 4000
-    assert torch.equal(outs[0], outs[1])
+    if route == "cluster":
+        assert _forced_plan(shape, route).cluster == 16
+    got, want, chunks, launches = _early_exit_on_card(shape, route, _three_chunk_tol(shape, 1), 1)
+    assert launches == 1
+    assert chunks[0] == chunks[1] < 4000
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, route", [
+    ((180, 600), "cluster"), ((180, 600), "tiled"), ((360, 1200), "cooperative"),
+    ((360, 1200), "tiled"), ((240, 720), "tiled"),
+])
+def test_early_exit_after_three_chunks_on_card(shape, route):
+    """The cylinder's masked problem checked every 50 sweeps, to the
+    residual the plain twin has after 3 chunks, on each route of kernel A:
+    the same chunks and the same bits. The cluster and tiled routes run the
+    whole solve in one launch; the cooperative route launches every chunk
+    (those after the exit return at once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    got, want, chunks, launches = _early_exit_on_card(shape, route, _three_chunk_tol(shape, 50),
+                                                      50)
+    assert launches == (4000 // 50 if route == "cooperative" else 1)
+    assert chunks[0] == chunks[1] < 4000 // 50
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -336,11 +448,16 @@ def test_kernel_a_matches_plain_on_card(shape, bc, masked):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     phi0, rhs, h, solid = _problem(shape)
     mask = _cuda(solid) if masked else None
-    before = rb.KERNEL_A.launches
+    # one launch on the route the plan takes: a cluster at (32, 48), the
+    # tiled route at (37, 129) (its cluster of 2 is held to the twin by
+    # test_kernel_a_routes_match_plain_on_card)
+    plan = rb.plan_rbsor(shape, rb.max_cluster("cuda"), sweeps=30, sms=rb.card_sms("cuda"))
+    kernel = ROUTE_KERNELS[plan.route]
+    before = kernel.launches
     got = rb.rbsor(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, bc, mask)
     want = rb.rbsor_ref(_cuda(phi0), _cuda(rhs), h, h, 30, 1.7, bc, mask)
     torch.cuda.synchronize()
-    assert rb.KERNEL_A.launches == before + 1
+    assert kernel.launches == before + 1
     assert float((got - want).abs().max()) <= ATOL_A
 
 
@@ -429,3 +546,121 @@ def test_parity_offset_swaps_the_colours():
     t = torch.zeros(8, 8)
     with pytest.raises(ValueError, match="parity0"):
         rb.rbsor_blocked(t, t, 0.1, 0.1, 2, parity0=2)
+
+
+def _span_distance(idx, lo, hi):
+    """Each index's distance from the span [lo, hi) (``span_distance`` in
+    ``csrc/rbsor.cu``)."""
+    return torch.where(idx < lo, lo - idx, torch.where(idx >= hi, idx - hi + 1, 0))
+
+
+def _tiled_schedule(phi, rhs, h, plan, iters, bc="neumann", mask=None, tol=0.0,
+                    check_every=8, omega=1.7):
+    """The tiled route's schedule (``csrc/rbsor.cu::tiled::rbsor_kernel``)
+    in plain torch. Each tile keeps its own window: its owned cells and 2K
+    more a side, clipped at the domain. A pass of k sweeps runs 2k
+    half-sweeps on every window, half-sweep t updating only the window's
+    live cells (not frozen, and not on a rim the domain does not clamp) in
+    the rows within 2k − 1 − t of the owned ones. The exchange gathers the
+    owned cells and refreshes each window's cells within 2K of its tile;
+    the rest of a window is never refreshed. A chunk's last pass takes what
+    is left; after each chunk but the last, an exchange and the early exit
+    on the residual of the owned cells. Returns (φ, chunks run)."""
+    ny, nx = phi.shape
+    k, halo = plan.sweeps_per_pass, 2 * plan.sweeps_per_pass
+    tr, tc = plan.rows_per_cta, plan.tile_cols
+    ax, ay, denom_inv = rb._coeffs(h, h)
+    check = max(1, check_every)
+    sweeps, chunks = (check, max(1, iters // check)) if tol > 0.0 else (iters, 1)
+    gi, gj = torch.arange(ny)[:, None], torch.arange(nx)[None, :]
+    red = (gi + gj) % 2 == 0
+    frozen = torch.zeros((ny, nx), dtype=torch.bool) if mask is None else mask.clone()
+    if bc == "dirichlet":
+        frozen |= (gi == 0) | (gi == ny - 1) | (gj == 0) | (gj == nx - 1)
+    tiles = []
+    for oi0 in range(0, ny, tr):
+        for oj0 in range(0, nx, tc):
+            y0, x0 = max(oi0 - halo, 0), max(oj0 - halo, 0)
+            y1, x1 = min(y0 + tr + 2 * halo, ny), min(x0 + tc + 2 * halo, nx)
+            rows, cols = torch.arange(y0, y1)[:, None], torch.arange(x0, x1)[None, :]
+            di = _span_distance(rows, oi0, min(oi0 + tr, ny))
+            dj = _span_distance(cols, oj0, min(oj0 + tc, nx))
+            whole = (((rows > y0) | (rows == 0)) & ((rows < y1 - 1) | (rows == ny - 1))
+                     & ((cols > x0) | (cols == 0)) & ((cols < x1 - 1) | (cols == nx - 1)))
+            live = whole & ~frozen[y0:y1, x0:x1]
+            own = (di == 0) & (dj == 0)
+            tiles.append(dict(at=(slice(y0, y1), slice(x0, x1)), win=phi[y0:y1, x0:x1].clone(),
+                              rhs=rhs[y0:y1, x0:x1], di=di.clamp(max=15), own=own,
+                              get=~own & (di <= halo) & (dj <= halo),
+                              colours=(red[y0:y1, x0:x1] & live, ~red[y0:y1, x0:x1] & live)))
+    assert len(tiles) == plan.tiles
+    phi = phi.clone()
+
+    def gather():
+        for t in tiles:
+            phi[t["at"]] = torch.where(t["own"], t["win"], phi[t["at"]])
+
+    def exchange():
+        gather()
+        for t in tiles:
+            t["win"] = torch.where(t["get"], phi[t["at"]], t["win"])
+
+    fresh = True
+    for chunk in range(chunks):
+        swept = 0
+        while swept < sweeps:
+            kp = min(k, sweeps - swept)
+            if not fresh:
+                exchange()
+            fresh = False
+            for t in tiles:
+                w = t["win"]
+                for hs in range(2 * kp):
+                    on = t["colours"][hs & 1] & (t["di"] <= 2 * kp - 1 - hs)
+                    star = (rb._nbsum(w, ax, ay) - t["rhs"]) * denom_inv
+                    w = torch.where(on, (1.0 - omega) * w + omega * star, w)
+                t["win"] = w
+            swept += kp
+        if chunk + 1 == chunks:
+            break
+        exchange()
+        fresh = True
+        if not bool(rb.poisson_residual(phi, rhs, h, h, mask, bc) > tol):
+            return phi, chunk + 1
+    gather()
+    return phi, chunks
+
+
+@pytest.mark.parametrize("shape, sms, k, bc, masked, iters, check", [
+    ((40, 130), 12, 2, "neumann", True, 12, 0),  # 4 × 3 tiles, the last column 18 wide
+    ((40, 130), 12, 2, "dirichlet", False, 12, 0),
+    ((37, 131), 9, 3, "neumann", True, 11, 0),  # ragged tiles, odd origins, a 2-sweep tail
+    ((37, 131), 9, 3, "dirichlet", True, 11, 0),
+    ((40, 130), 12, 2, "neumann", True, 400, 5),  # early exit, chunks of 2 + 2 + 1 sweeps
+    ((37, 131), 9, 3, "dirichlet", False, 400, 4),
+], ids=["neumann-masked", "dirichlet", "ragged-tail", "ragged-dirichlet-masked",
+        "early-exit", "early-exit-dirichlet"])
+def test_tiled_schedule_equals_global_sweeps(shape, sms, k, bc, masked, iters, check):
+    """The tiled route's passes with their 2K halos, row-limited
+    half-sweeps and exchanged rims, in plain torch on the plan's own tiles,
+    give ``rbsor_ref``'s bits; with an
+    early exit (a tol the plain solve reaches after 3 chunks) the same
+    chunks run."""
+    rng = np.random.default_rng(5)
+    phi0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    mask = None
+    if masked:
+        mask = torch.zeros(shape, dtype=torch.bool)
+        mask[10:17, 50:61] = True  # across a tile boundary
+    plan = rb.tile_plan(shape, sms, sweeps_per_pass=k)
+    assert plan.tiles > 4
+    tol = 0.0
+    if check:
+        three = rb.rbsor_ref(phi0, rhs, 0.05, 0.05, 3 * check, 1.7, bc, mask)
+        tol = float(rb.poisson_residual(three, rhs, 0.05, 0.05, mask, bc))
+    count = torch.zeros((), dtype=torch.int32)
+    want = rb.rbsor_ref(phi0, rhs, 0.05, 0.05, iters, 1.7, bc, mask, tol, check or 8, count)
+    got, chunks = _tiled_schedule(phi0, rhs, 0.05, plan, iters, bc, mask, tol, check or 8)
+    assert torch.equal(got, want)
+    assert chunks == (int(count) if check else 1) == (3 if check else 1)
